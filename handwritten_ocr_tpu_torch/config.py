@@ -1,6 +1,7 @@
-"""Constants of the OCR read path (copied from ``handwritten_ocr_tpu/config.py``).
+"""Constants of the OCR read and reasoning paths (copied from
+``handwritten_ocr_tpu/config.py``).
 
-Only the names the read path uses live here; the orchestrator's knobs come
+Only the names those paths use live here; the orchestrator's knobs come
 with the pipeline in a later slice.
 """
 
@@ -24,6 +25,10 @@ PREPROCESSING_STRATEGIES: list[list[str]] = [
     ["deskew", "high_contrast", "binarize"],
 ]
 
+# ── Reasoning-LLM configuration ─────────────────────────────────────
+# Non-thinking mode: the chat template closes an empty <think> block.
+LLM_ENABLE_THINKING = False
+
 # ── Continuous-batching serving (engine/serving.py) ──────────────────
 # Fixed decode-slot count (batch width of every decode step).
 SERVE_SLOTS = 24
@@ -36,6 +41,11 @@ SERVE_CHUNK = 32
 SERVE_THROUGHPUT_CHUNK = 128
 # Prompt lengths pad up to a multiple of this.
 SERVE_PREFILL_BUCKET = 128
+# int8 KV cache: per-token/per-head scales (amax/127 over head_dim),
+# quantised on append and dequantised in score space inside the decode
+# kernel. Halves pool memory and page-read bytes. The default of every
+# engine on every device; a caller passes kv_quant=False for fp pools.
+SERVE_KV_INT8 = True
 # Pages per vision-tower call: wider batches encode in sequential chunks,
 # which caps the tower's activation memory at one chunk.
 SERVE_VISION_CHUNK = 8

@@ -50,6 +50,14 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* out, __nv_bflo
   }
 }
 
+// 16 int8 values widened to float (exact).
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out, int8_t) {
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    out[i] = static_cast<float>(static_cast<int8_t>((words[i / 4] >> (8 * (i % 4))) & 0xffu));
+}
+
 // Max / sum over groups of `width` neighbouring lanes (width a power of 2).
 template <int width> __device__ __forceinline__ float group_max(float x) {
 #pragma unroll

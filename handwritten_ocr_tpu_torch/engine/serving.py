@@ -130,7 +130,9 @@ class ContinuousBatcher:
     n_blocks: pool size (block 0 is the trash sink); max_context: per-
     sequence bound (table width); chunk: decode steps per dispatch when a
     live request streams tokens, throughput_chunk otherwise;
-    prefill_bucket: prompt lengths pad up to a multiple of this.
+    prefill_bucket: prompt lengths pad up to a multiple of this; dtype:
+    the fp pools' dtype; kv_quant: int8 pools with per-token, per-head
+    scales instead (the serving default, ``config.SERVE_KV_INT8``).
 
     ``stats`` accumulates host-clock seconds of prefill and decode (each
     ends in a device-to-host read, so the times include the device work)
@@ -145,7 +147,8 @@ class ContinuousBatcher:
                  block_size: int = 64, n_blocks: int | None = None,
                  max_context: int = 4096, chunk: int = 16,
                  prefill_bucket: int = 128, dtype=torch.bfloat16,
-                 device="cpu", throughput_chunk: int | None = None):
+                 device="cpu", throughput_chunk: int | None = None,
+                 kv_quant: bool = False):
         cfg = program.cfg
         self.program = program
         self.device = torch.device(device)
@@ -162,7 +165,7 @@ class ContinuousBatcher:
         self.cache = PagedKVCache.zeros(
             cfg.num_hidden_layers, n_blocks, block_size, n_slots,
             self.max_blocks, cfg.num_key_value_heads, cfg.head_dim,
-            dtype=dtype, device=self.device)
+            dtype=dtype, device=self.device, kv_quant=kv_quant)
         self._free_blocks: list[int] = list(range(n_blocks - 1, 0, -1))
         self._tables = np.zeros((n_slots, self.max_blocks), np.int32)
         self._free_slots: list[int] = list(range(n_slots - 1, -1, -1))

@@ -1,13 +1,17 @@
-"""PyTorch engines: the preprocessor and the batched OCR backend.
+"""PyTorch engines: the preprocessor, the batched OCR backend and the
+reasoning backend.
 
-Port of ``TPUPreprocessor`` and the paged read path of ``JaxOCRBackend``
-(``handwritten_ocr_tpu/engine/jax_engines.py``). The model stays resident
+Port of ``TPUPreprocessor``, the paged read path of ``JaxOCRBackend`` and
+the paged free-decode path of ``JaxReasoningBackend``
+(``handwritten_ocr_tpu/engine/jax_engines.py``). The models stay resident
 on the device; the strategies of one page share one batched vision +
 prefill + decode (every transform keeps the page geometry, so they share
-a grid).
+a grid), and the turns of a chat batch share the continuous batcher.
 
-Both entry points run on the first CUDA card unless the caller passes
-``device``; without a card and without a device they raise.
+Every entry point runs on the first CUDA card unless the caller passes
+``device``; without a card and without a device they raise. Both backends
+decode over an int8 KV cache unless the caller passes ``kv_quant=False``
+(``config.SERVE_KV_INT8``, the same default on every device).
 """
 
 from __future__ import annotations
@@ -22,11 +26,42 @@ from handwritten_ocr_tpu_torch import config as cfg_mod
 from handwritten_ocr_tpu_torch.engine.protocols import PreparedImage
 from handwritten_ocr_tpu_torch.models.processor import (TextTokenizer,
                                                         aligned_smart_size,
+                                                        llm_chat_prompt,
                                                         load_image_rgb,
                                                         pack_image_device,
                                                         resize_bicubic,
                                                         vlm_chat_prompt)
 from handwritten_ocr_tpu_torch.ops.dispatch import resolve_device
+
+
+def _full_fp32_on_the_card() -> None:
+    """fp32 products and convolutions in full fp32 on the card: TF32
+    would keep about three decimal digits and drift from the reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _ensure_batcher(batcher, needed_context: int, text: dict, text_cfg,
+                    eos_token_id: int, device, kv_quant: bool):
+    """``batcher``, or a new one when it is None or its context bound is
+    below ``needed_context``. The bound rounds up to a power of two (floor
+    512); the table-width ladder keeps attention reads length-bounded
+    inside it, so rounding up costs only pool capacity."""
+    from handwritten_ocr_tpu_torch.engine.serving import (ContinuousBatcher,
+                                                          PagedProgram)
+    context = 512
+    while context < needed_context:
+        context *= 2
+    if batcher is not None and batcher.max_context >= context:
+        return batcher
+    program = PagedProgram(text, text_cfg, eos_token_id=eos_token_id)
+    return ContinuousBatcher(
+        program, n_slots=cfg_mod.SERVE_SLOTS,
+        block_size=cfg_mod.SERVE_BLOCK_SIZE, max_context=context,
+        chunk=cfg_mod.SERVE_CHUNK,
+        throughput_chunk=cfg_mod.SERVE_THROUGHPUT_CHUNK,
+        prefill_bucket=cfg_mod.SERVE_PREFILL_BUCKET,
+        dtype=text["embed"]["w"].dtype, device=device, kv_quant=kv_quant)
 
 
 def strategy_label(strategy: str | Sequence[str]) -> str:
@@ -90,40 +125,23 @@ class TorchOCRBackend:
     def __init__(self, model, tokenizer: TextTokenizer,
                  device: str | torch.device | None = None,
                  min_pixels: int = cfg_mod.OCR_MIN_PIXELS,
-                 max_pixels: int = cfg_mod.OCR_MAX_PIXELS):
+                 max_pixels: int = cfg_mod.OCR_MAX_PIXELS,
+                 kv_quant: bool = cfg_mod.SERVE_KV_INT8):
         self.device = resolve_device(device)
-        # fp32 products and convolutions in full fp32 on the card: TF32
-        # would keep about three decimal digits and drift from the
-        # reference.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        _full_fp32_on_the_card()
         self.model = model
         self.tokenizer = tokenizer
         self.min_pixels = min_pixels
         self.max_pixels = max_pixels
+        self.kv_quant = kv_quant
         self._batcher = None
         self.stats = {"vision_s": 0.0}
 
     def _ensure_batcher(self, needed_context: int):
-        """(Re)build the batcher when the context bound grows; the bound
-        rounds up to a power of two (floor 512)."""
-        from handwritten_ocr_tpu_torch.engine.serving import (
-            ContinuousBatcher, PagedProgram)
-        context = 512
-        while context < needed_context:
-            context *= 2
-        if self._batcher is None or self._batcher.max_context < context:
-            config = self.model.config
-            text = self.model.params["text"]
-            program = PagedProgram(text, config.text,
-                                   eos_token_id=config.eos_token_id)
-            self._batcher = ContinuousBatcher(
-                program, n_slots=cfg_mod.SERVE_SLOTS,
-                block_size=cfg_mod.SERVE_BLOCK_SIZE, max_context=context,
-                chunk=cfg_mod.SERVE_CHUNK,
-                throughput_chunk=cfg_mod.SERVE_THROUGHPUT_CHUNK,
-                prefill_bucket=cfg_mod.SERVE_PREFILL_BUCKET,
-                dtype=text["embed"]["w"].dtype, device=self.device)
+        config = self.model.config
+        self._batcher = _ensure_batcher(
+            self._batcher, needed_context, self.model.params["text"],
+            config.text, config.eos_token_id, self.device, self.kv_quant)
         return self._batcher
 
     def _prompt_ids(self, prompt: str, n_image_tokens: int) -> np.ndarray:
@@ -195,3 +213,95 @@ class TorchOCRBackend:
 
     def release(self) -> None:
         """No-op: the model stays resident on the device."""
+
+
+class TorchReasoningBackend:
+    """Qwen3 chat decode for the critic / editor / arbitrator: greedy free
+    decode through the continuous batcher over the paged KV cache.
+
+    ``model`` is a :class:`~handwritten_ocr_tpu_torch.models.qwen3.
+    Qwen3Model`` (bf16 or int8 weights). Schema-guided decode is not
+    ported: ``json_schema`` raises.
+    """
+
+    def __init__(self, model, tokenizer: TextTokenizer,
+                 enable_thinking: bool = cfg_mod.LLM_ENABLE_THINKING,
+                 stream: bool = False,
+                 device: str | torch.device | None = None,
+                 kv_quant: bool = cfg_mod.SERVE_KV_INT8):
+        self.device = resolve_device(device)
+        _full_fp32_on_the_card()
+        self.model = model
+        self.tokenizer = tokenizer
+        self.enable_thinking = enable_thinking
+        # Live token streaming to stdout for single-request calls.
+        self.stream = stream
+        self.kv_quant = kv_quant
+        self._batcher = None
+
+    def _ensure_batcher(self, needed_context: int):
+        config = self.model.config
+        self._batcher = _ensure_batcher(
+            self._batcher, needed_context, self.model.params, config,
+            config.eos_token_id, self.device, self.kv_quant)
+        return self._batcher
+
+    def _stream_printer(self):
+        """on_tokens callback: prints the decoded text incrementally."""
+        state = {"ids": [], "printed": ""}
+
+        def emit(new_tokens: list[int], done: bool) -> None:
+            state["ids"].extend(new_tokens)
+            text = self.tokenizer.decode(state["ids"])
+            if not done:
+                text = text.rstrip("\ufffd")   # hold an incomplete multibyte
+            if text.startswith(state["printed"]):
+                delta = text[len(state["printed"]):]
+            else:                              # the decoder backtracked
+                delta = ""
+            if delta:
+                print(delta, end="", flush=True)
+                state["printed"] = text
+            if done:
+                print(flush=True)
+        return emit
+
+    def _generate_paged(self, encoded: list[list[int]],
+                        max_tokens: int) -> list[str]:
+        """Every prompt through the continuous batcher; returns the texts.
+        Streams to stdout only for a single request (interleaved streams
+        would garble the console)."""
+        from handwritten_ocr_tpu_torch.engine.serving import GenRequest
+        longest = max(len(ids) for ids in encoded)
+        batcher = self._ensure_batcher(longest + max_tokens)
+        stream = (self._stream_printer()
+                  if self.stream and len(encoded) == 1 else None)
+        requests = [GenRequest(np.asarray(ids, np.int32), max_tokens,
+                               on_tokens=stream) for ids in encoded]
+        token_lists = batcher.run(requests)
+        return [self.tokenizer.decode(tokens) for tokens in token_lists]
+
+    def _encode(self, system: str, user: str) -> list[int]:
+        return self.tokenizer.encode(llm_chat_prompt(
+            system, user, enable_thinking=self.enable_thinking))
+
+    def chat(self, system_prompt: str, user_message: str, *,
+             temperature: float, max_tokens: int,
+             json_schema: dict | None = None) -> str:
+        """Greedy chat decode. ``temperature`` is accepted for protocol
+        parity (the reference uses 0.1, close to greedy)."""
+        if json_schema is not None:
+            raise NotImplementedError("schema-guided decode: next slice")
+        return self._generate_paged([self._encode(system_prompt,
+                                                  user_message)],
+                                    max_tokens)[0]
+
+    def chat_batch(self, requests, *, temperature: float, max_tokens: int,
+                   json_schema: dict | None = None) -> list[str]:
+        """Many chat turns (objects with ``.system`` and ``.user``) as one
+        continuous batch: mixed-length prompts skip the pad-to-longest
+        prefill, and a turn that hits EOS frees its slot for the queue."""
+        if json_schema is not None:
+            raise NotImplementedError("schema-guided decode: next slice")
+        return self._generate_paged([self._encode(r.system, r.user)
+                                     for r in requests], max_tokens)

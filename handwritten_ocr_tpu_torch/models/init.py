@@ -1,9 +1,9 @@
 """Random parameters drawn on the device (port of ``models/init.py``).
 
-Same distributions as the JAX package's ``init_vl``: linear weights and
-embeddings N(0, 0.02²), biases 0, norm scales 1. The numbers differ from
-JAX's for the same seed (another generator); tests that compare the two
-build the weights with JAX and carry them over with
+Same distributions as the JAX package's ``init_vl`` / ``init_qwen3``:
+linear weights and embeddings N(0, 0.02²), biases 0, norm scales 1. The
+numbers differ from JAX's for the same seed (another generator); tests
+that compare the two build the weights with JAX and carry them over with
 :func:`handwritten_ocr_tpu_torch.models.weights.from_jax_params`.
 """
 
@@ -11,26 +11,38 @@ from __future__ import annotations
 
 import torch
 
+from handwritten_ocr_tpu_torch.models.quant import _quantize_linear
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import (TextConfig,
                                                               VLConfig,
                                                               VisionConfig)
 
 
 class _Init:
-    """Draws tensors in PyTorch's layout from one seeded generator."""
+    """Draws tensors in PyTorch's layout from one seeded generator.
 
-    def __init__(self, dtype: torch.dtype, device, seed: int):
+    With ``quantize`` every projection is drawn in fp32 and quantised to
+    int8 at once (``models/quant.py``), one matrix at a time, so a
+    full-precision tree never exists: the largest transient is one fp32
+    matrix (the lm_head's)."""
+
+    def __init__(self, dtype: torch.dtype, device, seed: int,
+                 quantize: bool = False):
         self.dtype = dtype
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.quantize = quantize
 
-    def normal(self, *shape) -> torch.Tensor:
+    def normal(self, *shape, dtype: torch.dtype | None = None) -> torch.Tensor:
         w = torch.randn(shape, generator=self.gen, device=self.device,
                         dtype=torch.float32)
-        return w.mul_(0.02).to(self.dtype)
+        return w.mul_(0.02).to(dtype or self.dtype)
 
     def linear(self, d_in: int, d_out: int, bias: bool = False) -> dict:
-        params = {"w": self.normal(d_out, d_in)}
+        if self.quantize:
+            params = _quantize_linear(
+                {"w": self.normal(d_out, d_in, dtype=torch.float32)})
+        else:
+            params = {"w": self.normal(d_out, d_in)}
         if bias:
             params["b"] = torch.zeros(d_out, dtype=self.dtype, device=self.device)
         return params
@@ -61,15 +73,19 @@ def _init_vision(init: _Init, cfg: VisionConfig) -> dict:
                                           bias=True)}}
 
 
-def _init_text(init: _Init, cfg: TextConfig) -> dict:
+def _init_text(init: _Init, cfg, qk_norm: bool = False,
+               attn_bias: bool = True) -> dict:
     d, hd = cfg.hidden_size, cfg.head_dim
-    layers = [{"ln1": init.norm(d), "ln2": init.norm(d),
-               "attn": {"q": init.linear(d, cfg.num_attention_heads * hd, True),
-                        "k": init.linear(d, cfg.num_key_value_heads * hd, True),
-                        "v": init.linear(d, cfg.num_key_value_heads * hd, True),
-                        "o": init.linear(cfg.num_attention_heads * hd, d)},
-               "mlp": init.mlp(d, cfg.intermediate_size, bias=False)}
-              for _ in range(cfg.num_hidden_layers)]
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        attn = {"q": init.linear(d, cfg.num_attention_heads * hd, attn_bias),
+                "k": init.linear(d, cfg.num_key_value_heads * hd, attn_bias),
+                "v": init.linear(d, cfg.num_key_value_heads * hd, attn_bias),
+                "o": init.linear(cfg.num_attention_heads * hd, d)}
+        if qk_norm:
+            attn["q_norm"], attn["k_norm"] = init.norm(hd), init.norm(hd)
+        layers.append({"ln1": init.norm(d), "ln2": init.norm(d), "attn": attn,
+                       "mlp": init.mlp(d, cfg.intermediate_size, bias=False)})
     tree = {"embed": {"w": init.normal(cfg.vocab_size, d)},
             "layers": layers,
             "final_norm": init.norm(d)}
@@ -85,3 +101,17 @@ def init_vl(config: VLConfig, dtype: torch.dtype = torch.bfloat16,
     init = _Init(dtype, device, seed)
     return {"vision": _init_vision(init, config.vision),
             "text": _init_text(init, config.text)}
+
+
+def init_qwen3(config, dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cuda", seed: int = 0,
+               quantize: str | None = None) -> dict:
+    """Random Qwen3 parameters (QK-norm, no attention biases) in the port's
+    layout, made directly on ``device``. ``quantize="int8"`` draws every
+    projection and the lm_head as int8 + fp32 scales, one matrix at a time
+    (qwen3:32b: ~33.5 GB instead of 65.5 GB in bf16, which would not fit
+    one 80 GB card beside anything else)."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize {quantize!r}")
+    init = _Init(dtype, device, seed, quantize=quantize == "int8")
+    return _init_text(init, config, qk_norm=True, attn_bias=False)

@@ -5,6 +5,7 @@ back, fp32 softmax, rotary embedding in fp32 (or in bf16 for bf16 inputs,
 the fast path). Parameters are plain dicts of tensors in PyTorch's layout:
 
   linear:  {"w": [out, in], optional "b": [out]}   (JAX stores w as [in, out])
+           or weight-only int8 {"w_q": int8 [out, in], "w_scale": f32 [out]}
   rmsnorm: {"scale": [dim]}
 """
 
@@ -12,6 +13,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from handwritten_ocr_tpu_torch.ops.int8_matmul import (MAX_ROWS, int8_matmul,
+                                                       int8_matmul_supported)
 
 
 def rms_norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -24,10 +28,26 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
-    out = x @ params["w"].t()
+    if "w_q" in params:  # weight-only int8 (models/quant.py)
+        out = _quantized_matmul(params, x)
+    else:
+        out = x @ params["w"].t()
     if "b" in params:
         out = out + params["b"]
     return out
+
+
+def _quantized_matmul(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """int8-weight product: decode-shaped calls (at most 32 rows) go to the
+    int8 kernel, which reads each weight once as 1 byte; larger calls
+    (prefill) are bound by operations and take the dequantised product,
+    as the JAX package computes them outside its kernel."""
+    w_q, scale = params["w_q"], params["w_scale"]
+    lead = x.numel() // x.shape[-1]
+    if lead <= MAX_ROWS and int8_matmul_supported(w_q.shape[1], w_q.shape[0]):
+        out = int8_matmul(x.reshape(lead, x.shape[-1]).contiguous(), w_q, scale)
+        return out.reshape(*x.shape[:-1], w_q.shape[0])
+    return (x @ w_q.to(x.dtype).t()) * scale.to(x.dtype)
 
 
 def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Paged KV cache: block-pool attention state for continuous batching.
 
-Port of ``handwritten_ocr_tpu/models/paged.py`` with full-precision pools.
+Port of ``handwritten_ocr_tpu/models/paged.py``: full-precision pools, or
+int8 pools with per-token, per-head fp32 scale pools (``kv_quant``).
 
 - One shared block pool ``[L, n_blocks, block_size, H_kv, D]`` per k and v
   holds every live sequence's keys/values (page-major: a page is one
@@ -26,17 +27,28 @@ from handwritten_ocr_tpu_torch.models.layers import (apply_rope, attention,
 from handwritten_ocr_tpu_torch.models.qwen25vl.language import mrope_cos_sin
 from handwritten_ocr_tpu_torch.ops.flash_attention import flash_attention
 from handwritten_ocr_tpu_torch.ops.paged_decode_attention import (
-    paged_append_attention)
+    paged_append_attention, quantize_rows)
 
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """Block-pool KV state shared by all live sequences (mutable)."""
+    """Block-pool KV state shared by all live sequences (mutable).
+
+    ``k_scale``/``v_scale`` are set only for the int8 cache: the data
+    pools then hold int8 rows and the scale pools the per-token, per-head
+    fp32 dequantisation factors (amax/127 over D), block size minor.
+    """
 
     k: torch.Tensor             # [L, n_blocks, block_size, H_kv, D]
     v: torch.Tensor             # [L, n_blocks, block_size, H_kv, D]
     block_tables: torch.Tensor  # [S, max_blocks] int32 pool indices (0 = trash)
     lengths: torch.Tensor       # [S] int32 tokens cached per slot
+    k_scale: torch.Tensor | None = None   # [L, n_blocks, H_kv, block_size] f32
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def block_size(self) -> int:
@@ -49,37 +61,54 @@ class PagedKVCache:
     @classmethod
     def zeros(cls, num_layers: int, n_blocks: int, block_size: int,
               n_slots: int, max_blocks: int, num_kv_heads: int,
-              head_dim: int, dtype=torch.bfloat16,
-              device="cpu") -> "PagedKVCache":
+              head_dim: int, dtype=torch.bfloat16, device="cpu",
+              kv_quant: bool = False) -> "PagedKVCache":
         shape = (num_layers, n_blocks, block_size, num_kv_heads, head_dim)
+        scales = {}
+        if kv_quant:
+            dtype = torch.int8
+            scale_shape = (num_layers, n_blocks, num_kv_heads, block_size)
+            scales = {name: torch.zeros(scale_shape, dtype=torch.float32,
+                                        device=device)
+                      for name in ("k_scale", "v_scale")}
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
             block_tables=torch.zeros((n_slots, max_blocks), dtype=torch.int32,
                                      device=device),
             lengths=torch.zeros((n_slots,), dtype=torch.int32, device=device),
-        )
+            **scales)
 
 
-def _write(k_pool: torch.Tensor, v_pool: torch.Tensor, layer_idx: int,
-           tables: torch.Tensor, start: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor) -> None:
+def _write(cache: PagedKVCache, layer_idx: int, tables: torch.Tensor,
+           start: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write new ``k/v [B, T, H, D]`` into layer ``layer_idx`` of the pools
-    (in place) at positions ``start[b] + t`` of each row's block table."""
+    (in place) at positions ``start[b] + t`` of each row's block table;
+    int8 pools take the rows of :func:`quantize_rows` and their scales."""
     b, t, h, d = k.shape
-    block_size = k_pool.shape[2]
+    block_size = cache.block_size
     pos = start[:, None].long() + torch.arange(t, device=k.device)[None, :]
     pos = torch.clamp(pos, max=tables.shape[1] * block_size - 1)
     blocks = torch.take_along_dim(tables.long(), pos // block_size, dim=1)
     blocks, offsets = blocks.reshape(-1), (pos % block_size).reshape(-1)
-    k_pool[layer_idx, blocks, offsets] = k.reshape(b * t, h, d).to(k_pool.dtype)
-    v_pool[layer_idx, blocks, offsets] = v.reshape(b * t, h, d).to(v_pool.dtype)
+    k, v = k.reshape(b * t, h, d), v.reshape(b * t, h, d)
+    if cache.quantized:
+        k, k_scales = quantize_rows(k)
+        v, v_scales = quantize_rows(v)
+        cache.k_scale[layer_idx, blocks, :, offsets] = k_scales
+        cache.v_scale[layer_idx, blocks, :, offsets] = v_scales
+    cache.k[layer_idx, blocks, offsets] = k.to(cache.k.dtype)
+    cache.v[layer_idx, blocks, offsets] = v.to(cache.v.dtype)
 
 
-def _gather(pool: torch.Tensor, layer_idx: int,
-            tables: torch.Tensor) -> torch.Tensor:
-    """One layer's cache window for the given rows: [B, max_ctx, H, D]."""
+def _gather(pool: torch.Tensor, layer_idx: int, tables: torch.Tensor,
+            scale_pool: torch.Tensor | None = None) -> torch.Tensor:
+    """One layer's cache window for the given rows, dequantised for int8
+    pools: [B, max_ctx, H, D]."""
     g = pool[layer_idx][tables.long()]             # [B, MB, BS, H, D]
+    if scale_pool is not None:
+        scales = scale_pool[layer_idx][tables.long()]      # [B, MB, H, BS]
+        g = g.float() * scales.transpose(2, 3)[..., None]
     return g.reshape(g.shape[0], -1, g.shape[-2], g.shape[-1])
 
 
@@ -92,36 +121,44 @@ def _paged_self_attention(layer: dict, cfg, x: torch.Tensor, cos, sin,
     x: [B, T, D] current tokens; start[b] = tokens already cached for row
     b; n_valid[b] = how many of this call's T tokens are real (0 = skip
     the row). A fresh prefill (start == 0, T > 1) attends only to itself:
-    it writes its k/v and runs causal flash attention on them. A
-    decode-shaped call (T <= 64) runs the fused append + paged attention.
+    it writes its k/v and runs causal flash attention on the
+    full-precision k/v. A decode-shaped call (T <= 64) runs the fused
+    append + paged attention. Qwen3 layers (``q_norm``/``k_norm``) apply
+    their RMSNorm over the head dim before the rotary embedding.
     """
     b, t, _ = x.shape
     hd = cfg.head_dim
     q = linear(layer["q"], x).reshape(b, t, cfg.num_attention_heads, hd)
     k = linear(layer["k"], x).reshape(b, t, cfg.num_key_value_heads, hd)
     v = linear(layer["v"], x).reshape(b, t, cfg.num_key_value_heads, hd)
+    if "q_norm" in layer:  # Qwen3 QK-norm
+        q = rms_norm(layer["q_norm"], q, cfg.rms_norm_eps)
+        k = rms_norm(layer["k_norm"], k, cfg.rms_norm_eps)
     q, k = apply_rope(q, k, cos[:, :, None, :], sin[:, :, None, :])
 
     if fresh and t > 1:
         # Right-padded garbage rows self-attend harmlessly; their outputs
         # are never read.
-        _write(cache.k, cache.v, layer_idx, tables, start, k, v)
+        _write(cache, layer_idx, tables, start, k, v)
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=True, scale=hd ** -0.5)
         return linear(layer["o"], out.reshape(b, t, -1))
 
-    if t <= 64:
+    if t <= 64 and not (cache.quantized and t > cache.block_size):
         # Decode steps (T == 1): query token i attends through absolute
-        # position start + i.
+        # position start + i. int8 pools take the new rows in x's dtype
+        # (the kernel quantises them); fp pools in the pool's dtype.
+        kv_dtype = x.dtype if cache.quantized else cache.k.dtype
         out = paged_append_attention(
-            q.contiguous(), k.to(cache.k.dtype).contiguous(),
-            v.to(cache.v.dtype).contiguous(), cache.k, cache.v, tables,
-            start, n_valid, layer=layer_idx, scale=hd ** -0.5)
+            q.contiguous(), k.to(kv_dtype).contiguous(),
+            v.to(kv_dtype).contiguous(), cache.k, cache.v, tables,
+            start, n_valid, cache.k_scale, cache.v_scale, layer=layer_idx,
+            scale=hd ** -0.5)
         return linear(layer["o"], out.to(x.dtype).reshape(b, t, -1))
 
-    _write(cache.k, cache.v, layer_idx, tables, start, k, v)
-    keys = _gather(cache.k, layer_idx, tables)
-    values = _gather(cache.v, layer_idx, tables)
+    _write(cache, layer_idx, tables, start, k, v)
+    keys = _gather(cache.k, layer_idx, tables, cache.k_scale)
+    values = _gather(cache.v, layer_idx, tables, cache.v_scale)
     rows = start[:, None, None].long() + torch.arange(t, device=x.device)[None, :, None]
     cols = torch.arange(keys.shape[1], device=x.device)[None, None, :]
     mask = (cols <= rows)[:, None]                               # [B, 1, T, CTX]

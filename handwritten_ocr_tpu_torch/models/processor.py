@@ -1,7 +1,7 @@
 """VLM input processing: smart resize, patch packing, chat template.
 
 Port of the parts of ``handwritten_ocr_tpu/models/processor.py`` the read
-path uses. It replicates the Qwen2-VL processor contract (the olmOCR-2
+and reasoning paths use. It replicates the Qwen2-VL processor contract (the olmOCR-2
 processor): dimensions rounded to multiples of patch·merge (28), CLIP
 normalisation, cell-major patch packing, the Qwen2-VL chat template.
 ``PIL`` is imported only inside :func:`load_image_rgb` and
@@ -149,3 +149,17 @@ def vlm_chat_prompt(user_text: str, num_image_tokens: int,
         f"{IM_START}user\n{vision}{user_text}{IM_END}\n"
         f"{IM_START}assistant\n"
     )
+
+
+def llm_chat_prompt(system: str, user_text: str,
+                    enable_thinking: bool = False) -> str:
+    """Qwen3 chat-template prompt (non-thinking mode appends an empty
+    think block)."""
+    parts = []
+    if system:
+        parts.append(f"{IM_START}system\n{system}{IM_END}\n")
+    parts.append(f"{IM_START}user\n{user_text}{IM_END}\n")
+    parts.append(f"{IM_START}assistant\n")
+    if not enable_thinking:
+        parts.append("<think>\n\n</think>\n\n")
+    return "".join(parts)

@@ -15,6 +15,7 @@ import torch
 
 from handwritten_ocr_tpu_torch.models.layers import rope_inv_freq
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import TextConfig
+from handwritten_ocr_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_matmul
 
 
 def mrope_cos_sin(cfg: TextConfig, position_ids: torch.Tensor):
@@ -45,14 +46,31 @@ def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tens
     The product accumulates in fp32 and is not rounded to the hidden
     dtype, so the greedy argmax sees fp32 logits. A plain matrix product
     outside any kernel, as the JAX package leaves it to XLA.
+
+    An int8 head (``models/quant.py``) at b·t ≤ 32 rows goes to the int8
+    kernel with fp32 output (the head is the largest single weight read of
+    a decode step); more rows take the fp32-accumulated product of the
+    widened weight, times the scale in fp32.
     """
-    w = params["embed"]["w"] if cfg.tie_word_embeddings else params["lm_head"]["w"]
     b, t, d = hidden.shape
     flat = hidden.reshape(b * t, d)
-    if hidden.dtype == torch.float32:
-        logits = flat @ w.float().t()
-    elif hidden.is_cuda:
-        logits = torch.mm(flat, w.t(), out_dtype=torch.float32)
-    else:  # reduced precision on the CPU: widen, then multiply
-        logits = flat.float() @ w.float().t()
-    return logits.reshape(b, t, -1)
+    head = params.get("lm_head", {})
+    if not cfg.tie_word_embeddings and "w_q" in head:
+        if b * t <= MAX_ROWS:
+            logits = int8_matmul(flat.contiguous(), head["w_q"],
+                                 head["w_scale"], out_dtype=torch.float32)
+        else:
+            logits = (_fp32_product(flat, head["w_q"].to(hidden.dtype))
+                      * head["w_scale"])
+        return logits.reshape(b, t, -1)
+    w = params["embed"]["w"] if cfg.tie_word_embeddings else head["w"]
+    return _fp32_product(flat, w).reshape(b, t, -1)
+
+
+def _fp32_product(flat: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``flat [M, D] @ w [V, D]^T``, summed and returned in fp32."""
+    if flat.dtype == torch.float32:
+        return flat @ w.float().t()
+    if flat.is_cuda:
+        return torch.mm(flat, w.t(), out_dtype=torch.float32)
+    return flat.float() @ w.float().t()   # reduced precision on the CPU

@@ -28,7 +28,8 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("flash_attention", "window_attention", "paged_decode_attention")
+KERNELS = ("flash_attention", "window_attention", "paged_decode_attention",
+           "int8_matmul")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 

@@ -1,8 +1,9 @@
 """Fused append + paged GQA attention: the decode step's attention.
 
-Port of ``handwritten_ocr_tpu/ops/paged_decode_attention.py`` for a
-full-precision KV cache. CUDA tensors go to the hand-written kernel
-``csrc/paged_decode_attention.cu``; CPU tensors to
+Port of ``handwritten_ocr_tpu/ops/paged_decode_attention.py``, both
+branches: a full-precision KV cache, and the int8 KV cache (int8 pools
+with per-token, per-head fp32 scale pools). CUDA tensors go to the
+hand-written kernel ``csrc/paged_decode_attention.cu``; CPU tensors to
 :func:`paged_append_attention_plain`. Both update the pools IN PLACE,
 where the JAX kernel returns them aliased.
 """
@@ -17,16 +18,35 @@ from handwritten_ocr_tpu_torch.ops import build
 from handwritten_ocr_tpu_torch.ops.dispatch import check, use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (128,)        # the text model's head width
+_HEAD_DIMS = (128,)        # the text models' head width
 # Context cols per block of the kernel's split over the context (a
 # multiple of its 64-col key tile): at a 1k-token decode this gives each
 # live (slot, kv-head) 4 blocks, enough blocks to spread over the SMs.
 _SPLIT_COLS = 256
+# New tokens per call the int8 kernel quantises in shared memory
+# (decode-shaped calls have T <= 64).
+_MAX_NEW_INT8 = 64
+
+
+def quantize_rows(new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token, per-head int8 quantisation of ``[..., D]`` rows:
+    scale = max(amax over D, 1e-6) / 127 in fp32, q = round-half-even(
+    row / scale) with no clip (|q| <= 127 by construction). Bit-equal to
+    the JAX package's ``models/paged.py:_quantize_rows`` and to the
+    kernel's in-kernel append."""
+    f = new.float()
+    # A tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the rounded quotient.
+    scales = torch.clamp_min(f.abs().amax(dim=-1), 1e-6) / f.new_full((), 127.0)
+    q = torch.round(f / scales[..., None]).to(torch.int8)
+    return q, scales
 
 
 def _append_plain(k_new, v_new, k_pool, v_pool, tables, start, n_valid,
-                  layer: int) -> None:
-    """Write token i < n_valid[s] of each slot at min(start + i, cap)."""
+                  layer: int, k_scale_pool=None, v_scale_pool=None) -> None:
+    """Write token i < n_valid[s] of each slot at min(start + i, cap);
+    with scale pools, the int8 rows of :func:`quantize_rows` and their
+    scales (scale pools ``[L, N, Hkv, BS]``)."""
     s, t = k_new.shape[:2]
     bs = k_pool.shape[2]
     cap = tables.shape[1] * bs - 1
@@ -35,28 +55,46 @@ def _append_plain(k_new, v_new, k_pool, v_pool, tables, start, n_valid,
     pos = torch.clamp(start[:, None].long() + tok[None, :], max=cap)
     blocks = torch.take_along_dim(tables.long(), pos // bs, dim=1)
     rows, toks = valid.nonzero(as_tuple=True)
-    k_pool[layer, blocks[rows, toks], (pos % bs)[rows, toks]] = \
-        k_new[rows, toks].to(k_pool.dtype)
-    v_pool[layer, blocks[rows, toks], (pos % bs)[rows, toks]] = \
-        v_new[rows, toks].to(v_pool.dtype)
+    blk, off = blocks[rows, toks], (pos % bs)[rows, toks]
+    k_rows, v_rows = k_new[rows, toks], v_new[rows, toks]
+    if k_scale_pool is not None:
+        k_rows, k_scales = quantize_rows(k_rows)
+        v_rows, v_scales = quantize_rows(v_rows)
+        k_scale_pool[layer, blk, :, off] = k_scales
+        v_scale_pool[layer, blk, :, off] = v_scales
+    k_pool[layer, blk, off] = k_rows.to(k_pool.dtype)
+    v_pool[layer, blk, off] = v_rows.to(v_pool.dtype)
 
 
 def paged_append_attention_plain(q, k_new, v_new, k_pool, v_pool, tables,
-                                 start, n_valid, *, layer: int,
+                                 start, n_valid, k_scale_pool=None,
+                                 v_scale_pool=None, *, layer: int,
                                  scale: float) -> torch.Tensor:
     """The kernel's function in plain PyTorch: append, gather the slot's
     pages, fp32 attention where query token i sees cols <= start + i;
-    rows i >= n_valid (and every row of an n_valid == 0 slot) are 0."""
+    rows i >= n_valid (and every row of an n_valid == 0 slot) are 0.
+
+    int8 pools dequantise in score space, as the TPU kernel does: scores
+    of the int8 keys times k_scale[col]; the denominator sums the
+    probabilities, which are then multiplied by v_scale[col] before the
+    product with the int8 values."""
     s, t, hq, d = q.shape
     hkv = k_new.shape[2]
     group = hq // hkv
-    _append_plain(k_new, v_new, k_pool, v_pool, tables, start, n_valid, layer)
+    quant = k_scale_pool is not None
+    _append_plain(k_new, v_new, k_pool, v_pool, tables, start, n_valid, layer,
+                  k_scale_pool, v_scale_pool)
     width = tables.shape[1] * k_pool.shape[2]
     idx = tables.long()
     keys = k_pool[layer][idx].reshape(s, width, hkv, d).float()
     values = v_pool[layer][idx].reshape(s, width, hkv, d).float()
     qf = (q.float() * scale).reshape(s, t, hkv, group, d)
     scores = torch.einsum("sthgd,schd->shgtc", qf, keys)
+    if quant:   # [L, N, Hkv, BS] -> per slot [Hkv, W * BS]
+        def col_scales(pool):
+            return (pool[layer][idx].permute(0, 2, 1, 3)
+                    .reshape(s, hkv, 1, 1, width))
+        scores = scores * col_scales(k_scale_pool)
     tok = torch.arange(t, device=q.device)
     row_valid = tok[None, :] < n_valid[:, None]                   # [S, T]
     cols = torch.arange(width, device=q.device)
@@ -69,7 +107,12 @@ def paged_append_attention_plain(q, k_new, v_new, k_pool, v_pool, tables,
     m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
     p = torch.exp(scores - m).masked_fill(~allowed, 0.0)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("shgtc,schd->sthgd", p / denom, values)
+    if quant:
+        acc = torch.einsum("shgtc,schd->shgtd", p * col_scales(v_scale_pool),
+                           values)
+        out = (acc / denom).permute(0, 3, 1, 2, 4)
+    else:
+        out = torch.einsum("shgtc,schd->sthgd", p / denom, values)
     return out.reshape(s, t, hq, d).to(q.dtype)
 
 
@@ -87,21 +130,28 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     ``tables [S, W]`` int32 map a slot's pages to pool blocks; ``start``
     and ``n_valid`` ``[S]`` int32 give the tokens cached and the real new
     tokens of each slot. Callers keep ``start + n_valid <= W * BS`` for
-    live slots.
+    live slots. With ``k_scale_pool``/``v_scale_pool`` (fp32 ``[L, N, Hkv,
+    BS]``) the pools are int8: the new rows are quantised per token and
+    head on append (:func:`quantize_rows`) and attention dequantises in
+    score space; q and the new rows keep their float dtype.
 
     Replaces the TPU kernel ``handwritten_ocr_tpu/ops/paged_decode_attention.py:
-    _kernel`` (fp-KV branch). On the H100 it is bound by bytes: a decode
-    step (q ``[24, 1, 28, 128]``, bf16 pools ``[28, N, 128, 4, 128]``)
-    reads each live slot's cached K and V once — about 1 KB per token per
-    layer — and does ~4 flops per byte read. The kernel reads only the
-    pages below ``start + n_valid`` of live slots (a slot with n_valid 0
-    reads nothing), splits each context over blocks of 256 cols so that a
-    few live slots still spread over the SMs (a second small kernel merges
-    the splits), appends the new rows in the same launch, and takes the
-    new cols straight from ``k_new``/``v_new``.
+    _kernel``, both branches. On the H100 it is bound by bytes: a decode
+    step (q ``[24, 1, 28, 128]``, pools ``[28, N, 128, 4, 128]``) reads
+    each live slot's cached K and V once — about 1 KB per token per layer
+    in bf16, 0.5 KB (+ 32 B of scales) in int8 — and does ~4 flops per
+    bf16 byte read. The kernel reads only the pages below ``start +
+    n_valid`` of live slots (a slot with n_valid 0 reads nothing), splits
+    each context over blocks of 256 cols so that a few live slots still
+    spread over the SMs (a second small kernel merges the splits), appends
+    the new rows in the same launch, and takes the new cols from
+    ``k_new``/``v_new`` (int8: quantised in each block's shared memory
+    exactly as the append quantises them) rather than from the pool rows
+    another block is writing.
+
+    ``launches`` counts launches over fp pools, ``int8_launches`` over
+    int8 pools.
     """
-    if k_scale_pool is not None or v_scale_pool is not None:
-        raise NotImplementedError("int8 KV: next slice")
     s, t, hq, d = q.shape
     check(k_new.shape == v_new.shape and k_new.shape[:2] == (s, t)
           and k_new.shape[3] == d, "k_new/v_new must be [S, T, Hkv, D]")
@@ -113,41 +163,73 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     check(start.shape == (s,) and n_valid.shape == (s,),
           "start and n_valid must be [S]")
     check(0 <= layer < k_pool.shape[0], f"layer {layer} out of range")
-    check(t <= k_pool.shape[2], "T must not exceed the block size")
-    check(q.dtype == k_new.dtype == v_new.dtype == k_pool.dtype
-          == v_pool.dtype, "q, the new rows and the pools must share a dtype")
-    if not use_kernel(q, k_new, v_new, k_pool, v_pool, tables, start, n_valid):
+    bs = k_pool.shape[2]
+    quant = k_scale_pool is not None or v_scale_pool is not None
+    scale_pools = (k_scale_pool, v_scale_pool) if quant else ()
+    if quant:
+        if t > bs:
+            # The TPU kernel's scale append touches at most two pages, so
+            # it refuses appends of more than a block; the port keeps the
+            # same contract.
+            raise ValueError(f"int8-KV append of {t} tokens exceeds the "
+                             f"block size {bs}")
+        l_, n_ = k_pool.shape[:2]
+        check(k_scale_pool is not None and v_scale_pool is not None
+              and k_scale_pool.shape == v_scale_pool.shape == (l_, n_, hkv, bs)
+              and k_scale_pool.dtype == v_scale_pool.dtype == torch.float32,
+              "int8 KV needs both scale pools, float32 [L, N, Hkv, BS]")
+        check(k_pool.dtype == v_pool.dtype == torch.int8,
+              "scale pools go with int8 pools")
+        check(q.dtype == k_new.dtype == v_new.dtype and q.is_floating_point(),
+              "q and the new rows must share one float dtype")
+    else:
+        check(t <= bs, "T must not exceed the block size")
+        check(q.dtype == k_new.dtype == v_new.dtype == k_pool.dtype
+              == v_pool.dtype, "q, the new rows and the pools must share a "
+              "dtype")
+    if not use_kernel(q, k_new, v_new, k_pool, v_pool, tables, start, n_valid,
+                      *scale_pools):
         return paged_append_attention_plain(q, k_new, v_new, k_pool, v_pool,
                                             tables, start, n_valid,
+                                            k_scale_pool, v_scale_pool,
                                             layer=layer, scale=scale)
     check(q.dtype in _DTYPE_CODES, f"unsupported dtype {q.dtype}")
     check(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
-    check(all(x.is_contiguous() for x in (q, k_new, v_new, k_pool, v_pool)),
+    check(not quant or t <= _MAX_NEW_INT8,
+          f"the int8 kernel appends at most {_MAX_NEW_INT8} tokens per call")
+    pools = (k_new, v_new, k_pool, v_pool, *scale_pools)
+    check(all(x.is_contiguous() for x in (q, *pools)),
           "q, the new rows and the pools must be contiguous")
-    check(all(x.data_ptr() % 16 == 0 for x in (k_new, v_new, k_pool, v_pool)),
+    check(all(x.data_ptr() % 16 == 0 for x in pools),
           "the new rows and the pools must be 16-byte aligned")
     tables32 = tables.to(torch.int32).contiguous()
     start32 = start.to(torch.int32).contiguous()
     valid32 = n_valid.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     width = tables32.shape[1]
-    n_split = -(-width * k_pool.shape[2] // _SPLIT_COLS)
+    n_split = -(-width * bs // _SPLIT_COLS)
     partials = s * hkv * (hq // hkv) * t * n_split
     part_acc = torch.empty(partials * d, dtype=torch.float32, device=q.device)
     part_ml = torch.empty(partials * 2, dtype=torch.float32, device=q.device)
     fn = build.load("paged_decode_attention").hocr_paged_append_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     build.launch(fn, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                 k_pool.data_ptr(), v_pool.data_ptr(), tables32.data_ptr(),
-                 start32.data_ptr(), valid32.data_ptr(), out.data_ptr(),
-                 part_acc.data_ptr(), part_ml.data_ptr(),
-                 s, t, hq, hkv, d, width, k_pool.shape[2], k_pool.shape[1],
+                 k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale_pool.data_ptr() if quant else None,
+                 v_scale_pool.data_ptr() if quant else None,
+                 tables32.data_ptr(), start32.data_ptr(), valid32.data_ptr(),
+                 out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+                 s, t, hq, hkv, d, width, bs, k_pool.shape[1],
                  int(layer), _SPLIT_COLS, float(scale), _DTYPE_CODES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
-    paged_append_attention.launches += 1
+    if quant:
+        paged_append_attention.int8_launches += 1
+    else:
+        paged_append_attention.launches += 1
     return out
 
 
 paged_append_attention.launches = 0
+paged_append_attention.int8_launches = 0

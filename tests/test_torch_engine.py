@@ -5,7 +5,12 @@ Two rendered pages of different sizes (two grid groups) x the two initial
 strategies, each side with its own preprocessor, tiny fp32 weights drawn
 by JAX and carried over. The tokenizer is ``ByteTokenizer`` with a decode
 that spells every id, so the strings carry the whole greedy token stream;
-they must be equal.
+they must be equal. The JAX backend on the CPU decodes over a
+full-precision KV cache, so the port's runs with ``kv_quant=False`` there;
+the int8-KV read is held against the JAX backend with its int8 cache
+switched on (as on its accelerator) and its flash kernel in the Pallas
+interpreter, so that the prefill attends over full-precision k/v on both
+sides.
 """
 
 import numpy as np
@@ -51,8 +56,8 @@ def pages(tmp_path_factory):
             render_page(root / "b.png", 90, 70, 1)]
 
 
-def test_read_batch_matches_jax(pages):
-    strategies = PREPROCESSING_STRATEGIES[:2]
+def _reads(pages, kv_quant, strategies=PREPROCESSING_STRATEGIES[:2]):
+    """(JAX texts, port texts, port backend) of the same read."""
     jax_cfg, port_cfg = configs()
     tree = jax_tree(jax_cfg, seed=12)
     tokenizer = SpellingTokenizer()
@@ -68,11 +73,26 @@ def test_read_batch_matches_jax(pages):
     images = [prep.apply(p, s) for p in pages for s in strategies]
     assert [im.strategy_label for im in images] == \
         [im.strategy_label for im in jax_images]
-    backend = TorchOCRBackend(model, tokenizer, device="cpu", **PIXELS)
-    got = backend.read_batch(images, "Read.", 6)
+    backend = TorchOCRBackend(model, tokenizer, device="cpu",
+                              kv_quant=kv_quant, **PIXELS)
+    return want, backend.read_batch(images, "Read.", 6), backend, images
+
+
+def test_read_batch_matches_jax(pages):
+    want, got, backend, images = _reads(pages, kv_quant=False)
     assert got == want
     assert all(len(text.split()) >= 1 for text in got)
     assert backend.read(images[0], "Read.", 6) == got[0]
+    assert not backend._batcher.cache.quantized
+
+
+def test_int8_kv_read_matches_jax(pages, monkeypatch):
+    from handwritten_ocr_tpu.engine import jax_engines
+    monkeypatch.setattr(jax_engines, "_kv_quant", lambda: True)
+    monkeypatch.setenv("HOCR_TPU_FLASH", "interpret")
+    want, got, backend, _ = _reads(pages[:1], kv_quant=True)
+    assert got == want
+    assert backend._batcher.cache.quantized
 
 
 def test_unaligned_image_is_refused():

@@ -28,10 +28,12 @@ def test_port_has_the_slice_modules():
     modules = set(_port_modules())
     for name in ("config", "ops.dispatch", "ops.build", "ops.flash_attention",
                  "ops.window_attention", "ops.paged_decode_attention",
-                 "ops.bank", "models.layers", "models.weights", "models.init",
-                 "models.processor", "models.paged", "models.qwen25vl.vision",
-                 "models.qwen25vl.language", "models.qwen25vl.model",
-                 "engine.serving", "engine.torch_engines"):
+                 "ops.int8_matmul", "ops.bank", "models.layers",
+                 "models.weights", "models.init", "models.quant",
+                 "models.qwen3", "models.processor", "models.paged",
+                 "models.qwen25vl.vision", "models.qwen25vl.language",
+                 "models.qwen25vl.model", "engine.serving",
+                 "engine.torch_engines"):
         assert f"handwritten_ocr_tpu_torch.{name}" in modules
 
 
@@ -66,12 +68,14 @@ def test_entry_points_need_a_device_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
-        TorchOCRBackend, TorchPreprocessor)
+        TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
     from handwritten_ocr_tpu_torch.models.processor import ByteTokenizer
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchOCRBackend(model=None, tokenizer=ByteTokenizer())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchPreprocessor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchReasoningBackend(model=None, tokenizer=ByteTokenizer())
     backend = TorchOCRBackend(model=None, tokenizer=ByteTokenizer(),
                               device="cpu")
     assert backend.device.type == "cpu"

@@ -1,12 +1,14 @@
 """Fused append + paged attention of the PyTorch port against the JAX
-Pallas kernel (fp KV).
+Pallas kernel, fp KV and int8 KV.
 
 The JAX kernel runs through the Pallas interpreter with exact fp32
 matmuls; the port's CPU path is its plain version. Compared: the output of
 every valid query row (2e-5, fp32 in another summation order) and the
-whole pools after the append (bit-equal: appends copy values). JAX is
-imported inside the parity tests, so the CUDA case also runs where JAX is
-not installed.
+whole pools after the append (bit-equal: fp appends copy values, int8
+appends quantise with the same correctly rounded fp32 division and
+round-half-even, so the int8 rows and the scale pools match bit for bit).
+JAX is imported inside the parity tests, so the CUDA cases also run where
+JAX is not installed.
 """
 
 import numpy as np
@@ -35,12 +37,28 @@ def make(t, start, n_valid, seed=0):
     return arrays
 
 
+def make_int8(t, start, n_valid, seed=11):
+    """The inputs of the JAX package's ``test_quantized_kv``: int8 pools
+    and fp32 scale pools [L, N, Hkv, BS]."""
+    a = make(t, start, n_valid, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    a["k_pool"] = rng.integers(-127, 128, (L, N, BS, HKV, D)).astype(np.int8)
+    a["v_pool"] = rng.integers(-127, 128, (L, N, BS, HKV, D)).astype(np.int8)
+    a["k_scale"] = rng.uniform(0.001, 0.02, (L, N, HKV, BS)).astype(np.float32)
+    a["v_scale"] = rng.uniform(0.001, 0.02, (L, N, HKV, BS)).astype(np.float32)
+    return a
+
+
+NAMES = ("q", "k_new", "v_new", "k_pool", "v_pool", "tables", "start",
+         "n_valid")
+POOLS = ("k_pool", "v_pool", "k_scale", "v_scale")
+
+
 def run_port(a, fn=paged_append_attention):
     t = {k: torch.from_numpy(v.copy()) for k, v in a.items()}
-    out = fn(t["q"], t["k_new"], t["v_new"], t["k_pool"], t["v_pool"],
-             t["tables"], t["start"], t["n_valid"], layer=LAYER,
-             scale=D ** -0.5)
-    return out.numpy(), t["k_pool"].numpy(), t["v_pool"].numpy()
+    scales = [t[k] for k in ("k_scale", "v_scale") if k in t]
+    out = fn(*(t[k] for k in NAMES), *scales, layer=LAYER, scale=D ** -0.5)
+    return (out.numpy(), *(t[k].numpy() for k in POOLS if k in t))
 
 
 def run_jax(a):
@@ -49,12 +67,10 @@ def run_jax(a):
     from handwritten_ocr_tpu.ops.paged_decode_attention import (
         paged_append_attention as jax_paged)
     with jax.default_matmul_precision("highest"):
-        out, k2, v2 = jax_paged(
-            *(jnp.asarray(a[k]) for k in ("q", "k_new", "v_new", "k_pool",
-                                          "v_pool", "tables", "start",
-                                          "n_valid")),
+        results = jax_paged(
+            *(jnp.asarray(a[k]) for k in NAMES + POOLS[2:] if k in a),
             layer=LAYER, scale=D ** -0.5, interpret=True)
-    return np.asarray(out), np.asarray(k2), np.asarray(v2)
+    return tuple(np.asarray(r) for r in results)
 
 
 @pytest.mark.parametrize("t,start,n_valid", [
@@ -81,15 +97,33 @@ def test_dead_slots_leave_the_pool_untouched():
     assert np.all(out == 0.0)
 
 
-def test_int8_kv_is_not_ported_yet():
-    a = make(1, [3], [1])
-    t = {k: torch.from_numpy(v) for k, v in a.items()}
-    scales = torch.zeros((L, N, HKV, BS))
-    with pytest.raises(NotImplementedError, match="int8 KV: next slice"):
-        paged_append_attention(t["q"], t["k_new"], t["v_new"], t["k_pool"],
-                               t["v_pool"], t["tables"], t["start"],
-                               t["n_valid"], scales, scales, layer=LAYER,
-                               scale=1.0)
+@pytest.mark.parametrize("t,start,n_valid", [
+    (1, [5, 15, 0, 40], [1, 1, 1, 0]),     # decode: mid-page, boundary, dead
+    (5, [15, 3, 30], [5, 3, 0]),           # 15+5 crosses a page boundary
+])
+def test_int8_kv_matches_jax_kernel(t, start, n_valid):
+    a = make_int8(t, start, n_valid)
+    out, *pools = run_port(a)
+    want, *want_pools = run_jax(a)
+    for s, nv in enumerate(n_valid):
+        np.testing.assert_allclose(out[s, :nv], want[s, :nv],
+                                   rtol=2e-5, atol=2e-5)
+        assert np.all(out[s, nv:] == 0.0)
+    for got, ref in zip(pools, want_pools):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    assert not np.array_equal(pools[0], a["k_pool"])   # the append happened
+
+
+def test_int8_kv_refuses_appends_past_a_block():
+    a = make_int8(BS + 1, [0], [BS + 1])
+    a["tables"] = a["tables"][:1]
+    with pytest.raises(ValueError, match="exceeds the block size"):
+        run_port(a)
+    a = make_int8(1, [3], [1])
+    a["v_scale"] = a["v_scale"].astype(np.float64)
+    with pytest.raises(ValueError, match="scale pools"):
+        run_port(a)
 
 
 @pytest.mark.cuda
@@ -115,3 +149,30 @@ def test_kernel_matches_plain_on_cuda(dtype, t):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert torch.equal(dev["k_pool"], plain["k_pool"])
     assert torch.equal(dev["v_pool"], plain["v_pool"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 5])
+def test_int8_kernel_matches_plain_on_cuda(dtype, t):
+    """The int8 branch against its plain version on the card: outputs of
+    valid rows within 1e-4 (fp32) or 2e-2 (bf16 output rounding); the int8
+    pools and the scale pools bit-equal after the append."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = make_int8(t, [15, 3, 30, 0], [t, min(t, 3), 0, t])
+    dev = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+    for k in ("q", "k_new", "v_new"):
+        dev[k] = dev[k].to(dtype)
+    plain = {k: v.clone() for k, v in dev.items()}
+    before = paged_append_attention.int8_launches
+    got = paged_append_attention(*(dev[k] for k in NAMES + POOLS[2:]),
+                                 layer=LAYER, scale=D ** -0.5).float()
+    torch.cuda.synchronize()
+    assert paged_append_attention.int8_launches == before + 1
+    want = paged_append_attention_plain(*(plain[k] for k in NAMES + POOLS[2:]),
+                                        layer=LAYER, scale=D ** -0.5).float()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    for k in POOLS:
+        assert torch.equal(dev[k], plain[k]), k

@@ -114,3 +114,41 @@ def test_decode_matches_cpu_on_cuda():
         device="cuda", **kw)
     assert batcher.run(requests(GenRequest)) == want
     assert paged_append_attention.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [True, False])
+def test_int8_qwen3_decode_matches_cpu_on_cuda(kv_quant):
+    """A narrow Qwen3 with int8 weights (QK-norm) on the card (int8 matmul
+    and paged kernels) emits the CPU's greedy tokens (plain versions) on
+    the same fp32 activations, over int8 and over fp KV pools."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    from handwritten_ocr_tpu_torch.ops.int8_matmul import int8_matmul
+    from handwritten_ocr_tpu_torch.ops.paged_decode_attention import (
+        paged_append_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Qwen3Config(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, head_dim=128, eos_token_id=EOS)
+    params = init_qwen3(cfg, dtype=torch.float32, device="cpu", seed=2,
+                        quantize="int8")
+    kw = dict(BATCHER, block_size=128, max_context=512, dtype=torch.float32,
+              kv_quant=kv_quant)
+    reqs = [GenRequest(prompt_ids=r.prompt_ids, max_new=r.max_new)
+            for r in requests(GenRequest)]
+    want = ContinuousBatcher(PagedProgram(params, cfg), device="cpu",
+                             **kw).run(reqs)
+    before = (int8_matmul.launches, paged_append_attention.int8_launches,
+              paged_append_attention.launches)
+    batcher = ContinuousBatcher(PagedProgram(_to(params, "cuda"), cfg),
+                                device="cuda", **kw)
+    assert batcher.run([GenRequest(prompt_ids=r.prompt_ids, max_new=r.max_new)
+                        for r in reqs]) == want
+    after = (int8_matmul.launches, paged_append_attention.int8_launches,
+             paged_append_attention.launches)
+    assert after[0] > before[0]
+    assert (after[1] > before[1]) == kv_quant
+    assert (after[2] > before[2]) == (not kv_quant)

@@ -93,3 +93,32 @@ def _flat(tree, path=()):
             yield from _flat(value, path + (i,))
     else:
         yield path, tree
+
+
+def test_int8_qwen3_tree_carries_over():
+    """An int8 Qwen3 tree: ``w_q [L, in, out]`` → per layer ``[out, in]``
+    int8, ``w_scale`` untransposed and fp32 whatever ``dtype`` asks, the
+    stacked QK-norm scales unstacked per layer."""
+    from handwritten_ocr_tpu.models.init import init_qwen3
+    from handwritten_ocr_tpu.models.qwen3 import Qwen3Config
+    cfg = Qwen3Config(vocab_size=300, hidden_size=64, intermediate_size=96,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=16)
+    tree = jax.tree_util.tree_map(np.asarray, init_qwen3(
+        jax.random.PRNGKey(0), cfg, dtype=np.float32, quantize="int8"))
+    port = from_jax_params(tree, dtype=torch.bfloat16)
+    for i, layer in enumerate(port["layers"]):
+        q = layer["attn"]["q"]
+        assert set(q) == {"w_q", "w_scale"}
+        assert q["w_q"].dtype == torch.int8 and q["w_q"].is_contiguous()
+        np.testing.assert_array_equal(
+            q["w_q"].numpy(), tree["layers"]["attn"]["q"]["w_q"][i].T)
+        assert q["w_scale"].dtype == torch.float32
+        np.testing.assert_array_equal(
+            q["w_scale"].numpy(), tree["layers"]["attn"]["q"]["w_scale"][i])
+        assert layer["attn"]["k_norm"]["scale"].shape == (16,)
+        assert layer["attn"]["k_norm"]["scale"].dtype == torch.bfloat16
+    assert port["lm_head"]["w_q"].shape == (300, 64)
+    assert port["lm_head"]["w_scale"].dtype == torch.float32
+    assert port["embed"]["w"].shape == (300, 64)
+    assert port["embed"]["w"].dtype == torch.bfloat16
