@@ -9,10 +9,11 @@ Phases, each printing one JSON line:
   3. each kernel at the two paths' shapes against its plain PyTorch
      version on the card, with its time, the plain version's time, the
      time of one PyTorch library call where one computes the same
-     function, and the least time the card could take (bound): flash,
-     window and paged attention (fp KV and int8 KV) at the read's shapes;
-     flash prefill, int8 paged attention and the int8 matmul at the
-     reasoner's;
+     function, the kernel's time over that call's (library_ratio), and
+     the least time the card could take (bound): flash, window and paged
+     attention (fp KV and int8 KV) at the read's shapes; flash prefill,
+     int8 paged attention and the int8 matmul at the reasoner's (the int8
+     matmul also with its device time alone, from a CUDA graph);
   4. the OCR read: Qwen2.5-VL at the olmOCR-2-7B widths and depth, bf16,
      random weights from a seed; four synthetic 924x672 pages through
      ``TorchPreprocessor`` with the two initial strategies into
@@ -82,6 +83,35 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, launches: int = 24) -> float:
+    """Device time of one call without the host: ``launches`` calls (cycling
+    through ``fns``) captured in one CUDA graph, CUDA events around three
+    replays of it."""
+    for fn in fns:
+        fn()                                  # build, allocator warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * launches)
+
+
+def with_ratio(row: dict) -> dict:
+    """The kernel's time over the library call's, in the same run."""
+    lib = row.get("library_ms")
+    return row | {"library_ratio": row["ms"] / lib if lib else None}
 
 
 def synthetic_pages(n_pages: int, height: int = 924, width: int = 672):
@@ -248,7 +278,11 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
                       out_dtype, gen, path: str) -> dict:
     """The int8 matmul at a decode shape against its plain version; the
     library yardstick is ``torch.mm`` on the bf16 dequantised weight (it
-    reads 2 bytes per weight where the kernel reads 1)."""
+    reads 2 bytes per weight where the kernel reads 1). ``ms`` times a
+    back-to-back loop of wrapper calls, which the host can set at small N;
+    ``graph_ms`` is the kernel's device time alone, from a CUDA graph of
+    launches cycling through enough copies of the weight (>= 60 MB) that
+    each launch reads it from device memory, as a decode step does."""
     from handwritten_ocr_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                            int8_matmul_plain)
     dev = "cuda"
@@ -264,6 +298,11 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
     n_bytes = d_in * d_out + m * d_in * 2 + d_out * 4 + m * d_out * out_bytes
     bound, by = bound_ms(n_bytes, 2 * m * d_in * d_out, BF16_FLOPS_PER_S)
     w_deq = (w_q.to(torch.bfloat16) * scale[:, None].to(torch.bfloat16))
+    copies = [w_q] + [w_q.clone() for _ in range(
+        min(23, math.ceil(60e6 / w_q.numel()) - 1))]
+    device_ms = graph_ms([lambda w=w: int8_matmul(x, w, scale, out_dtype=out_dtype)
+                          for w in copies])
+    del copies
     record = dict(
         name="int8_matmul", case=case, route="cuda", path=path,
         counter="int8_matmul",
@@ -273,6 +312,7 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
         f"{'fp32' if out_dtype == torch.float32 else 'bf16'} out", **cmp,
         ms=time_ms(lambda: int8_matmul(x, w_q, scale, out_dtype=out_dtype),
                    iters=20),
+        graph_ms=device_ms,
         plain_ms=time_ms(lambda: int8_matmul_plain(x, w_q, scale, out_dtype),
                          iters=3),
         library="torch.mm on the bf16 dequantised weight",
@@ -339,6 +379,7 @@ def phase_kernels_reasoning(qcfg, prompt_len: int) -> list[dict]:
             ("lm_head_m24", slots, d, vocab, torch.float32)):
         rows.append(_int8_matmul_case(case, m, d_in, d_out, out_dtype, gen,
                                       "reasoning"))
+    rows = [with_ratio(r) for r in rows]
     for r in rows:
         emit(phase="kernel", **r)
     return rows
@@ -465,6 +506,7 @@ def phase_kernels(cfg, prompt_len: int) -> list[dict]:
             "paged_append_attention", case, cfg_mod.SERVE_SLOTS, batch,
             prompt_len + 64, txt.num_hidden_layers, hq, hkv, thd, kv_quant,
             gen, path))
+    rows = [with_ratio(r) for r in rows]
     for r in rows:
         emit(phase="kernel", **r)
     return rows
@@ -887,7 +929,8 @@ def main() -> int:
             | {"launches": paths[r["path"]][r["counter"]]}
             | {key: r[key] for key in ("max_abs_err", "tolerance",
                                        "rel_rms_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")})
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_ratio")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

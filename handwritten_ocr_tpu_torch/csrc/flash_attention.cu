@@ -3,11 +3,12 @@
 // Replaces the Pallas kernel handwritten_ocr_tpu/ops/flash_attention.py:
 // _flash_kernel. The TPU grid walks (batch*head, q block, k block) with the
 // k axis sequential and carries m / l / acc in VMEM scratch across it; here
-// one thread block owns one (batch*q-head, 64-row q tile) and walks the k
-// tiles in an in-block loop, so nothing carries between blocks.
+// a work item is one (batch*q-head, q tile), whose k tiles a block walks in
+// an in-block loop, so nothing carries between blocks.
 //
 // Layout: q [B, T, Hq, D], k/v [B, S, Hkv, D], mask [M, S] uint8 (M = 1 or
-// B, optional), out [B, T, Hq, D]; q-head h reads kv-head h / (Hq / Hkv).
+// B, optional; the bf16 body takes it padded to a multiple of 128 keys),
+// out [B, T, Hq, D]; q-head h reads kv-head h / (Hq / Hkv).
 // Math: scores in fp32 from the input dtype, scaled after the dot; masked
 // keys (col >= S, mask 0, or col > row when causal) get -inf; online softmax
 // with the TPU kernel's guards (m == -inf rows contribute 0, denominator
@@ -15,23 +16,50 @@
 // value dtype before the P.V product, as the TPU kernel does; accumulation
 // is fp32.
 //
+// What bounds it: operations. At the paths' shapes (vision [8, 3456, 16,
+// 80] with a key mask, causal prefill [8, 1024-1280, 28/4 or 64/8, 128]) it
+// does 4.T.S.D flops per head against a few bytes per flop, so only the
+// tensor cores at their wgmma rate can approach the bound.
+//
 // Two bodies, one function:
-// - bf16 (the model's dtype): tensor cores. 4 warps own 16 query rows
-//   each of a 64-row tile; Q.K^T and P.V run as mma.sync.m16n8k16 (bf16
-//   in, fp32 accumulate). Q's fragments stay in registers for the whole
-//   block; 64-key tiles of K and V stream through two shared-memory
-//   buffers by cp.async (the next tile loads while the current one
-//   computes); V's operands come out transposed by ldmatrix.trans; the
-//   score accumulators become the P.V operands in registers (rounded to
-//   bf16), with no trip through shared memory. Rows are padded by 8
-//   elements so fragment loads hit distinct banks.
+// - bf16 (the model's dtype): warp-specialised wgmma + TMA, persistent.
+//   One block of 384 threads per SM walks work items of 128 q rows.
+//   Warpgroup 0 is the producer (setmaxnreg 24): one thread loads each
+//   item's Q and streams its 128-key K/V tiles (with the tile's 128 mask
+//   bytes, by a bulk copy) into a 3-stage shared-memory ring with TMA, each
+//   stage completing on a `full` mbarrier; it runs ahead into the next
+//   item, so the next Q and K/V tiles load while the consumers finish.
+//   Warpgroups 1-2 are the consumers (setmaxnreg 240), 64 q rows each:
+//   S = Q.K^T by wgmma m64n128k16 with Q and K from shared memory (K-major,
+//   128-byte swizzle), then the softmax, then O += P.V. The two
+//   warpgroups run unsynchronised, so one's products overlap the other's
+//   softmax; neither turn-taking barriers between them nor issuing the next
+//   tile's Q.K^T ahead of this tile's softmax (a second schedule, with Q
+//   double-buffered and K and V in rings of their own) ran faster on the
+//   H100, so the simpler schedule stays. The softmax runs in registers in
+//   the exp2 domain (scale.log2e folded into one FMA), with the row max
+//   and row sum over four partial values each, and masks elementwise only
+//   the tiles that need it (a key mask, the ragged last tile, the causal
+//   diagonal): the tile's 128 mask bytes come into shared memory with it
+//   and become four warp ballots, then one 32-bit word per thread with a
+//   bit per column it holds, so a masked element costs a bit test. P
+//   rounded to bf16 in place becomes the register A operand of O += P.V
+//   (wgmma rs), V read MN-major from shared memory with the transpose bit;
+//   one arrive per warp on the stage's `empty` mbarrier hands the stage
+//   back, and the last tile of an item hands Q back (`q_empty`). Causal key
+//   tiles above the diagonal are never loaded, and causal items are taken
+//   heaviest first across all heads, so every SM gets an even share and
+//   the long rows do not finish last. Head width 80: Q/K rows are 160
+//   bytes, more than one 128-byte swizzle row, so they load as two 64-wide
+//   boxes (the second zero-filled past column 80) and Q.K^T runs only the
+//   5 k-steps that hold data; V loads as five 16-wide boxes with 32-byte
+//   swizzle, so P.V runs at N = 80 over whole swizzle atoms and does no
+//   padded work. TMA zero-fills rows past T and S; the stores of rows past
+//   T are skipped.
 // - fp32: plain FMA. 256 threads as a 16 x 16 grid, each owning 4 rows x 4
 //   strided columns of the 64 x 64 score tile and 4 rows x D/16 output
 //   columns; Q in shared memory, the K tile then the V tile in one buffer.
-// No TMA / wgmma pipeline yet: that is later work.
-#include <type_traits>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -188,290 +216,405 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16 body: tensor cores -------------------------------------------
-constexpr int MQ = 64;   // query rows per block (16 per warp)
-constexpr int MK = 64;   // keys per tile
-constexpr int MT = 128;  // 4 warps
+// ---- bf16 body: wgmma + TMA, warp-specialised ----------------------------
+constexpr int WQ = 128;        // q rows per block: two consumer warpgroups
+constexpr int WK = 128;        // keys per tile
+constexpr int STAGES = 3;      // K/V ring depth
+constexpr int WTHREADS = 384;  // warpgroup 0 produces, 1 and 2 consume
+constexpr int CONSUMER_WARPS = 8;
+static_assert(WQ == WK, "Q and K boxes share one offset per k-step");
 
-template <int D> constexpr size_t mma_smem_bytes() {
-  // Q, then two buffers each of K and V, all rows padded by 8 elements.
-  return sizeof(__nv_bfloat16) * (size_t)(MQ + 4 * MK) * (D + 8);
+template <int D> struct Tiles {
+  static constexpr int NQB = (D + 63) / 64;        // 64-wide Q/K boxes
+  static constexpr int KSTEPS = D / 16;            // Q.K^T k-steps with data
+  static constexpr int VA = D % 64 == 0 ? 64 : 16; // V swizzle atom width
+  static constexpr int NVB = (D + VA - 1) / VA;    // V boxes
+  static constexpr uint32_t Q_BYTES = NQB * WQ * 128;
+  static constexpr uint32_t K_BYTES = NQB * WK * 128;
+  static constexpr uint32_t V_BYTES = NVB * WK * VA * 2;
+  static constexpr uint32_t OFF_K = Q_BYTES;
+  static constexpr uint32_t OFF_V = OFF_K + STAGES * K_BYTES;
+  static constexpr uint32_t OFF_MASK = OFF_V + STAGES * V_BYTES;
+  static constexpr uint32_t OFF_BAR = OFF_MASK + STAGES * WK;
+  // + slack to align the base to the 1024-byte swizzle atom
+  static constexpr size_t SMEM = OFF_BAR + 8 * (2 + 2 * STAGES) + 1024;
+  static_assert(V_BYTES % 1024 == 0, "V stages must keep 1024-byte alignment");
+  static_assert(SMEM <= 232448, "more shared memory than a block may use");
+};
+
+// Per-block state of a consumer warpgroup.
+struct Consumer {
+  unsigned char* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* q_empty;
+  const unsigned char* sq;  // this warpgroup's 64 Q rows
+  int lane, t, row0, wg_row, s_len, causal, has_mask;
+  float scale_log2;
+};
+
+// One work item: a 128-row q tile of one (batch, q-head), and the key
+// tiles it needs (causal: none above the diagonal). Item order: without
+// causal every item has the same work, and the q tiles of one head come
+// together so that their K/V reads meet in L2; causal items come heaviest
+// first across all heads (the last q tile of every head, then the one
+// before, ...), so the round-robin over blocks hands each SM an even share
+// and the long rows do not finish last.
+struct Work {
+  int b, h, hk, q0, n_tiles;
+  __device__ __forceinline__ Work(int w, int n_qt, int n_bh, int hq, int hkv,
+                                  int s_len, int causal) {
+    const int bh = causal ? w % n_bh : w / n_qt;
+    const int qt = causal ? w / n_bh : w % n_qt;
+    b = bh / hq;
+    h = bh % hq;
+    hk = h / (hq / hkv);
+    q0 = (n_qt - 1 - qt) * WQ;
+    const int k_end = causal ? min(s_len, q0 + WQ) : s_len;
+    n_tiles = (k_end + WK - 1) / WK;
+  }
+};
+
+// 2^x by the MUFU unit (denormal results flush to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16 bytes global -> shared without a register stop; zero-fills when the
-// source is out of range (src-size 0 reads nothing).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// The two B fragments of an m16n8k16 product over a row-major [k][n]
-// tile: rows k0..k0+15 (addressed by lanes 0-15), cols n0..n0+7.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1) : "r"(a));
-}
-
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): A holds
-// rows g and g+8 at cols 2t, 2t+1 (and +8); B holds col g at rows 2t, 2t+1
-// (and +8); C holds rows g and g+8 at cols 2t, 2t+1.
+// Key tile `it` of the work item, in ring slot gi. `last` hands Q back to
+// the producer, which then loads the next item's Q during this tile.
 template <int D>
-__global__ void __launch_bounds__(MT)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const uint8_t* __restrict__ mask,
-                 __nv_bfloat16* __restrict__ out, int t_len, int s_len,
-                 int hq, int hkv, int mask_rows, int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int QS = D + 8;        // row stride of every tile
-  constexpr int NKS = D / 16;      // k-steps over the head dim
-  constexpr int NDT = D / 8;       // 8-col tiles of the output
-  constexpr int VPR = D / 8;       // 16-byte vectors per row
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MQ][QS]
-  __nv_bfloat16* sk = sq + MQ * QS;                                // [2][MK][QS]
-  __nv_bfloat16* sv = sk + 2 * MK * QS;                            // [2][MK][QS]
+__device__ __forceinline__ void consume_tile(const Consumer& c, int it, int gi,
+                                             bool last,
+                                             float (&o)[D / 2], float (&m)[2],
+                                             float (&l)[2]) {
+  using L = Tiles<D>;
+  const int st = gi % STAGES;
+  const int k0 = it * WK;
+  mbar_wait(&c.full[st], (gi / STAGES) & 1);
 
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int h = bh % hq;
-  const int hk = h / (hq / hkv);
-  const int q0 = blockIdx.x * MQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-
-  const size_t q_row = (size_t)hq * D;
-  const size_t kv_row = (size_t)hkv * D;
-  const __nv_bfloat16* qb = q + (size_t)b * t_len * q_row + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * s_len * kv_row + (size_t)hk * D;
-  const __nv_bfloat16* vb = v + (size_t)b * s_len * kv_row + (size_t)hk * D;
-  const uint8_t* mb =
-      mask ? mask + (size_t)(mask_rows == 1 ? 0 : b) * s_len : nullptr;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  for (int i = tid; i < MQ * VPR; i += MT) {
-    const int r = i / VPR, cv = i % VPR;
-    uint4 val = zero;
-    if (q0 + r < t_len)
-      val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * q_row + cv * 8);
-    *reinterpret_cast<uint4*>(sq + r * QS + cv * 8) = val;
-  }
-  __syncthreads();
-  const int ra = warp * 16 + g;    // this thread's two rows: ra and ra + 8
-  uint32_t qa[NKS][4];
+  // S = Q.K^T: k-step ks reads 32 bytes into box ks / 4 of each row.
+  const unsigned char* sk = c.smem + L::OFF_K + st * L::K_BYTES;
+  float s[WK / 2];
+  wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < NKS; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    qa[ks][0] = ld32(sq + ra * QS + c);
-    qa[ks][1] = ld32(sq + (ra + 8) * QS + c);
-    qa[ks][2] = ld32(sq + ra * QS + c + 8);
-    qa[ks][3] = ld32(sq + (ra + 8) * QS + c + 8);
+  for (int ks = 0; ks < L::KSTEPS; ++ks) {
+    const int off = (ks / 4) * (WQ * 128) + (ks % 4) * 32;
+    wgmma_ss_n128(s, smem_desc(c.sq + off, 16, 1024, kSwizzle128B),
+                  smem_desc(sk + off, 16, 1024, kSwizzle128B), ks > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+  if (last) {
+    __syncwarp();
+    if (c.lane == 0) mbar_arrive(c.q_empty);
   }
 
-  float o[NDT][4];
+  float corr[2];
+  const bool edge = k0 + WK > c.s_len || (c.causal && k0 + WK - 1 > c.wg_row);
+  if (c.has_mask || edge) {
+    // keep bit 2j + e: col 8j + 2t + e of the tile (this thread's cols).
+    uint32_t keep = ~0u;
+    if (c.has_mask) {
+      // The tile's 128 mask bytes as four ballots: ballot k holds col
+      // 4i + k at bit i, so col 8j + 2t + e sits in ballot 2(t & 1) + e at
+      // bit 2j + t / 2.
+      const uint32_t word = reinterpret_cast<const uint32_t*>(
+          c.smem + L::OFF_MASK + st * WK)[c.lane];
+      uint32_t bits[4];
 #pragma unroll
-  for (int dt = 0; dt < NDT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + ra, q0 + ra + 8};
-
-  const int k_end = causal ? min(s_len, q0 + MQ) : s_len;
-  const int n_tiles = (k_end + MK - 1) / MK;
-  // Tile `tile` of K and V into buffer `buf`, as one cp.async group.
-  auto issue = [&](int tile, int buf) {
-    for (int i = tid; i < MK * VPR; i += MT) {
-      const int r = i / VPR, cv = i % VPR;
-      const int col = tile * MK + r;
-      const bool ok = col < s_len;
-      const size_t off = ok ? (size_t)col * kv_row + cv * 8 : 0;
-      cp_async16(sk + (buf * MK + r) * QS + cv * 8, kb + off, ok);
-      cp_async16(sv + (buf * MK + r) * QS + cv * 8, vb + off, ok);
+      for (int k = 0; k < 4; ++k)
+        bits[k] = __ballot_sync(0xffffffffu, (word >> (8 * k)) & 0xffu);
+      const uint32_t x0 = bits[2 * (c.t & 1)] >> (c.t / 2);
+      const uint32_t x1 = bits[2 * (c.t & 1) + 1] >> (c.t / 2);
+      keep = (x0 & 0x55555555u) | ((x1 & 0x55555555u) << 1);
     }
-    cp_async_commit();
-  };
-  if (n_tiles > 0) issue(0, 0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1;
-    const int k0 = tile * MK;
-    if (tile + 1 < n_tiles) {       // the next tile loads during this one
-      issue(tile + 1, buf ^ 1);
-      cp_async_wait<1>();
+    if (edge) {
+      // Last valid col of each of this thread's rows, relative to 2t.
+      int last_col[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lim = c.causal ? min(c.s_len - 1, c.row0 + 8 * r) : c.s_len - 1;
+        last_col[r] = lim - k0 - 2 * c.t;
+      }
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!(keep & (1u << (2 * j + (e & 1)))) || 8 * j + (e & 1) > last_col[e >> 1])
+            s[4 * j + e] = -INFINITY;
     } else {
-      cp_async_wait<0>();
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!(keep & (1u << (2 * j + (e & 1))))) s[4 * j + e] = -INFINITY;
     }
-    __syncthreads();
-    const __nv_bfloat16* skb = sk + buf * MK * QS;
-    const __nv_bfloat16* svb = sv + buf * MK * QS;
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < NKS; ++ks) {
-        const __nv_bfloat16* kr = skb + (j * 8 + g) * QS + ks * 16 + 2 * t;
-        mma_bf16(s[j], qa[ks], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = col < s_len && (mb == nullptr || mb[col] != 0) &&
-                        (!causal || col <= row[e >> 1]);
-        s[j][e] = ok ? s[j][e] * scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float safe[2], corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = group_max<4>(mx[r]);
-      const float m_new = fmaxf(m[r], mx[r]);
-      safe[r] = (m_new == -INFINITY) ? 0.f : m_new;
-      corr[r] = (m[r] == -INFINITY) ? 0.f : expf(m[r] - safe[r]);
-      m[r] = m_new;
-    }
-    // P as the A operand of P.V: k-step kk takes score tiles 2kk, 2kk+1.
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = expf(s[j][0] - safe[0]), p1 = expf(s[j][1] - safe[0]);
-      const float p2 = expf(s[j][2] - safe[1]), p3 = expf(s[j][3] - safe[1]);
-      sum[0] += p0 + p1;
-      sum[1] += p2 + p3;
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = corr[r] * l[r] + group_sum<4>(sum[r]);
-#pragma unroll
-    for (int dt = 0; dt < NDT; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[dt][e] *= corr[e >> 1];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < NDT; ++dt) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, svb + (kk * 16 + (lane & 15)) * QS + dt * 8);
-        mma_bf16(o[dt], pa[kk], b0, b1);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
   }
 
-  __nv_bfloat16* ob = out + (size_t)b * t_len * q_row + (size_t)h * D;
+  // Row max and row sum over four partial values each (short chains).
+  float mx[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mx[r][k] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < WK / 2; ++i)
+    mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+  float safe[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row[r] >= t_len) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
+    const float row_max = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    const float m_new = fmaxf(m[r], group_max<4>(row_max) * c.scale_log2);
+    safe[r] = (m_new == -INFINITY) ? 0.f : m_new;
+    corr[r] = (m[r] == -INFINITY) ? 0.f : fast_exp2(m[r] - safe[r]);
+    m[r] = m_new;
+  }
+  float sum[2][4] = {};
 #pragma unroll
-    for (int dt = 0; dt < NDT; ++dt) {
-      const __nv_bfloat162 pair =
-          __floats2bfloat162_rn(o[dt][2 * r] / denom, o[dt][2 * r + 1] / denom);
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row[r] * q_row + dt * 8 + 2 * t) = pair;
+  for (int i = 0; i < WK / 2; ++i) {
+    s[i] = fast_exp2(fmaf(s[i], c.scale_log2, -safe[(i >> 1) & 1]));
+    sum[(i >> 1) & 1][(i >> 2) & 3] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = corr[r] * l[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j + 2 * r] *= corr[r];
+      o[4 * j + 2 * r + 1] *= corr[r];
+    }
+
+  // P as the A operand of P.V: k-step kk takes score tiles 2kk, 2kk+1.
+  uint32_t pa[WK / 16][4];
+#pragma unroll
+  for (int j = 0; j < WK / 8; ++j) {
+    pa[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+
+  // O += P.V: V MN-major, swizzle atoms VA wide, 8-row groups along keys.
+  const unsigned char* sv = c.smem + L::OFF_V + st * L::V_BYTES;
+  reg_fence(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WK / 16; ++kk)
+    WgmmaRS<D>::run(o, pa[kk],
+                    smem_desc(sv + kk * 16 * L::VA * 2, WK * L::VA * 2,
+                              8 * L::VA * 2,
+                              L::VA == 64 ? kSwizzle128B : kSwizzle32B));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(o);
+  __syncwarp();
+  if (c.lane == 0) mbar_arrive(&c.empty[st]);
+}
+
+// Persistent: one block per SM walks the work items w = blockIdx.x,
+// blockIdx.x + gridDim.x, ... (in the order of Work), so the producer
+// loads the next item's Q and first K/V tiles while the consumers finish
+// the current one.
+template <int D>
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const uint8_t* __restrict__ mask, int mask_stride,
+                   __nv_bfloat16* __restrict__ out, int t_len, int s_len,
+                   int hq, int hkv, int n_work, int mask_rows, int causal,
+                   float scale_log2) {
+  using L = Tiles<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + STAGES;
+  const int n_qt = (t_len + WQ - 1) / WQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMER_WARPS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread issues every load -------------------------
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      int gi = 0;  // ring slot of the next K/V tile, across work items
+      int local = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++local) {
+        const Work wk(w, n_qt, n_work / n_qt, hq, hkv, s_len, causal);
+        if (local > 0) mbar_wait(q_empty, (local - 1) & 1);
+        mbar_expect_tx(q_full, L::Q_BYTES);
+        for (int i = 0; i < L::NQB; ++i)
+          tma_load_4d(smem + i * WQ * 128, &map_q, q_full, i * 64, wk.h, wk.q0, wk.b);
+        const uint8_t* mrow =
+            mask ? mask + (size_t)(mask_rows == 1 ? 0 : wk.b) * mask_stride : nullptr;
+        for (int it = 0; it < wk.n_tiles; ++it, ++gi) {
+          const int st = gi % STAGES;
+          const int k0 = it * WK;
+          if (gi >= STAGES) mbar_wait(&empty[st], ((gi / STAGES) - 1) & 1);
+          mbar_expect_tx(&full[st], L::K_BYTES + L::V_BYTES + (mrow ? WK : 0));
+          unsigned char* sk = smem + L::OFF_K + st * L::K_BYTES;
+          for (int i = 0; i < L::NQB; ++i)
+            tma_load_4d(sk + i * WK * 128, &map_k, &full[st], i * 64, wk.hk, k0, wk.b);
+          unsigned char* sv = smem + L::OFF_V + st * L::V_BYTES;
+          for (int i = 0; i < L::NVB; ++i)
+            tma_load_4d(sv + i * WK * L::VA * 2, &map_v, &full[st], i * L::VA,
+                        wk.hk, k0, wk.b);
+          if (mrow) bulk_load(smem + L::OFF_MASK + st * WK, mrow + k0, WK, &full[st]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows per warpgroup ------------------------------
+    regs_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % 128) / 32;
+    Consumer c;
+    c.smem = smem;
+    c.full = full;
+    c.empty = empty;
+    c.q_empty = q_empty;
+    c.sq = smem + cw * 64 * 128;
+    c.lane = lane;
+    c.t = lane % 4;
+    c.s_len = s_len;
+    c.causal = causal;
+    c.has_mask = mask != nullptr;
+    c.scale_log2 = scale_log2;
+
+    int gi = 0;
+    int local = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++local) {
+      const Work wk(w, n_qt, n_work / n_qt, hq, hkv, s_len, causal);
+      c.wg_row = wk.q0 + cw * 64;
+      c.row0 = c.wg_row + warp * 16 + lane / 4;  // rows row0 and row0 + 8
+      float o[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+      mbar_wait(q_full, local & 1);
+      const int n = wk.n_tiles;
+      for (int it = 0; it < n; ++it)
+        consume_tile<D>(c, it, gi + it, it + 1 == n, o, m, l);
+      if (n == 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty);
+      }
+      gi += n;
+
+      const int t = c.t;
+      __nv_bfloat16* ob = out + (size_t)wk.b * t_len * hq * D + (size_t)wk.h * D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float denom = fmaxf(group_sum<4>(l[r]), 1e-30f);
+        const int row = c.row0 + r * 8;
+        if (row >= t_len) continue;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * hq * D + j * 8 + 2 * t) =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] / denom,
+                                    o[4 * j + 2 * r + 1] / denom);
+      }
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* out, int b, int t_len, int s_len,
-                   int hq, int hkv, int mask_rows, int causal, float scale,
-                   cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const size_t smem = mma_smem_bytes<D>();
-    static bool configured[kMaxDevices] = {};
-    cudaError_t err = set_smem_once(flash_mma_kernel<D>, smem, configured);
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const uint8_t* mask, int mask_stride, void* out, int b,
+                        int t_len, int s_len, int hq, int hkv, int mask_rows,
+                        int causal, float scale, cudaStream_t stream) {
+  using L = Tiles<D>;
+  if (mask != nullptr && mask_stride % WK != 0) return cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = make_map_4d(&map_q, q, D, hq, t_len, b, 64, WQ,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_map_4d(&map_k, k, D, hkv, s_len, b, 64, WK,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_map_4d(&map_v, v, D, hkv, s_len, b, L::VA, WK,
+                      L::VA == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err != cudaSuccess) return err;
+  static bool configured[kMaxDevices] = {};
+  static int sm_count[kMaxDevices] = {};
+  err = set_smem_once(flash_wgmma_kernel<D>, L::SMEM, configured);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int sms = dev < kMaxDevices ? sm_count[dev] : 0;
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    dim3 grid((t_len + MQ - 1) / MQ, b * hq);
-    flash_mma_kernel<D><<<grid, MT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), mask, static_cast<T*>(out), t_len, s_len,
-        hq, hkv, mask_rows, causal, scale);
-  } else {
-    const size_t smem = flash_smem_bytes<D>();
-    static bool configured[kMaxDevices] = {};
-    cudaError_t err = set_smem_once(flash_kernel<T, D>, smem, configured);
-    if (err != cudaSuccess) return err;
-    dim3 grid((t_len + BQ - 1) / BQ, b * hq);
-    flash_kernel<T, D><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), mask, static_cast<T*>(out), t_len, s_len,
-        hq, hkv, mask_rows, causal, scale);
+    if (dev < kMaxDevices) sm_count[dev] = sms;
   }
+  const int n_work = (t_len + WQ - 1) / WQ * b * hq;
+  flash_wgmma_kernel<D><<<min(n_work, sms), WTHREADS, L::SMEM, stream>>>(
+      map_q, map_k, map_v, mask, mask_stride,
+      static_cast<__nv_bfloat16*>(out), t_len, s_len, hq, hkv, n_work,
+      mask_rows, causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       const uint8_t* mask, void* out, int b, int t_len,
-                       int s_len, int hq, int hkv, int mask_rows, int causal,
-                       float scale, cudaStream_t stream) {
-  switch (d) {
-    case 80:
-      return launch<T, 80>(q, k, v, mask, out, b, t_len, s_len, hq, hkv,
-                           mask_rows, causal, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, mask, out, b, t_len, s_len, hq, hkv,
-                            mask_rows, causal, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v,
+                        const uint8_t* mask, void* out, int b, int t_len,
+                        int s_len, int hq, int hkv, int mask_rows, int causal,
+                        float scale, cudaStream_t stream) {
+  const size_t smem = flash_smem_bytes<D>();
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem_once(flash_kernel<float, D>, smem, configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((t_len + BQ - 1) / BQ, b * hq);
+  flash_kernel<float, D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), mask, static_cast<float*>(out), t_len,
+      s_len, hq, hkv, mask_rows, causal, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched). `mask_stride`
+// is the row stride of the mask in bytes: S for fp32, S rounded up to a
+// multiple of 128 for bf16.
 HOCR_EXPORT int hocr_flash_attention(const void* q, const void* k,
                                      const void* v, const void* mask,
-                                     void* out, int b, int t_len, int s_len,
-                                     int hq, int hkv, int d, int mask_rows,
-                                     int causal, float scale, int dtype,
-                                     void* stream) {
+                                     int mask_stride, void* out, int b,
+                                     int t_len, int s_len, int hq, int hkv,
+                                     int d, int mask_rows, int causal,
+                                     float scale, int dtype, void* stream) {
   if (t_len == 0 || b == 0) return 0;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, m, out, b, t_len, s_len, hq,
-                                     hkv, mask_rows, causal, scale, st);
-  if (dtype == kFloat32)
-    return dispatch_d<float>(d, q, k, v, m, out, b, t_len, s_len, hq, hkv,
-                             mask_rows, causal, scale, st);
+  if (dtype == kBFloat16 && d == 80)
+    return launch_bf16<80>(q, k, v, m, mask_stride, out, b, t_len, s_len, hq,
+                           hkv, mask_rows, causal, scale, st);
+  if (dtype == kBFloat16 && d == 128)
+    return launch_bf16<128>(q, k, v, m, mask_stride, out, b, t_len, s_len, hq,
+                            hkv, mask_rows, causal, scale, st);
+  if (dtype == kFloat32 && d == 80)
+    return launch_fp32<80>(q, k, v, m, out, b, t_len, s_len, hq, hkv,
+                           mask_rows, causal, scale, st);
+  if (dtype == kFloat32 && d == 128)
+    return launch_fp32<128>(q, k, v, m, out, b, t_len, s_len, hq, hkv,
+                            mask_rows, causal, scale, st);
   return cudaErrorInvalidValue;
 }

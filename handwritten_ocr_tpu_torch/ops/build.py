@@ -6,8 +6,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o _build/lib<name>-<digest>.so csrc/<name>.cu
 
-The library name carries a digest of the sources, so an edited kernel
-never loads a stale build. Builds happen at first use, never at import,
+The library name carries a digest of the kernel's source, every shared
+header and the whole compiler command, so an edited kernel, header or
+flag never loads a stale build. Builds happen at first use, never at import,
 and write through a temporary file renamed into place, so concurrent
 processes cannot load a half-written library. :func:`build_all` starts one
 ``nvcc`` per source at once.
@@ -43,20 +44,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _flags(name: str) -> list[str]:
+    """The compiler command after ``nvcc``, without the output path."""
+    return [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+            "-fPIC", "-Xptxas", "-v", f"-I{CSRC}", str(CSRC / f"{name}.cu")]
+
+
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives; the digest covers the kernel source,
-    the shared header and the compiler flags."""
+    every ``csrc/*.cuh`` header and the compiler flags."""
     digest = hashlib.sha256()
-    for source in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for source in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(source.name.encode())
         digest.update(source.read_bytes())
-    digest.update(" ".join(ARCH_FLAGS).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:
-    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{CSRC}",
-            "-o", str(out), str(CSRC / f"{name}.cu")]
+    return [_nvcc(), *_flags(name), "-o", str(out)]
 
 
 def build_all(names=KERNELS) -> dict[str, dict]:

@@ -16,11 +16,30 @@ from handwritten_ocr_tpu_torch.ops.dispatch import check, use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (80, 128)     # vision and text head widths
+_KEY_TILE = 128            # the bf16 body's key tile; its mask rows are padded to it
+_MAX_GRID_Y = 65535        # batch x q-heads: the fp32 body's grid y extent
+
+
+def check_kernel_shapes(q_shape, kv_shape, dtype: torch.dtype, *,
+                        causal: bool) -> None:
+    """Raise ValueError unless the kernel takes q ``[B, T, Hq, D]`` and k/v
+    ``[B, S, Hkv, D]`` of ``dtype``: the limits of the kernel itself, on
+    top of the function's. Needs no card."""
+    b, t, hq, d = q_shape
+    s = kv_shape[1]
+    check(dtype in _DTYPE_CODES, f"unsupported dtype {dtype}")
+    check(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
+    row_bytes = d * torch.empty((), dtype=dtype).element_size()
+    check(row_bytes % 16 == 0,
+          f"head rows of {row_bytes} bytes: TMA strides need multiples of 16")
+    check(b * hq <= _MAX_GRID_Y, f"batch x heads {b * hq} > {_MAX_GRID_Y}")
+    check(not causal or t == s, "causal attention needs T == S")
 
 
 def _normalize_mask(kv_mask: torch.Tensor | None, b: int, s: int,
-                    device) -> torch.Tensor | None:
-    """``None`` or a ``[1|B, S]`` uint8 tensor (nonzero = key is valid)."""
+                    device, pad_to: int = 1) -> torch.Tensor | None:
+    """``None`` or a ``[1|B, S']`` uint8 tensor (nonzero = key is valid),
+    S' = S rounded up to a multiple of ``pad_to`` with masked keys."""
     if kv_mask is None:
         return None
     mask = kv_mask.to(device=device)
@@ -29,7 +48,8 @@ def _normalize_mask(kv_mask: torch.Tensor | None, b: int, s: int,
     check(mask.dim() == 2 and mask.shape[1] == s
           and mask.shape[0] in (1, b), f"kv_mask must be [S] or [B, S], got "
           f"{tuple(kv_mask.shape)}")
-    return (mask != 0).to(torch.uint8).contiguous()
+    mask = (mask != 0).to(torch.uint8)
+    return torch.nn.functional.pad(mask, (0, -s % pad_to)).contiguous()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -76,12 +96,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _flash_kernel``. On the H100 it is bound by operations: at the vision
     global layers (q, k, v ``[8, 3456, 16, 80]`` bf16) it does 4·T·S·D
     flops per head, ~2 TFLOP per 4 layers, against ~0.1 GB of inputs; the
-    causal prefill (``[8, ~1k, 28, 128]``) is the same shape of problem.
-    The kernel never writes scores to device memory, skips key tiles
-    above the causal diagonal, and reads each K/V tile once per 64-row q
-    tile. bf16 inputs run both products on the tensor cores
-    (``mma.sync`` bf16 → fp32) with the scores and P held in registers;
-    fp32 inputs run a plain FMA body.
+    causal prefill (``[8, 1024-1280, 28/4 or 64/8, 128]``) is the same
+    shape of problem. So bf16 runs on the tensor cores at their ``wgmma``
+    rate, in a persistent kernel (one block per SM walks 128-row q tiles):
+    a producer warp streams 128-key K/V tiles by TMA into a 3-stage ring
+    of shared memory (mbarriers) and runs ahead into the next q tile; two
+    consumer warpgroups each take 64 rows, so one's products run during
+    the other's softmax; the scores and P stay in registers and never
+    reach device memory, and a key mask is applied as bits. Causal key tiles
+    above the diagonal are skipped and causal q tiles come heaviest first
+    across all heads. fp32 inputs run a plain FMA body.
     """
     b, t, hq, d = q.shape
     check(k.dim() == 4 and v.shape == k.shape and k.shape[0] == b
@@ -94,22 +118,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not use_kernel(q, k, v):
         return flash_attention_plain(q, k, v, kv_mask, causal=causal,
                                      scale=scale)
-    check(q.dtype in _DTYPE_CODES, f"unsupported dtype {q.dtype}")
-    check(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
+    check_kernel_shapes(q.shape, k.shape, q.dtype, causal=causal)
     check(all(x.is_contiguous() for x in (q, k, v)),
           "q, k and v must be contiguous")
     check(all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
           "q, k and v must be 16-byte aligned")
-    check(not causal or t == s, "causal attention needs T == S")
-    mask = _normalize_mask(kv_mask, b, s, q.device)
+    mask = _normalize_mask(kv_mask, b, s, q.device,
+                           _KEY_TILE if q.dtype == torch.bfloat16 else 1)
     out = torch.empty_like(q)
     lib = build.load("flash_attention")
     fn = lib.hocr_flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     build.launch(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if mask is None else mask.data_ptr(), out.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
+                 0 if mask is None else mask.shape[1], out.data_ptr(),
                  b, t, s, hq, hkv, d, 1 if mask is None else mask.shape[0],
                  int(causal), float(scale), _DTYPE_CODES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)

@@ -18,6 +18,24 @@ from handwritten_ocr_tpu_torch.ops.dispatch import check, use_kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (80,)         # the vision tower's head width
 _KERNEL_WINDOW = 64
+_HEAD_GROUP = 2            # heads per block of the bf16 body
+
+
+def check_kernel_shapes(qkv_shape, dtype: torch.dtype, *, num_heads: int,
+                        window_len: int) -> None:
+    """Raise ValueError unless the kernel takes packed qkv ``[B, P, 3·H·hd]``
+    of ``dtype`` in windows of ``window_len``: the limits of the kernel
+    itself, on top of the function's. Needs no card."""
+    hd = qkv_shape[2] // 3 // num_heads
+    check(dtype in _DTYPE_CODES, f"unsupported dtype {dtype}")
+    check(hd in _HEAD_DIMS, f"head dim {hd} not in {_HEAD_DIMS}")
+    check(window_len == _KERNEL_WINDOW,
+          f"the kernel takes windows of {_KERNEL_WINDOW}, got {window_len}")
+    check(num_heads % _HEAD_GROUP == 0,
+          f"{num_heads} heads do not split into groups of {_HEAD_GROUP}")
+    row_bytes = hd * torch.empty((), dtype=dtype).element_size()
+    check(row_bytes % 16 == 0,
+          f"head rows of {row_bytes} bytes do not split into 16-byte vectors")
 
 
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -73,9 +91,12 @@ def window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     _packed_kernel`` and ``_window_kernel``. On the H100 it is bound by
     bytes at the main-path shape (qkv ``[8, 3456, 3840]`` bf16, 16 heads
     of 80, window 64): it reads 212 MB of qkv and writes 71 MB, against
-    ~9 GFLOP. The kernel reads each qkv row once, applies rope on the load,
-    keeps the 64 x 64 scores in shared memory and writes only the output;
-    one block per (page, window, head) gives 6912 blocks to fill the card.
+    ~9 GFLOP. The kernel moves each byte once in 16-byte vectors: one
+    block per (page, window, pair of heads) loads the pair's rows by
+    ``cp.async``, reads the window's rope tables once for both heads,
+    ropes q and k in registers, runs both products on the tensor cores
+    (``mma.sync`` bf16 → fp32) with the scores in registers, and writes
+    whole head rows.
     """
     b, p_len, three_d = qkv.shape
     d = three_d // 3
@@ -90,13 +111,13 @@ def window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
         return window_attention_plain(qkv, cos, sin, valid,
                                       num_heads=num_heads,
                                       window_len=window_len, scale=scale)
-    check(qkv.dtype in _DTYPE_CODES, f"unsupported dtype {qkv.dtype}")
-    check(hd in _HEAD_DIMS, f"head dim {hd} not in {_HEAD_DIMS}")
-    check(window_len == _KERNEL_WINDOW,
-          f"the kernel takes windows of {_KERNEL_WINDOW}, got {window_len}")
+    check_kernel_shapes(qkv.shape, qkv.dtype, num_heads=num_heads,
+                        window_len=window_len)
     check(qkv.is_contiguous(), "qkv must be contiguous")
     cos32 = cos.float().contiguous()
     sin32 = sin.float().contiguous()
+    check(all(x.data_ptr() % 16 == 0 for x in (qkv, cos32, sin32)),
+          "qkv and cos/sin must be 16-byte aligned")
     valid8 = (valid != 0).to(torch.uint8).contiguous()
     out = torch.empty((b, p_len, d), dtype=qkv.dtype, device=qkv.device)
     fn = build.load("window_attention").hocr_window_attention

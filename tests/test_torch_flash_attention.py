@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from handwritten_ocr_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain)
+    check_kernel_shapes, flash_attention, flash_attention_plain)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -89,29 +89,76 @@ def test_rejects_bad_shapes():
                         torch.from_numpy(v))
 
 
+def test_kernel_shape_checks():
+    """The kernel's own limits at the two paths' shapes, without a card:
+    every shape the read and the reasoner launch is accepted (the vision
+    global layers with a key mask, both causal prefills, the fp32
+    reference models), and shapes the kernel cannot take are refused."""
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+    from handwritten_ocr_tpu_torch.models.qwen25vl.vision import plan_grid
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    cfg, qcfg = VLConfig(), Qwen3Config()
+    vis, txt = cfg.vision, cfg.text
+    p = len(plan_grid(vis, (1, 924 // 14, 672 // 14)).valid)
+    accepted = [
+        ((8, p, vis.num_heads, vis.head_dim), (8, p, vis.num_heads, vis.head_dim),
+         torch.bfloat16, False),
+        ((8, 1024, txt.num_attention_heads, txt.head_dim),
+         (8, 1024, txt.num_key_value_heads, txt.head_dim), torch.bfloat16, True),
+        ((8, 1280, qcfg.num_attention_heads, qcfg.head_dim),
+         (8, 1280, qcfg.num_key_value_heads, qcfg.head_dim), torch.bfloat16, True),
+        ((4, 48, 2, 80), (4, 48, 2, 80), torch.float32, False),
+        ((2, 40, 2, 128), (2, 40, 1, 128), torch.float32, True),
+    ]
+    for q_shape, kv_shape, dtype, causal in accepted:
+        check_kernel_shapes(q_shape, kv_shape, dtype, causal=causal)
+    refused = [
+        ((8, 256, 16, 64), (8, 256, 16, 64), torch.bfloat16, False),
+        ((8, 256, 16, 96), (8, 256, 16, 96), torch.bfloat16, False),
+        ((8, 256, 16, 128), (8, 256, 16, 128), torch.float16, False),
+        ((8, 256, 16, 128), (8, 300, 16, 128), torch.bfloat16, True),
+        ((2048, 64, 64, 128), (2048, 64, 8, 128), torch.bfloat16, True),
+    ]
+    for q_shape, kv_shape, dtype, causal in refused:
+        with pytest.raises(ValueError):
+            check_kernel_shapes(q_shape, kv_shape, dtype, causal=causal)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [80, 128])
-@pytest.mark.parametrize("mask_rows", [1, 2])
-def test_kernel_matches_plain_on_cuda(dtype, causal, d, mask_rows):
+@pytest.mark.parametrize("mask_rows", [0, 1, 2])
+@pytest.mark.parametrize("t,hq,hkv", [(200, 8, 2), (200, 8, 8), (1024, 28, 4),
+                                      (1280, 64, 8)])
+def test_kernel_matches_plain_on_cuda(dtype, causal, d, mask_rows, t, hq, hkv):
     """Kernel against its plain version on the card, at both head widths
-    (vision 80, text 128; bf16 takes the tensor-core body) and with an
-    [S] or a [B, S] key mask. fp32: 1e-4 (fp32 FMA in another order).
-    bf16: 2e-2 absolute and relative elementwise (one bf16 rounding of
-    the output, P rounded to bf16 against another running max), and the
-    RMS of the error within 1% of the RMS of the output."""
+    (vision 80, text 128; bf16 takes the wgmma body), at a ragged length
+    (200) and at whole 128-row q tiles (1024, 1280), GQA groups 4, 1, 7
+    and 8, with no key mask (only the ragged tile and the causal diagonal
+    are masked elementwise), an [S] or a [B, S] mask. Key 3 and 77 are
+    masked and so is the whole second 128-key tile; with a [B, S] mask
+    batch 1 has every key masked, so its output must be exactly 0. fp32:
+    1e-4 (fp32 FMA in another order). bf16: 2e-2 absolute and relative elementwise
+    (one bf16 rounding of the output, P rounded to bf16 against another
+    running max), and the RMS of the error within 1% of the RMS of the
+    output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    q, k, v = make(2, 200, 200, 8, 2, d, seed=6)
-    mask = np.ones((mask_rows, 200), bool)
-    mask[-1, 150:] = False
+    q, k, v = make(2, t, t, hq, hkv, d, seed=6)
+    mask = np.ones((max(mask_rows, 1), t), bool)
     mask[0, [3, 77]] = False
+    mask[0, 128:256] = False
+    if mask_rows == 2:
+        mask[1] = False
     args = [torch.from_numpy(x).to("cuda", dtype) for x in (q, k, v)]
-    m = torch.from_numpy(mask[0] if mask_rows == 1 else mask).cuda()
+    m = (None if mask_rows == 0 else
+         torch.from_numpy(mask[0] if mask_rows == 1 else mask).cuda())
     got = flash_attention(*args, m, causal=causal).float()
     want = flash_attention_plain(*args, m, causal=causal).float()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     rel_rms = float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
     assert rel_rms <= 1e-2
+    if mask_rows == 2:
+        assert bool((got[1] == 0).all())

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from handwritten_ocr_tpu_torch.ops.window_attention import (
-    window_attention, window_attention_plain)
+    check_kernel_shapes, window_attention, window_attention_plain)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 HEADS, HD = 4, 16
@@ -70,13 +70,40 @@ def test_rejects_bad_tables():
         port(qkv, cos[:-1], sin, valid, 16)
 
 
+def test_kernel_shape_checks():
+    """The kernel's own limits at the read's shape, without a card: the
+    tower's packed qkv (16 heads of 80, window 64) and the fp32 reference
+    tower (2 heads of 80) are accepted; shapes the kernel cannot take are
+    refused."""
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+    from handwritten_ocr_tpu_torch.models.qwen25vl.vision import plan_grid
+    vis = VLConfig().vision
+    plan = plan_grid(vis, (1, 924 // 14, 672 // 14))
+    shape = (8, len(plan.valid), 3 * vis.hidden_size)
+    check_kernel_shapes(shape, torch.bfloat16, num_heads=vis.num_heads,
+                        window_len=plan.window_len)
+    check_kernel_shapes((4, 192, 480), torch.float32, num_heads=2,
+                        window_len=64)
+    for shape, dtype, heads, window_len in (
+            ((8, 3456, 3840), torch.bfloat16, 16, 16),    # window 16
+            ((8, 3456, 3840), torch.bfloat16, 20, 64),    # head dim 64
+            ((8, 3456, 720), torch.bfloat16, 3, 64),      # odd head count
+            ((8, 3456, 3840), torch.float16, 16, 64)):    # dtype
+        with pytest.raises(ValueError):
+            check_kernel_shapes(shape, dtype, num_heads=heads,
+                                window_len=window_len)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_cuda(dtype):
     """Kernel against its plain version on the card at the tower's head
-    width (16 heads of 80, window 64). fp32: 1e-4; bf16: 2e-2 absolute
-    (both round rope, P and the output to bf16 at the same points, so only
-    the summation order and FMA contraction differ)."""
+    width (16 heads of 80, window 64), with a partly dead window, dead
+    slots scattered through others and one wholly dead window, whose
+    output must be exactly 0. fp32: 1e-4; bf16: 2e-2 absolute (both round
+    rope, P and the output to bf16 at the same points, so only the
+    summation order differs), and the RMS of the error within 1% of the
+    RMS of the output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(1)
@@ -87,9 +114,14 @@ def test_kernel_matches_plain_on_cuda(dtype):
     sin = torch.from_numpy(np.sin(rng.standard_normal((p, hd))).astype(np.float32))
     valid = torch.ones(p, dtype=torch.bool)
     valid[100:128] = False
+    valid[[5, 17, 40, 63, 300, 301, 350]] = False
+    valid[192:256] = False                       # window 3: every slot dead
     args = (qkv.to("cuda", dtype), cos.cuda(), sin.cuda(), valid.cuda())
     kw = dict(num_heads=heads, window_len=64, scale=hd ** -0.5)
     got = window_attention(*args, **kw).float()
     want = window_attention_plain(*args, **kw).float()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    rel_rms = float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    assert rel_rms <= 1e-2
+    assert bool((got[:, 192:256] == 0).all())
