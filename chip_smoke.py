@@ -12,8 +12,11 @@ Phases, each printing one JSON line:
      function, the kernel's time over that call's (library_ratio), and
      the least time the card could take (bound): flash, window and paged
      attention (fp KV and int8 KV) at the read's shapes; flash prefill,
-     int8 paged attention and the int8 matmul at the reasoner's (the int8
-     matmul also with its device time alone, from a CUDA graph);
+     int8 paged attention and the int8 matmul at the reasoner's; the paged
+     and int8 cases also with their device time alone (graph_ms, from a
+     CUDA graph of launches over cold pages or weights), and the int8
+     cases with the device time of their torch.mm yardstick
+     (library_graph_ms);
   4. the OCR read: Qwen2.5-VL at the olmOCR-2-7B widths and depth, bf16,
      random weights from a seed; four synthetic 924x672 pages through
      ``TorchPreprocessor`` with the two initial strategies into
@@ -22,7 +25,8 @@ Phases, each printing one JSON line:
      kernel are set to 0 just before this run and read just after, and
      each kernel of the path must be > 0; then two more reads under
      ``torch.profiler`` (8 and 40 new tokens): the device's busy share of
-     a read and of a decode step, and the kernels that take its time;
+     a read and of a decode step, and each kernel's device ms and launches
+     per decode step;
   5. the reasoning engine: qwen3:32b at its published widths and depth
      with int8 weights (random, from a seed) through
      ``TorchReasoningBackend.chat_batch`` on 8 editor-style turns of ~1k
@@ -187,7 +191,10 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
                 gen, path: str) -> dict:
     """One decode step of the paged kernel (``live`` of ``slots`` slots at
     ``context`` cached tokens) against its plain version: outputs within
-    tolerance, pools (and scale pools) bit-equal after the append."""
+    tolerance, pools (and scale pools) bit-equal after the append. ``ms``
+    times a loop of wrapper calls, ``graph_ms`` the device time alone (a
+    CUDA graph); both cycle over the layers, so every call finds its
+    pages cold, as in decode."""
     from handwritten_ocr_tpu_torch import config as cfg_mod
     from handwritten_ocr_tpu_torch.ops.paged_decode_attention import (
         paged_append_attention, paged_append_attention_plain)
@@ -267,8 +274,10 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
         shape=[slots, 1, hq, hd], live_slots=live, context=context,
         pool=list(k_pool.shape), dtype="int8 KV, bf16 q" if kv_quant else "bf16",
         **cmp, ms=time_ms(step(paged_append_attention), iters=56),
+        graph_ms=graph_ms([step(paged_append_attention)]),
         plain_ms=time_ms(step(paged_append_attention_plain), iters=10),
-        library=None, library_ms=None, bound_ms=bound, bound_by=by)
+        library=None, library_ms=None, library_graph_ms=None,
+        bound_ms=bound, bound_by=by)
     del k_pool, v_pool, scales, pools, q, k_new, v_new
     torch.cuda.empty_cache()
     return row_out
@@ -282,7 +291,9 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
     back-to-back loop of wrapper calls, which the host can set at small N;
     ``graph_ms`` is the kernel's device time alone, from a CUDA graph of
     launches cycling through enough copies of the weight (>= 60 MB) that
-    each launch reads it from device memory, as a decode step does."""
+    each launch reads it from device memory, as a decode step does;
+    ``library_graph_ms`` the same for ``torch.mm`` over copies of the
+    dequantised weight."""
     from handwritten_ocr_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                            int8_matmul_plain)
     dev = "cuda"
@@ -303,6 +314,11 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
     device_ms = graph_ms([lambda w=w: int8_matmul(x, w, scale, out_dtype=out_dtype)
                           for w in copies])
     del copies
+    deq_copies = [w_deq] + [w_deq.clone() for _ in range(
+        min(23, math.ceil(60e6 / (2 * w_deq.numel())) - 1))]
+    library_device_ms = graph_ms([lambda w=w: torch.mm(x, w.t())
+                                  for w in deq_copies])
+    del deq_copies
     record = dict(
         name="int8_matmul", case=case, route="cuda", path=path,
         counter="int8_matmul",
@@ -317,6 +333,7 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
                          iters=3),
         library="torch.mm on the bf16 dequantised weight",
         library_ms=time_ms(lambda: torch.mm(x, w_deq.t()), iters=20),
+        library_graph_ms=library_device_ms,
         bound_ms=bound, bound_by=by)
     del x, w_q, scale, w_deq
     torch.cuda.empty_cache()
@@ -626,7 +643,8 @@ def phase_main_path(cfg, prompt_len: int, max_new_tokens: int = 128) -> dict:
 
 
 def _profiled(run, budget: int):
-    """(wall s, device-busy s, device events) of one call under the profiler."""
+    """(wall s, device-busy s, {kernel: (launches, device s)}) of one call
+    under the profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -635,25 +653,32 @@ def _profiled(run, budget: int):
         run(budget)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = [e for e in prof.key_averages()
+    device = {e.key: (e.count, e.self_device_time_total / 1e6)
+              for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    return wall, sum(e.self_device_time_total for e in device) / 1e6, device
+              and e.self_device_time_total > 0}
+    return wall, sum(t for _, t in device.values()), device
 
 
 def phase_trace(path: str, run, short: int = 8, long: int = 40) -> dict:
     """Two more calls of the same inputs under ``torch.profiler`` (after
     the timed call, so the timed numbers carry no tracing cost), with
     ``short`` and ``long`` new tokens. Their difference isolates decode
-    steps: device time and wall time per step and the device's busy share
-    of a decode step. The profiler slows the host, so under tracing the
-    busy share is a lower bound. None where the profiler saw no device
-    time."""
-    w_short, b_short, _ = _profiled(run, short)
-    w_long, b_long, device = _profiled(run, long)
+    steps: device time and wall time per step, the device's busy share of
+    a decode step, and each kernel's device ms and launches per step. The
+    profiler slows the host, so under tracing the busy share is a lower
+    bound. None where the profiler saw no device time."""
+    w_short, b_short, k_short = _profiled(run, short)
+    w_long, b_long, k_long = _profiled(run, long)
     steps = long - short
-    seen = bool(device)
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    seen = bool(k_long)
+    per_step = []
+    for name, (count, secs) in k_long.items():
+        count0, secs0 = k_short.get(name, (0, 0.0))
+        per_step.append({"name": name[:80],
+                         "launches": (count - count0) / steps,
+                         "ms": (secs - secs0) / steps * 1e3})
+    per_step.sort(key=lambda k: -k["ms"])
     record = dict(
         phase="trace", path=path, max_new_tokens=[short, long],
         read_wall_s=w_long, read_device_busy_s=b_long if seen else None,
@@ -661,8 +686,7 @@ def phase_trace(path: str, run, short: int = 8, long: int = 40) -> dict:
         decode_step_wall_ms=(w_long - w_short) / steps * 1e3,
         decode_step_device_ms=(b_long - b_short) / steps * 1e3 if seen else None,
         decode_busy_share=(b_long - b_short) / (w_long - w_short) if seen else None,
-        top_kernels=[{"name": e.key[:80], "count": e.count,
-                      "ms": e.self_device_time_total / 1e3} for e in top])
+        decode_step_kernels=per_step[:16])
     emit(**record)
     return record
 
@@ -930,7 +954,8 @@ def main() -> int:
             | {key: r[key] for key in ("max_abs_err", "tolerance",
                                        "rel_rms_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
-                                       "library_ratio")})
+                                       "library_ratio")}
+            | {key: r.get(key) for key in ("graph_ms", "library_graph_ms")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

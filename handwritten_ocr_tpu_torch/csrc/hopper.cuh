@@ -58,9 +58,58 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                :: "r"(smem_u32(dst)), "l"(src));
 }
 
+// 16 bytes, or 16 zero bytes when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared (a scale).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src));
+}
+
 // Commit this thread's cp.async copies and wait until all have landed.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Close this thread's current group of cp.async copies.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- int8 -> bf16 without conversion instructions ------------------------
+
+// The four int8 values of `word` as two bf16 pairs: lo = bytes 0, 1 and
+// hi = bytes 2, 3 (the lower byte in the lower half). Exact: with byte b
+// zero-extended into a 16-bit lane, bf16 0x4300 | (b & 0x7f) is 128 + (b &
+// 0x7f) and 0x4300 | (b & 0x80) is 128 or 256, so their difference is b in
+// two's complement, an integer of |b| <= 128 that bf16 holds exactly. Two
+// byte permutes, four logic ops and two bf16x2 subtractions for four
+// values, all at full or half rate, where I2F runs at a quarter of it.
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t i8x2_to_bf16(uint32_t lanes) {  // 0x00bb00aa
+  return bf16x2_sub((lanes & 0x007F007Fu) | 0x43004300u,
+                    (lanes & 0x00800080u) | 0x43004300u);
+}
+
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t word, uint32_t& lo,
+                                             uint32_t& hi) {
+  lo = i8x2_to_bf16(__byte_perm(word, 0u, 0x4140));
+  hi = i8x2_to_bf16(__byte_perm(word, 0u, 0x4342));
 }
 
 // ---- mbarrier, TMA -------------------------------------------------------

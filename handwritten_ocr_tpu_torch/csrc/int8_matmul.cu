@@ -11,158 +11,174 @@
 //
 // Bound: bytes. A decode step reads every weight once and does 2*M flops
 // per weight byte (M <= 32), far below the card's ~295 flops per byte, so
-// the kernel's job is to stream W at the memory rate and touch it once.
+// the kernel's job is to stream W at the memory rate and touch little else.
 //
-// Design (bf16 x): one warp owns 16 output channels and runs the product
-// as mma.sync.m16n8k16 (bf16 -> fp32) with W as the A operand (16 channels
-// x 16 k) and x^T as B (16 k x 8 rows of x; ceil(M/8) tiles). The sum over
-// k does not care in which order k is visited, so k is permuted within each
-// 64-wide chunk such that every lane's operands are contiguous in memory:
-// lane (g = lane/4, t = lane%4) loads 16 bytes of channel g and 16 of
-// channel g+8 at k = 16t..16t+15 of the chunk, and 32 bytes of x row g of
-// each row tile at the same k; mma step s (0..3) takes bytes 4s..4s+3 of
-// them as the fragment's logical k {2t, 2t+1, 2t+8, 2t+9}. Weights are
-// read with streaming loads (evict-first) and the next chunk is loaded
-// while the current one computes. Where the channels alone give too few
-// blocks to keep the card's memory busy (N <= 25600 at the decode shapes),
-// K is split over blocks (grid.y); each split writes an fp32 partial and a
-// second small kernel sums the splits in a fixed order, applies the scale
-// and casts. fp32 x (tests, the fp32 reference) takes a plain FMA kernel,
-// one warp per channel.
-#include "common.cuh"
+// Design (bf16 x). A block of 8 warps owns 128 output channels (16 per
+// warp; 4 warps and 64 channels where N is small, so that the split-K
+// merge below spreads over more blocks) and walks its k range in tiles of
+// 128. Each tile's W slice (128 x
+// 128 int8, 16 KB) and x slice (M rows x 128 bf16) go by 16-byte cp.async
+// into a 4-stage ring of shared memory, so three tiles' loads fly while one
+// computes (~64 KB in flight per block, two blocks per SM), and x is read
+// from L2 once per block rather than once per warp. Each warp runs the
+// product as mma.sync.m16n8k16 (bf16 -> fp32) with W as the A operand (16
+// channels x 16 k), widened in registers by integer ops (i8x4_to_bf16),
+// and x^T as B (16 k x 8 rows; ceil(M/8) row tiles). The sum over k does
+// not care in which order k is visited, so k is permuted within each
+// 64-wide half of a tile such that every lane's operands are 16 contiguous
+// bytes: lane (g = lane/4, t = lane%4) reads channel g's and channel g+8's
+// weights at k = 16t..16t+15 and x row g of each row tile at the same k;
+// mma step s (0..3) takes bytes 4s..4s+3 as the fragment's logical k {2t,
+// 2t+1, 2t+8, 2t+9}. Shared rows are XOR-swizzled by 16-byte chunk so those
+// reads are free of bank conflicts. Where the channels alone give too few
+// blocks to fill the card, K is split over blocks (grid.y) in the same
+// launch: each split stores its fp32 partial, and the last block to arrive
+// at its channel tile (an arrival counter in a zeroed workspace) sums the
+// partials in split order, applies the scale, casts, writes and resets the
+// counter to 0 — one launch, deterministic, and capturable in a CUDA graph.
+// The ragged last k tile and ragged N are zero-filled in the loads; K not a
+// multiple of 16 or unaligned pointers take byte loads into the same ring.
+// fp32 x (tests, the fp32 reference) takes a plain FMA kernel, one warp per
+// channel.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;        // warps per block
-constexpr int NTHREADS = 32 * WARPS;
-constexpr int CH = 16;          // output channels per warp (mma rows)
-constexpr int KC = 64;          // k per chunk (4 mma k-steps of 16)
+// The bf16 kernel's block: WARPS (4 or 8) warps of 16 output channels,
+// BN = 16 * WARPS channels per block.
+constexpr int BK = 128;           // k per tile
+constexpr int STAGES = 4;
 constexpr int MAX_M = 32;
+constexpr int SIMT_WARPS = 4;     // the fp32 kernel
 
 struct MatArgs {
   const void* x;
   const int8_t* w;
   const float* scale;
   void* out;
-  float* partial;   // [split, M, N] fp32 when split > 1
-  int m, n, k, split, chunks_per_split;
+  float* partial;   // [tiles, split, M, BN] fp32 when split > 1
+  int* counters;    // [tiles] int32, 0 between launches, when split > 1
+  int m, n, k, split, k_per_split;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int WARPS, int TILES> __host__ __device__ constexpr int stage_bytes() {
+  return 16 * WARPS * BK + 8 * TILES * BK * 2;   // W tile, then x rows
+}
+template <int WARPS, int TILES> constexpr int smem_bytes() {
+  return STAGES * stage_bytes<WARPS, TILES>();
 }
 
-// Bytes i and i+1 of a 16-byte weight vector, widened to a bf16 pair
-// (byte i in the low half). Every int8 value is exact in bf16.
-__device__ __forceinline__ uint32_t widen2(const uint4& w, int i) {
-  const uint32_t word = (&w.x)[i / 4];
-  const int lo = static_cast<int8_t>((word >> (8 * (i % 4))) & 0xffu);
-  const int hi = static_cast<int8_t>((word >> (8 * (i % 4 + 1))) & 0xffu);
-  __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo),
-                                           static_cast<float>(hi));
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// Chunk j (16 bytes) of W row r sits at chunk j ^ 4(r & 1); chunk j of x
+// row r at chunk j ^ (r & 1). A quarter-warp's 16-byte reads (rows g, g+1
+// of one parity pair, four chunks each) then hit 32 distinct banks.
+__device__ __forceinline__ int w_chunk(int r, int j) { return j ^ ((r & 1) << 2); }
+__device__ __forceinline__ int x_chunk(int r, int j) { return j ^ (r & 1); }
 
-// 16 weights row[k0 .. k0+15], 0 past K or for a channel past N.
-template <bool ALIGNED>
-__device__ __forceinline__ uint4 load_w16(const int8_t* row, int k0, int k,
-                                          bool valid) {
-  if constexpr (ALIGNED) {   // K % 16 == 0: a chunk piece is wholly in or out
-    if (valid && k0 < k) return __ldcs(reinterpret_cast<const uint4*>(row + k0));
-    return make_uint4(0, 0, 0, 0);
-  } else {
-    uint32_t words[4] = {0, 0, 0, 0};
+// One k tile into ring stage `sw` (W) / `sx` (x): 16-byte cp.async with
+// zero fill past N, M or the split's k_end (ALIGNED), else byte loads.
+template <int WARPS, int TILES, bool ALIGNED>
+__device__ __forceinline__ void load_tile(const MatArgs& a, int8_t* sw,
+                                          uint8_t* sx, int ch0, int k0,
+                                          int k_end) {
+  constexpr int NTHREADS = 32 * WARPS, BN = 16 * WARPS;
+  const int tid = threadIdx.x;
+  constexpr int W_CHUNKS = BN * BK / 16;          // 8 per row
+  constexpr int X_CHUNKS = 8 * TILES * BK / 8;    // 16 per row
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const uint32_t b = (valid && k0 + j < k) ? static_cast<uint8_t>(row[k0 + j]) : 0u;
-      words[j / 4] |= b << (8 * (j % 4));
-    }
-    return make_uint4(words[0], words[1], words[2], words[3]);
-  }
-}
-
-// 16 bf16 values row[k0 .. k0+15] as 8 words, 0 past K or for a row past M.
-template <bool ALIGNED>
-__device__ __forceinline__ void load_x16(const __nv_bfloat16* row, int k0,
-                                         int k, bool valid, uint4 (&out)[2]) {
-  if constexpr (ALIGNED) {
-    if (valid && k0 < k) {
-      out[0] = __ldg(reinterpret_cast<const uint4*>(row + k0));
-      out[1] = __ldg(reinterpret_cast<const uint4*>(row + k0 + 8));
+  for (int it = 0; it < W_CHUNKS / NTHREADS; ++it) {
+    const int idx = it * NTHREADS + tid;
+    const int r = idx / 8, j = idx % 8;
+    const int ch = ch0 + r, kk = k0 + 16 * j;
+    int8_t* dst = sw + r * BK + 16 * w_chunk(r, j);
+    const int8_t* src = a.w + (size_t)ch * a.k + kk;
+    if constexpr (ALIGNED) {
+      const bool ok = ch < a.n && kk < k_end;
+      cp_async16_zfill(dst, ok ? src : a.w, ok);
     } else {
-      out[0] = out[1] = make_uint4(0, 0, 0, 0);
-    }
-  } else {
-    uint16_t h[16];
+      uint32_t words[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      h[j] = (valid && k0 + j < k)
-                 ? *reinterpret_cast<const uint16_t*>(row + k0 + j) : uint16_t(0);
+      for (int e = 0; e < 16; ++e) {
+        const uint32_t b = (ch < a.n && kk + e < k_end) ? static_cast<uint8_t>(src[e]) : 0u;
+        words[e / 4] |= b << (8 * (e % 4));
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(words[0], words[1], words[2], words[3]);
     }
-    uint32_t* words = reinterpret_cast<uint32_t*>(out);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      words[j] = static_cast<uint32_t>(h[2 * j]) | (static_cast<uint32_t>(h[2 * j + 1]) << 16);
   }
-}
-
-template <int TILES>
-struct Chunk {
-  uint4 w_lo, w_hi;     // channels g and g+8
-  uint4 x[TILES][2];    // rows 8j+g of x
-};
-
-template <int TILES, bool ALIGNED>
-__device__ __forceinline__ void load_chunk(Chunk<TILES>& c, const MatArgs& a,
-                                           const int8_t* w_lo, const int8_t* w_hi,
-                                           bool ok_lo, bool ok_hi, int g, int k0) {
-  c.w_lo = load_w16<ALIGNED>(w_lo, k0, a.k, ok_lo);
-  c.w_hi = load_w16<ALIGNED>(w_hi, k0, a.k, ok_hi);
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
 #pragma unroll
-  for (int j = 0; j < TILES; ++j) {
-    const int row = 8 * j + g;
-    load_x16<ALIGNED>(x + (size_t)row * a.k, k0, a.k, row < a.m, c.x[j]);
-  }
-}
-
-template <int TILES>
-__device__ __forceinline__ void mma_chunk(float (&acc)[TILES][4],
-                                          const Chunk<TILES>& c) {
+  for (int it = 0; it < (X_CHUNKS + NTHREADS - 1) / NTHREADS; ++it) {
+    const int idx = it * NTHREADS + tid;
+    if (idx >= X_CHUNKS) break;
+    const int r = idx / 16, j = idx % 16;
+    const int kk = k0 + 8 * j;
+    uint8_t* dst = sx + r * (BK * 2) + 16 * x_chunk(r, j);
+    const __nv_bfloat16* src = x + (size_t)r * a.k + kk;
+    if constexpr (ALIGNED) {
+      const bool ok = r < a.m && kk < k_end;
+      cp_async16_zfill(dst, ok ? src : x, ok);
+    } else {
+      uint16_t h[8];
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    uint32_t frag[4];
-    frag[0] = widen2(c.w_lo, 4 * s);
-    frag[1] = widen2(c.w_hi, 4 * s);
-    frag[2] = widen2(c.w_lo, 4 * s + 2);
-    frag[3] = widen2(c.w_hi, 4 * s + 2);
+      for (int e = 0; e < 8; ++e)
+        h[e] = (r < a.m && kk + e < k_end) ? *reinterpret_cast<const uint16_t*>(src + e)
+                                         : uint16_t(0);
+      uint32_t words[4];
 #pragma unroll
-    for (int j = 0; j < TILES; ++j) {
-      const uint32_t* xw = reinterpret_cast<const uint32_t*>(c.x[j]);
-      mma_bf16(acc[j], frag, xw[2 * s], xw[2 * s + 1]);
+      for (int e = 0; e < 4; ++e)
+        words[e] = static_cast<uint32_t>(h[2 * e]) | (static_cast<uint32_t>(h[2 * e + 1]) << 16);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(words[0], words[1], words[2], words[3]);
     }
   }
 }
 
-template <typename OUT, int TILES, bool ALIGNED>
-__global__ void __launch_bounds__(NTHREADS)
+// The warp's products over one k tile in the ring.
+template <int TILES>
+__device__ __forceinline__ void mma_tile(float (&acc)[TILES][4], const int8_t* sw,
+                                         const uint8_t* sx, int row_lo, int g, int t) {
+  const int row_hi = row_lo + 8;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int jw = 4 * half + t;                // 16-byte chunk of W
+    const uint4 w_lo = *reinterpret_cast<const uint4*>(sw + row_lo * BK + 16 * w_chunk(row_lo, jw));
+    const uint4 w_hi = *reinterpret_cast<const uint4*>(sw + row_hi * BK + 16 * w_chunk(row_hi, jw));
+    uint4 xv[TILES][2];
+#pragma unroll
+    for (int j = 0; j < TILES; ++j) {
+      const int r = 8 * j + g;
+      const int jx = 8 * half + 2 * t;          // 16-byte chunks of x
+      xv[j][0] = *reinterpret_cast<const uint4*>(sx + r * (BK * 2) + 16 * x_chunk(r, jx));
+      xv[j][1] = *reinterpret_cast<const uint4*>(sx + r * (BK * 2) + 16 * x_chunk(r, jx + 1));
+    }
+    const uint32_t* wl = &w_lo.x;
+    const uint32_t* wh = &w_hi.x;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      uint32_t frag[4];
+      i8x4_to_bf16(wl[s], frag[0], frag[2]);
+      i8x4_to_bf16(wh[s], frag[1], frag[3]);
+#pragma unroll
+      for (int j = 0; j < TILES; ++j) {
+        const uint32_t* xw = reinterpret_cast<const uint32_t*>(xv[j]);
+        mma_bf16(acc[j], frag, xw[2 * s], xw[2 * s + 1]);
+      }
+    }
+  }
+}
+
+template <typename OUT, int WARPS, int TILES, bool ALIGNED>
+__global__ void __launch_bounds__(32 * WARPS, 16 / WARPS)
 int8_mma_kernel(const MatArgs a) {
-  const int lane = threadIdx.x % 32;
+  constexpr int NTHREADS = 32 * WARPS, BN = 16 * WARPS;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
-  const int ch0 = (blockIdx.x * WARPS + threadIdx.x / 32) * CH;
-  if (ch0 >= a.n) return;
-  const int ch_lo = ch0 + g, ch_hi = ch0 + g + 8;
-  const bool ok_lo = ch_lo < a.n, ok_hi = ch_hi < a.n;
-  const int8_t* w_lo = a.w + (size_t)ch_lo * a.k;
-  const int8_t* w_hi = a.w + (size_t)ch_hi * a.k;
-  const int n_chunks = (a.k + KC - 1) / KC;
-  const int c_begin = blockIdx.y * a.chunks_per_split;
-  const int c_end = min(n_chunks, c_begin + a.chunks_per_split);
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int ch0 = tile * BN;
+  const int k_begin = split * a.k_per_split;
+  const int k_end = min(a.k, k_begin + a.k_per_split);
+  const int n_kt = (k_end - k_begin + BK - 1) / BK;
 
   float acc[TILES][4];
 #pragma unroll
@@ -170,43 +186,87 @@ int8_mma_kernel(const MatArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  if (c_begin < c_end) {
-    Chunk<TILES> cur, nxt;
-    load_chunk<TILES, ALIGNED>(cur, a, w_lo, w_hi, ok_lo, ok_hi, g,
-                               c_begin * KC + 16 * t);
-    for (int c = c_begin; c < c_end; ++c) {
-      if (c + 1 < c_end)   // the next chunk's loads fly while this one computes
-        load_chunk<TILES, ALIGNED>(nxt, a, w_lo, w_hi, ok_lo, ok_hi, g,
-                                   (c + 1) * KC + 16 * t);
-      mma_chunk<TILES>(acc, cur);
-      cur = nxt;
-    }
-  }
-
-  // C fragment: acc[j][0..1] = channel g, rows 8j+2t, 8j+2t+1; [2..3] = g+8.
+  constexpr int SB = stage_bytes<WARPS, TILES>();
+  auto stage_w = [&](int i) { return reinterpret_cast<int8_t*>(smem + i * SB); };
+  auto stage_x = [&](int i) { return smem + i * SB + BN * BK; };
 #pragma unroll
-  for (int j = 0; j < TILES; ++j) {
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_kt)
+      load_tile<WARPS, TILES, ALIGNED>(a, stage_w(i), stage_x(i), ch0, k_begin + i * BK, k_end);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_kt; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES is free
+    const int nxt = i + STAGES - 1;
+    if (nxt < n_kt)
+      load_tile<WARPS, TILES, ALIGNED>(a, stage_w(nxt % STAGES), stage_x(nxt % STAGES), ch0,
+                                       k_begin + nxt * BK, k_end);
+    cp_async_commit();
+    mma_tile<TILES>(acc, stage_w(i % STAGES), stage_x(i % STAGES), 16 * warp + g, g, t);
+  }
+  cp_async_wait<0>();
+
+  // C fragment: acc[j][0..1] = channel 16w+g, rows 8j+2t, 8j+2t+1; [2..3]
+  // = channel 16w+g+8.
+  if (a.split == 1) {
+#pragma unroll
+    for (int j = 0; j < TILES; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * j + 2 * t + (e % 2);
+        const int ch = ch0 + 16 * warp + g + (e < 2 ? 0 : 8);
+        if (row < a.m && ch < a.n)
+          static_cast<OUT*>(a.out)[(size_t)row * a.n + ch] = from_f<OUT>(acc[j][e] * a.scale[ch]);
+      }
+    return;
+  }
+  float* part = a.partial + (size_t)tile * a.split * a.m * BN;
+#pragma unroll
+  for (int j = 0; j < TILES; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = 8 * j + 2 * t + (e % 2);
-      const int ch = e < 2 ? ch_lo : ch_hi;
-      if (row >= a.m || ch >= a.n) continue;
-      if (a.split == 1) {
-        static_cast<OUT*>(a.out)[(size_t)row * a.n + ch] =
-            from_f<OUT>(acc[j][e] * a.scale[ch]);
-      } else {
-        a.partial[((size_t)blockIdx.y * a.m + row) * a.n + ch] = acc[j][e];
-      }
+      const int c = 16 * warp + g + (e < 2 ? 0 : 8);
+      if (row < a.m) part[((size_t)split * a.m + row) * BN + c] = acc[j][e];
+    }
+  __threadfence();     // this split's partial is visible before it arrives
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(a.counters + tile, 1) == a.split - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();     // every split's partial is visible to the last block
+  // Four channels per thread and step: 16-byte loads, many in flight.
+  const float4* part4 = reinterpret_cast<const float4*>(part);
+  const size_t split_stride = (size_t)a.m * BN / 4;
+  for (int idx = tid; idx < a.m * BN / 4; idx += NTHREADS) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int y = 0; y < a.split; ++y) {   // in split order: deterministic
+      const float4 v = __ldcg(part4 + y * split_stride + idx);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int row = idx / (BN / 4), c = 4 * (idx % (BN / 4));
+    const float sums[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ch = ch0 + c + e;
+      if (ch < a.n)
+        static_cast<OUT*>(a.out)[(size_t)row * a.n + ch] = from_f<OUT>(sums[e] * a.scale[ch]);
     }
   }
+  if (tid == 0) a.counters[tile] = 0;   // ready for the next launch
 }
 
 // fp32 x: one warp per output channel, lanes stride over k, M fp32 sums
 // per lane reduced across the warp; scale on the fp32 sum.
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(32 * SIMT_WARPS)
 int8_simt_kernel(const MatArgs a) {
   const int lane = threadIdx.x % 32;
-  const int ch = blockIdx.x * WARPS + threadIdx.x / 32;
+  const int ch = blockIdx.x * SIMT_WARPS + threadIdx.x / 32;
   if (ch >= a.n) return;
   const float* x = static_cast<const float*>(a.x);
   const int8_t* w = a.w + (size_t)ch * a.k;
@@ -228,75 +288,94 @@ int8_simt_kernel(const MatArgs a) {
   }
 }
 
-// Sums the split partials of one output in split order, then scale, cast.
-template <typename OUT>
-__global__ void combine_kernel(const MatArgs a) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)a.m * a.n;
-  if (idx >= total) return;
-  float sum = 0.f;
-  for (int y = 0; y < a.split; ++y) sum += a.partial[(size_t)y * total + idx];
-  static_cast<OUT*>(a.out)[idx] = from_f<OUT>(sum * a.scale[idx % a.n]);
-}
-
-template <typename OUT, int TILES>
-cudaError_t launch_mma(const MatArgs& a, bool aligned, cudaStream_t stream) {
-  const dim3 grid((a.n + WARPS * CH - 1) / (WARPS * CH), a.split);
-  if (aligned)
-    int8_mma_kernel<OUT, TILES, true><<<grid, NTHREADS, 0, stream>>>(a);
-  else
-    int8_mma_kernel<OUT, TILES, false><<<grid, NTHREADS, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.split == 1) return err;
-  const size_t total = (size_t)a.m * a.n;
-  combine_kernel<OUT><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a);
+template <typename OUT, int WARPS, int TILES, bool ALIGNED>
+cudaError_t launch_mma(const MatArgs& a, cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  auto kernel = int8_mma_kernel<OUT, WARPS, TILES, ALIGNED>;
+  constexpr int smem = smem_bytes<WARPS, TILES>();
+  cudaError_t err = set_smem_once(kernel, smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + 16 * WARPS - 1) / (16 * WARPS), a.split);
+  kernel<<<grid, 32 * WARPS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename OUT>
-cudaError_t dispatch_tiles(const MatArgs& a, bool aligned, cudaStream_t stream) {
+template <typename OUT, int WARPS, bool ALIGNED>
+cudaError_t dispatch_tiles(const MatArgs& a, cudaStream_t stream) {
   switch ((a.m + 7) / 8) {
-    case 1: return launch_mma<OUT, 1>(a, aligned, stream);
-    case 2: return launch_mma<OUT, 2>(a, aligned, stream);
-    case 3: return launch_mma<OUT, 3>(a, aligned, stream);
-    case 4: return launch_mma<OUT, 4>(a, aligned, stream);
+    case 1: return launch_mma<OUT, WARPS, 1, ALIGNED>(a, stream);
+    case 2: return launch_mma<OUT, WARPS, 2, ALIGNED>(a, stream);
+    case 3: return launch_mma<OUT, WARPS, 3, ALIGNED>(a, stream);
+    case 4: return launch_mma<OUT, WARPS, 4, ALIGNED>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename OUT>
+cudaError_t dispatch(const MatArgs& a, int block_channels, bool aligned,
+                     cudaStream_t stream) {
+  if (block_channels == 64)
+    return aligned ? dispatch_tiles<OUT, 4, true>(a, stream)
+                   : dispatch_tiles<OUT, 4, false>(a, stream);
+  if (block_channels == 128)
+    return aligned ? dispatch_tiles<OUT, 8, true>(a, stream)
+                   : dispatch_tiles<OUT, 8, false>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launches (0 = launched). x_dtype /
-// out_dtype: 0 = float32, 1 = bfloat16 (fp32 x needs fp32 out). split > 1
-// needs `partial` of split*M*N fp32 and bf16 x; chunks_per_split counts
-// 64-wide k chunks. aligned: K % 16 == 0 and x, W 16-byte aligned.
-HOCR_EXPORT int hocr_int8_matmul(const void* x, const void* w,
-                                 const void* scale, void* out, void* partial,
-                                 int m, int n, int k, int split,
-                                 int chunks_per_split, int aligned,
-                                 int x_dtype, int out_dtype, void* stream) {
-  if (m == 0 || n == 0) return 0;
-  if (m < 0 || m > MAX_M || k <= 0 || split < 1 || chunks_per_split < 1)
+// One call's arguments in one record, as the Python wrapper packs them
+// (struct format "=7Q9i"): one ctypes argument to convert instead of 16.
+// x_dtype / out_dtype: 0 = float32, 1 = bfloat16 (fp32 x needs fp32 out
+// and split 1). block_channels: 64 or 128 output channels per block of
+// the bf16 kernel (BN). split > 1 needs bf16 x, `partial` of
+// ceil(N/BN)*split*M*BN fp32 and `counters` of ceil(N/BN) int32 that are 0
+// (the kernel leaves them 0); split y sums k in [y * k_per_split, (y + 1)
+// * k_per_split), a multiple of 64 when split > 1: the splits must cover K
+// and none may be empty. aligned: K % 16 == 0 and x, W 16-byte aligned.
+struct Int8MatmulCall {
+  const void* x;
+  const void* w;
+  const void* scale;
+  void* out;
+  void* partial;
+  void* counters;
+  void* stream;
+  int m, n, k, split, k_per_split, block_channels, aligned, x_dtype, out_dtype;
+};
+
+// Returns cudaGetLastError() after the launch (0 = launched).
+HOCR_EXPORT int hocr_int8_matmul(const Int8MatmulCall* call) {
+  const Int8MatmulCall& c = *call;
+  if (c.m == 0 || c.n == 0) return 0;
+  if (c.m < 0 || c.m > MAX_M || c.k <= 0 || c.split < 1 || c.k_per_split < 1 ||
+      (c.split > 1 && c.k_per_split % 64 != 0) ||
+      (long long)(c.split - 1) * c.k_per_split >= c.k ||
+      (long long)c.split * c.k_per_split < c.k ||
+      (c.split > 1 && (c.partial == nullptr || c.counters == nullptr)))
     return cudaErrorInvalidValue;
   MatArgs a;
-  a.x = x;
-  a.w = static_cast<const int8_t*>(w);
-  a.scale = static_cast<const float*>(scale);
-  a.out = out;
-  a.partial = static_cast<float*>(partial);
-  a.m = m;
-  a.n = n;
-  a.k = k;
-  a.split = split;
-  a.chunks_per_split = chunks_per_split;
-  cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kFloat32) {
-    if (out_dtype != kFloat32 || split != 1) return cudaErrorInvalidValue;
-    int8_simt_kernel<<<(n + WARPS - 1) / WARPS, NTHREADS, 0, stm>>>(a);
+  a.x = c.x;
+  a.w = static_cast<const int8_t*>(c.w);
+  a.scale = static_cast<const float*>(c.scale);
+  a.out = c.out;
+  a.partial = static_cast<float*>(c.partial);
+  a.counters = static_cast<int*>(c.counters);
+  a.m = c.m;
+  a.n = c.n;
+  a.k = c.k;
+  a.split = c.split;
+  a.k_per_split = c.k_per_split;
+  cudaStream_t stm = static_cast<cudaStream_t>(c.stream);
+  if (c.x_dtype == kFloat32) {
+    if (c.out_dtype != kFloat32 || c.split != 1) return cudaErrorInvalidValue;
+    int8_simt_kernel<<<(c.n + SIMT_WARPS - 1) / SIMT_WARPS, 32 * SIMT_WARPS, 0, stm>>>(a);
     return cudaGetLastError();
   }
-  if (x_dtype != kBFloat16) return cudaErrorInvalidValue;
-  if (out_dtype == kBFloat16) return dispatch_tiles<__nv_bfloat16>(a, aligned != 0, stm);
-  if (out_dtype == kFloat32) return dispatch_tiles<float>(a, aligned != 0, stm);
+  if (c.x_dtype != kBFloat16) return cudaErrorInvalidValue;
+  if (c.out_dtype == kBFloat16)
+    return dispatch<__nv_bfloat16>(a, c.block_channels, c.aligned != 0, stm);
+  if (c.out_dtype == kFloat32) return dispatch<float>(a, c.block_channels, c.aligned != 0, stm);
   return cudaErrorInvalidValue;
 }

@@ -11,26 +11,34 @@
 // Semantics, as the TPU kernel: token i < n_valid of slot s is appended at
 // pos = min(start + i, W*BS - 1) through the slot's table; query token i
 // (of any of the G = Hq/Hkv heads of a kv-head group) attends to the slot's
-// cols <= start + i. All math fp32 (q scaled before the dot); a slot with
+// cols <= start + i. Scores, softmax and sums in fp32; a slot with
 // n_valid == 0 appends nothing, reads no page and outputs 0. Rows i >=
 // n_valid output 0 (callers never read them).
 //
 // THE POOLS ARE UPDATED IN PLACE (the TPU kernel returns them aliased).
 //
-// Design. A decode step has few live slots x 4 kv-heads, too few blocks to
-// fill 132 SMs if each block walked a whole context, so the context is
-// split (flash-decoding): grid (slot, kv-head, row tile of 16 of the G*T
-// query rows x split of `split_cols` cols). Each block runs an online
-// softmax over its split and writes its partial (m, l, unnormalised acc)
-// to scratch; a second kernel combines the splits of each row. The block
-// (row tile 0, split 0) appends the head's new rows to the pool; every
-// block reads the cached cols < start from the pool pages and the new
-// cols start .. start+n_valid-1 straight from k_new / v_new, so no block
-// reads a pool row another block is writing. Key tiles of 64 cols stream
-// through shared memory: the tile's row addresses are looked up once (one
-// table read per col), then every thread issues all its 16-byte loads of
-// the tile before using any. 128 threads, each owning one query row x 8
-// strided cols of the scores and D/8 output cols.
+// Bound: bytes. A decode step reads each live slot's cached K and V once
+// (int8: 2 x 128 bytes + 8 bytes of scales per token and kv-head) and does
+// ~4 flops per byte. A decode step has few live slots x Hkv kv-heads, too
+// few blocks to fill 132 SMs if each walked a whole context, so both
+// bodies split the context (flash-decoding) over blocks of `split_cols`
+// cols. In both, the block (row tile 0, split 0) appends the head's new
+// rows to the pool, and every block reads the cached cols < start from the
+// pool pages and the new cols start .. start+n_valid-1 from the call's own
+// rows, so no block reads a pool row another block is writing.
+//
+// Two bodies:
+// - int8 pools with bf16 q (both engines' default): paged_int8_mma_kernel,
+//   on the tensor cores, one launch (described above it).
+// - fp pools, and fp32 q: paged_kernel, fp32 FMAs out of shared memory,
+//   grid (slot, kv-head, row tile of 16 of the G*T query rows x split);
+//   each block writes its partial (m, l, unnormalised acc) and a second
+//   kernel combines the splits of each row. Key tiles of 64 cols stream
+//   through shared memory: the tile's row addresses are looked up once
+//   (one table read per col), then every thread issues all its 16-byte
+//   loads of the tile before using any. 128 threads, each owning one query
+//   row x 8 strided cols of the scores and D/8 output cols; q is scaled
+//   before the dot.
 //
 // int8 pools (P = int8_t). Append: per (slot, token, head) amax = max|k|
 // over D in fp32, scale = max(amax, 1e-6) / 127 by a true division, q =
@@ -44,7 +52,7 @@
 // l before it is multiplied by v_scale[col] for the P.V product.
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -67,6 +75,7 @@ struct PagedArgs {
   void* out;
   float* part_acc;   // [S, Hkv, G*T, n_split, D] unnormalised P.V
   float* part_ml;    // [S, Hkv, G*T, n_split, 2] running max, denominator
+  int* counters;     // int8 tensor-core body: [S, Hkv, row tiles], 0 between launches
   int slots, t_len, hq, hkv, width, bs, n_blocks, layer, split_cols, n_split;
   float scale;
 };
@@ -117,6 +126,46 @@ __device__ void quantize_new_rows(const T* k_new, const T* v_new, int s, int h,
   }
 }
 
+// Appends the nv new rows of head h of slot s to the pools at pos =
+// min(start + i, cap) through the slot's table; int8 pools take the rows
+// and scales that quantize_new_rows left in shared memory.
+template <typename T, typename P, int D>
+__device__ void append_rows(const PagedArgs& a, int s, int h,
+                            const int8_t* s_kq, const int8_t* s_vq,
+                            const float* s_ks, const float* s_vs) {
+  constexpr bool QUANT = std::is_same<P, int8_t>::value;
+  const T* k_new = static_cast<const T*>(a.k_new);
+  const T* v_new = static_cast<const T*>(a.v_new);
+  P* k_pool = static_cast<P*>(a.k_pool);
+  P* v_pool = static_cast<P*>(a.v_pool);
+  const int st = a.start[s], nv = a.n_valid[s], bs = a.bs, hkv = a.hkv;
+  const int* tab = a.tables + (size_t)s * a.width;
+  const int cap = a.width * bs - 1;
+  const size_t row_elems = (size_t)hkv * D;
+  const size_t page_elems = (size_t)bs * row_elems;
+  const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
+  for (int idx = threadIdx.x; idx < nv * D; idx += NT) {
+    const int i = idx / D, c = idx % D;
+    const int pos = min(st + i, cap);
+    const int blk = tab[pos / bs];
+    const size_t dst = layer_off + (size_t)blk * page_elems +
+                       (size_t)(pos % bs) * row_elems + (size_t)h * D + c;
+    if constexpr (QUANT) {
+      k_pool[dst] = s_kq[idx];
+      v_pool[dst] = s_vq[idx];
+      if (c == 0) {
+        const size_t sc = (((size_t)a.layer * a.n_blocks + blk) * hkv + h) * bs + pos % bs;
+        a.k_scale[sc] = s_ks[i];
+        a.v_scale[sc] = s_vs[i];
+      }
+    } else {
+      const size_t src = ((size_t)(s * a.t_len + i) * hkv + h) * D + c;
+      k_pool[dst] = k_new[src];
+      v_pool[dst] = v_new[src];
+    }
+  }
+}
+
 template <typename T, typename P, int D>
 __global__ void __launch_bounds__(NT)
 paged_kernel(const PagedArgs a) {
@@ -152,7 +201,6 @@ paged_kernel(const PagedArgs a) {
   const int st = a.start[s];
   const int nv = a.n_valid[s];
   const int* tab = a.tables + (size_t)s * a.width;
-  const int cap = a.width * bs - 1;
   const size_t row_elems = (size_t)hkv * D;
   const size_t page_elems = (size_t)bs * row_elems;
   const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
@@ -161,29 +209,8 @@ paged_kernel(const PagedArgs a) {
     quantize_new_rows<T, D>(k_new, v_new, s, h, t_len, hkv, nv, s_kq, s_vq,
                             s_ks, s_vs, s_red);
 
-  // ---- append (one block per slot and head) ----
-  if (tile == 0 && split == 0) {
-    for (int idx = tid; idx < nv * D; idx += NT) {
-      const int i = idx / D, c = idx % D;
-      const int pos = min(st + i, cap);
-      const int blk = tab[pos / bs];
-      const size_t dst = layer_off + (size_t)blk * page_elems +
-                         (size_t)(pos % bs) * row_elems + (size_t)h * D + c;
-      if constexpr (QUANT) {
-        k_pool[dst] = s_kq[idx];
-        v_pool[dst] = s_vq[idx];
-        if (c == 0) {
-          const size_t sc = (((size_t)a.layer * a.n_blocks + blk) * hkv + h) * bs + pos % bs;
-          a.k_scale[sc] = s_ks[i];
-          a.v_scale[sc] = s_vs[i];
-        }
-      } else {
-        const size_t src = ((size_t)(s * t_len + i) * hkv + h) * D + c;
-        k_pool[dst] = k_new[src];
-        v_pool[dst] = v_new[src];
-      }
-    }
-  }
+  if (tile == 0 && split == 0)   // the append: one block per slot and head
+    append_rows<T, P, D>(a, s, h, s_kq, s_vq, s_ks, s_vs);
 
   // ---- query rows of this tile: row r is (g = r / T, token i = r % T) ----
   const int my_row = tid / 8;       // 0..15
@@ -365,6 +392,417 @@ __global__ void __launch_bounds__(D) combine_kernel(const PagedArgs a) {
       from_f<T>(sum / fmaxf(l, 1e-30f));
 }
 
+// ---- int8 pools, bf16 q: the tensor-core body ----------------------------
+//
+// One block per (slot, kv-head, row tile of 16 query rows, context split):
+// at a decode step (T = 1) the group's G <= 8 rows fit one tile, so K and V
+// are read once per split. K/V tiles of 64 cols stay int8 in a 3-stage
+// ring of shared memory, filled by 16-byte cp.async from the pages (this
+// call's new cols from the block's own quantisation) while the tile before
+// computes; scales ride along by 4-byte cp.async. Warp w takes cols 16w ..
+// 16w+15 of every tile and keeps its own online softmax; the four warps
+// merge at the end, then the splits merge in the same launch (the last
+// block to arrive, in split order).
+//   S = Q.K^T: mma.sync m16n8k16 with the bf16 q rows as A (from
+//   registers, loaded once) and K as B, widened in registers. The sum over
+//   d does not care about order, so d is permuted per 64-wide half such
+//   that each lane reads 16 contiguous bytes of a K row (as in int8_matmul).
+//   The fp32 scores get scale * k_scale[col], then the mask.
+//   O += P.V: P (times v_scale[col], after l has summed it) is split into
+//   bf16 hi + lo parts, two products, so P keeps ~16 bits as the fp32 p of
+//   the TPU kernel does. V's B operand needs a col pair per register, which
+//   ldmatrix cannot give for 8-bit data: each lane reads 32-bit words (4
+//   d values) of four cols and pairs their bytes by byte permutes. For
+//   that, the output columns are permuted: lane g of n-tile 4J+e owns d =
+//   32J + 4g + e, so a lane ends with 8 contiguous d of each of its rows.
+constexpr int STAGES8 = 3;
+constexpr int KV_TILE_BYTES = KT * 128;           // one int8 K or V tile (D = 128)
+constexpr int STAGE8_BYTES = 2 * KV_TILE_BYTES + 2 * KT * (int)sizeof(float);
+
+constexpr size_t int8_mma_smem_bytes(int t_len) {
+  // the ring (reused for the warps' merge), then the new rows quantised
+  return (size_t)STAGES8 * STAGE8_BYTES + (size_t)t_len * (2 * 128 + 2 * sizeof(float));
+}
+static_assert(4 * RT * 128 * sizeof(float) + 4 * RT * 2 * sizeof(float) <=
+                  (size_t)STAGES8 * STAGE8_BYTES, "the merge fits the ring");
+
+// 16-byte chunk j of K col c sits at chunk j ^ 4(c & 1), of V col c at
+// chunk j ^ 2((c >> 1) & 3): conflict-free for the reads below.
+__device__ __forceinline__ int k_chunk(int c, int j) { return j ^ ((c & 1) << 2); }
+__device__ __forceinline__ int v_chunk(int c, int j) { return j ^ (((c >> 1) & 3) << 1); }
+
+// Cols k0 .. k0+63 of head h into one ring stage: cached cols from their
+// page, this call's cols from the block's quantisation, the rest zero.
+__device__ __forceinline__ void load_kv_tile(const PagedArgs& a, uint8_t* stage, int k0,
+                                             int h, int st, int limit, const int* tab,
+                                             const int8_t* s_kq, const int8_t* s_vq,
+                                             const float* s_ks, const float* s_vs) {
+  constexpr int D = 128;
+  int8_t* sk = reinterpret_cast<int8_t*>(stage);
+  int8_t* sv = sk + KV_TILE_BYTES;
+  float* sks = reinterpret_cast<float*>(sv + KV_TILE_BYTES);
+  float* svs = sks + KT;
+  const int8_t* k_pool = static_cast<const int8_t*>(a.k_pool);
+  const int8_t* v_pool = static_cast<const int8_t*>(a.v_pool);
+  const int tid = threadIdx.x, bs = a.bs;
+  const size_t row_elems = (size_t)a.hkv * D;
+  const size_t page_elems = (size_t)bs * row_elems;
+  const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
+#pragma unroll
+  for (int it = 0; it < KT * 8 / NT; ++it) {
+    const int idx = it * NT + tid, col = idx / 8, j = idx % 8, c = k0 + col;
+    int8_t* dk = sk + col * D + 16 * k_chunk(col, j);
+    int8_t* dv = sv + col * D + 16 * v_chunk(col, j);
+    if (c < st) {
+      const size_t off = layer_off + (size_t)__ldg(tab + c / bs) * page_elems +
+                         (size_t)(c % bs) * row_elems + (size_t)h * D + 16 * j;
+      cp_async16(dk, k_pool + off);
+      cp_async16(dv, v_pool + off);
+    } else if (c < limit) {
+      *reinterpret_cast<uint4*>(dk) = *reinterpret_cast<const uint4*>(s_kq + (c - st) * D + 16 * j);
+      *reinterpret_cast<uint4*>(dv) = *reinterpret_cast<const uint4*>(s_vq + (c - st) * D + 16 * j);
+    } else {
+      *reinterpret_cast<uint4*>(dk) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(dv) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  if (tid < KT) {
+    const int c = k0 + tid;
+    if (c < st) {
+      const size_t sc = (((size_t)a.layer * a.n_blocks + __ldg(tab + c / bs)) * a.hkv + h) * bs + c % bs;
+      cp_async4(sks + tid, a.k_scale + sc);
+      cp_async4(svs + tid, a.v_scale + sc);
+    } else {
+      sks[tid] = c < limit ? s_ks[c - st] : 0.f;
+      svs[tid] = c < limit ? s_vs[c - st] : 0.f;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+paged_int8_mma_kernel(const PagedArgs a) {
+  static_assert(D == 128, "the text models' head width");
+  extern __shared__ __align__(128) uint8_t smem8[];
+  __shared__ float s_red[2 * NT / 32];
+  __shared__ int s_last;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  const int s = blockIdx.x, h = blockIdx.y;
+  const int row_tiles = gridDim.z / a.n_split;
+  const int rt = blockIdx.z % row_tiles, split = blockIdx.z / row_tiles;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int t_len = a.t_len, group = a.hq / a.hkv, rows = group * t_len;
+  const int st = a.start[s], nv = a.n_valid[s], limit = st + nv;
+  // out row of query row r (head group member r / T, token r % T)
+  auto out_row = [&](int r) {
+    return out + ((size_t)(s * t_len + r % t_len) * a.hq + h * group + r / t_len) * D;
+  };
+
+  if (nv == 0) {   // a dead slot: zero output, no append, no page read
+    if (split == 0)
+      for (int idx = tid; idx < RT * D; idx += NT) {
+        const int r = rt * RT + idx / D;
+        if (r < rows) out_row(r)[idx % D] = __float2bfloat16(0.f);
+      }
+    return;
+  }
+  const int n_act = (limit + a.split_cols - 1) / a.split_cols;   // splits with cols
+  if (split >= n_act) return;
+  const int c_begin = split * a.split_cols;
+  const int c_end = min(limit, c_begin + a.split_cols);
+  const bool append = rt == 0 && split == 0;
+
+  uint8_t* ring = smem8;
+  int8_t* s_kq = reinterpret_cast<int8_t*>(smem8 + STAGES8 * STAGE8_BYTES);
+  int8_t* s_vq = s_kq + t_len * D;
+  float* s_ks = reinterpret_cast<float*>(s_vq + t_len * D);
+  float* s_vs = s_ks + t_len;
+  if (append || c_end > st) {   // this block appends or reads new cols
+    quantize_new_rows<__nv_bfloat16, D>(static_cast<const __nv_bfloat16*>(a.k_new),
+                                        static_cast<const __nv_bfloat16*>(a.v_new), s, h,
+                                        t_len, a.hkv, nv, s_kq, s_vq, s_ks, s_vs, s_red);
+    if (append) append_rows<__nv_bfloat16, int8_t, D>(a, s, h, s_kq, s_vq, s_ks, s_vs);
+  }
+
+  // Q as the A operand, rows g (lo) and g+8 (hi) of the tile: qa[half][step]
+  // = {row g d 4s..4s+1, row g+8 same, row g d 4s+2..4s+3, row g+8 same} of
+  // the lane's 16 d at 64 half + 16t.
+  uint32_t qa[2][4][4];
+  int row_max[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = rt * RT + g + 8 * hi;
+    const int tok = r % t_len;
+    row_ok[hi] = r < rows && tok < nv;
+    row_max[hi] = st + tok;
+    const __nv_bfloat16* qrow = q + ((size_t)(s * t_len + tok) * a.hq + h * group + r / t_len) * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint4 v[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+      if (row_ok[hi]) {
+        v[0] = __ldg(reinterpret_cast<const uint4*>(qrow + 64 * half + 16 * t));
+        v[1] = __ldg(reinterpret_cast<const uint4*>(qrow + 64 * half + 16 * t + 8));
+      }
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(v);
+#pragma unroll
+      for (int st4 = 0; st4 < 4; ++st4) {
+        qa[half][st4][hi] = w[2 * st4];
+        qa[half][st4][2 + hi] = w[2 * st4 + 1];
+      }
+    }
+  }
+
+  float o[16][4];   // O: n-tile 4J+e; [0..1] row g, [2..3] row g+8
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const int* tab = a.tables + (size_t)s * a.width;
+  const int n_tiles = (c_end - c_begin + KT - 1) / KT;
+
+#pragma unroll
+  for (int i = 0; i < STAGES8 - 1; ++i) {
+    if (i < n_tiles)
+      load_kv_tile(a, ring + i * STAGE8_BYTES, c_begin + i * KT, h, st, limit, tab,
+                   s_kq, s_vq, s_ks, s_vs);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<STAGES8 - 2>();
+    __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES8 is free
+    const int nxt = i + STAGES8 - 1;
+    if (nxt < n_tiles)
+      load_kv_tile(a, ring + (nxt % STAGES8) * STAGE8_BYTES, c_begin + nxt * KT, h, st,
+                   limit, tab, s_kq, s_vq, s_ks, s_vs);
+    cp_async_commit();
+
+    const uint8_t* stage = ring + (i % STAGES8) * STAGE8_BYTES;
+    const int8_t* sk = reinterpret_cast<const int8_t*>(stage);
+    const int8_t* sv = sk + KV_TILE_BYTES;
+    const float* sks = reinterpret_cast<const float*>(sv + KV_TILE_BYTES);
+    const float* svs = sks + KT;
+    const int k0 = c_begin + i * KT;
+
+    // S for the warp's 16 cols: sc[nt][0..1] row g, cols 8nt+2t, +1; [2..3] row g+8
+    float sc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+      const int col = 16 * warp + 8 * nt + g;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint4 kw = *reinterpret_cast<const uint4*>(sk + col * D + 16 * k_chunk(col, 4 * half + t));
+        const uint32_t* kwords = &kw.x;
+#pragma unroll
+        for (int st4 = 0; st4 < 4; ++st4) {
+          uint32_t b0, b1;
+          i8x4_to_bf16(kwords[st4], b0, b1);
+          mma_bf16(sc[nt], qa[half][st4], b0, b1);
+        }
+      }
+    }
+
+    // online softmax per row over the warp's cols; P' = p * v_scale
+    float corr[2];
+    float pv[2][4];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int colt = 16 * warp + 8 * nt + 2 * t + e;
+          const int c = k0 + colt;
+          const bool ok = row_ok[hi] && c < limit && c <= row_max[hi];
+          float& v = sc[nt][2 * hi + e];
+          v = ok ? v * a.scale * sks[colt] : -INFINITY;
+          mx = fmaxf(mx, v);
+        }
+      mx = group_max<4>(mx);
+      const float m_new = fmaxf(m_run[hi], mx);
+      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int colt = 16 * warp + 8 * nt + 2 * t + e;
+          const float p = expf(sc[nt][2 * hi + e] - safe);
+          sum += p;   // l sums the probabilities before any v scale
+          pv[nt][2 * hi + e] = p * svs[colt];
+        }
+      sum = group_sum<4>(sum);
+      corr[hi] = (m_run[hi] == -INFINITY) ? 0.f : expf(m_run[hi] - safe);
+      l_run[hi] = corr[hi] * l_run[hi] + sum;
+      m_run[hi] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
+    }
+    // P as the A operand (k = the warp's cols 2t, 2t+1 | 2t+8, 2t+9), hi + lo
+    uint32_t pa_hi[4], pa_lo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int nt = r / 2, e0 = 2 * (r % 2);   // a0: nt0 row g; a1: nt0 row g+8; ...
+      const float x0 = pv[nt][e0], x1 = pv[nt][e0 + 1];
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
+      const float2 back = __bfloat1622float2(hi2);
+      pa_hi[r] = *reinterpret_cast<const uint32_t*>(&hi2);
+      pa_lo[r] = pack_bf16(x0 - back.x, x1 - back.y);
+    }
+    const uint32_t a_hi[4] = {pa_hi[0], pa_hi[1], pa_hi[2], pa_hi[3]};
+    const uint32_t a_lo[4] = {pa_lo[0], pa_lo[1], pa_lo[2], pa_lo[3]};
+    // V words: cols 2t, 2t+1, 2t+8, 2t+9 of the warp, word 8J + g (d 32J + 4g ..)
+    const int vcols[4] = {16 * warp + 2 * t, 16 * warp + 2 * t + 1,
+                          16 * warp + 2 * t + 8, 16 * warp + 2 * t + 9};
+#pragma unroll
+    for (int J = 0; J < 4; ++J) {
+      uint32_t vw[4];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int col = vcols[cc];
+        vw[cc] = *reinterpret_cast<const uint32_t*>(
+            sv + col * D + 16 * v_chunk(col, 2 * J + g / 4) + 4 * (g % 4));
+      }
+      uint32_t b0[4], b1[4];   // per e: cols (2t, 2t+1) and (2t+8, 2t+9) at d 32J+4g+e
+      i8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x5140), b0[0], b0[1]);
+      i8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x7362), b0[2], b0[3]);
+      i8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x5140), b1[0], b1[1]);
+      i8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x7362), b1[2], b1[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mma_bf16(o[4 * J + e], a_hi, b0[e], b1[e]);
+        mma_bf16(o[4 * J + e], a_lo, b0[e], b1[e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: reuse it for the warps' merge
+
+  // The warps' (m, l, O) into shared memory; a lane holds d = 32J + 8t +
+  // 0..7 of rows g and g+8: o[4J+e][0] is d 32J+8t+e, o[4J+e][1] d +4.
+  float* s_o = reinterpret_cast<float*>(smem8);     // [warp][RT][D]
+  float* s_ml = s_o + 4 * RT * D;                    // [warp][RT][2]
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = g + 8 * hi;
+#pragma unroll
+    for (int J = 0; J < 4; ++J) {
+      float* dst = s_o + (warp * RT + r) * D + 32 * J + 8 * t;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(o[4 * J][2 * hi], o[4 * J + 1][2 * hi], o[4 * J + 2][2 * hi], o[4 * J + 3][2 * hi]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(o[4 * J][2 * hi + 1], o[4 * J + 1][2 * hi + 1], o[4 * J + 2][2 * hi + 1],
+                      o[4 * J + 3][2 * hi + 1]);
+    }
+    if (t == 0) {
+      s_ml[(warp * RT + r) * 2] = m_run[hi];
+      s_ml[(warp * RT + r) * 2 + 1] = l_run[hi];
+    }
+  }
+  __syncthreads();
+
+  // One thread per d: merge the warps in order; one split writes the
+  // output, several write their partials and the last to arrive merges.
+  const int d = tid;
+  const int cidx = (s * a.hkv + h) * row_tiles + rt;
+  for (int r = 0; r < RT; ++r) {
+    const int r_glob = rt * RT + r;
+    if (r_glob >= rows) break;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, s_ml[(w * RT + r) * 2]);
+    float ll = 0.f, acc = 0.f;
+    if (mm != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float mw = s_ml[(w * RT + r) * 2];
+        if (mw == -INFINITY) continue;
+        const float f = expf(mw - mm);
+        ll += s_ml[(w * RT + r) * 2 + 1] * f;
+        acc += s_o[(w * RT + r) * D + d] * f;
+      }
+    }
+    if (n_act == 1) {
+      out_row(r_glob)[d] = __float2bfloat16(acc / fmaxf(ll, 1e-30f));
+    } else {
+      const size_t part = ((size_t)cidx * RT + r) * a.n_split + split;
+      a.part_acc[part * D + d] = acc;
+      if (d == 0) {
+        a.part_ml[2 * part] = mm;
+        a.part_ml[2 * part + 1] = ll;
+      }
+    }
+  }
+  if (n_act == 1) return;
+  __threadfence();     // this split's partials are visible before it arrives
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(a.counters + cidx, 1) == n_act - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();     // every split's partials are visible to the last block
+  // Each row's split weights exp(m_i - max m) and denominator, one thread
+  // per row, into the (free) ring; then 32 threads per row sum the
+  // partials in split order, four d each by 16-byte loads.
+  const int rows_here = min(RT, rows - rt * RT);
+  float* s_wt = reinterpret_cast<float*>(smem8);    // [RT][n_act]
+  float* s_den = s_wt + RT * n_act;                  // [RT]
+  if (tid < rows_here) {
+    const size_t base = ((size_t)cidx * RT + tid) * a.n_split;
+    float mm = -INFINITY;
+    for (int i = 0; i < n_act; ++i) mm = fmaxf(mm, __ldcg(a.part_ml + 2 * (base + i)));
+    float ll = 0.f;
+    for (int i = 0; i < n_act; ++i) {   // in split order: deterministic
+      const float mi = __ldcg(a.part_ml + 2 * (base + i));
+      const float w = (mi == -INFINITY) ? 0.f : expf(mi - mm);
+      s_wt[tid * n_act + i] = w;
+      ll += __ldcg(a.part_ml + 2 * (base + i) + 1) * w;
+    }
+    s_den[tid] = fmaxf(ll, 1e-30f);
+  }
+  __syncthreads();
+  const float4* acc4 = reinterpret_cast<const float4*>(a.part_acc);
+  for (int r = warp; r < rows_here; r += NT / 32) {
+    const size_t base = ((size_t)cidx * RT + r) * a.n_split;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int i = 0; i < n_act; ++i) {   // in split order: deterministic
+      const float w = s_wt[r * n_act + i];
+      const float4 v = __ldcg(acc4 + (base + i) * (D / 4) + lane);
+      acc.x += v.x * w;
+      acc.y += v.y * w;
+      acc.z += v.z * w;
+      acc.w += v.w * w;
+    }
+    const float den = s_den[r];
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out_row(rt * RT + r) + 4 * lane);
+    dst[0] = __floats2bfloat162_rn(acc.x / den, acc.y / den);
+    dst[1] = __floats2bfloat162_rn(acc.z / den, acc.w / den);
+  }
+  if (tid == 0) a.counters[cidx] = 0;   // ready for the next launch
+}
+
+cudaError_t launch_int8_mma(const PagedArgs& a, cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem_once(paged_int8_mma_kernel<128>,
+                                  int8_mma_smem_bytes(MAX_NEW_INT8), configured);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = ((a.hq / a.hkv) * a.t_len + RT - 1) / RT;
+  const dim3 grid(a.slots, a.hkv, row_tiles * a.n_split);
+  paged_int8_mma_kernel<128><<<grid, NT, int8_mma_smem_bytes(a.t_len), stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, typename P, int D>
 cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
   const size_t smem = paged_smem_bytes<D>(std::is_same<P, int8_t>::value);
@@ -383,55 +821,84 @@ cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_d(int d, bool quant, const PagedArgs& a, cudaStream_t stream) {
   if (d != 128) return cudaErrorInvalidValue;  // the text models' width
+  if (quant && std::is_same<T, __nv_bfloat16>::value) {
+    if (a.counters == nullptr) return cudaErrorInvalidValue;
+    return launch_int8_mma(a, stream);
+  }
   if (quant) return launch<T, int8_t, 128>(a, stream);
   return launch<T, T, 128>(a, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launches (0 = launched). part_acc
-// and part_ml are fp32 scratch of S*Hkv*G*T*n_split*D and *2 elements,
-// n_split = ceil(W*BS / split_cols); split_cols is a multiple of 64.
-// k_scale / v_scale non-null: the pools are int8 and T <= 64.
-HOCR_EXPORT int hocr_paged_append_attention(
-    const void* q, const void* k_new, const void* v_new, void* k_pool,
-    void* v_pool, void* k_scale, void* v_scale, const void* tables,
-    const void* start, const void* n_valid, void* out, void* part_acc,
-    void* part_ml, int slots, int t_len, int hq, int hkv, int d, int width,
-    int bs, int n_blocks, int layer, int split_cols, float scale, int dtype,
-    void* stream) {
-  if (slots == 0 || t_len == 0) return 0;
-  if (split_cols <= 0 || split_cols % KT != 0) return cudaErrorInvalidValue;
-  const bool quant = k_scale != nullptr;
-  if (quant != (v_scale != nullptr) || (quant && t_len > MAX_NEW_INT8))
+// One call's arguments in one record, as the Python wrapper packs them
+// (struct format "=15Q10ifi"): one ctypes argument to convert instead of
+// 27. part_acc and part_ml are fp32 scratch of S*Hkv*ceil(G*T/16)*16*
+// n_split*D and *2 elements, n_split = ceil(W*BS / split_cols);
+// split_cols is a multiple of 64. k_scale / v_scale non-null: the pools
+// are int8 and T <= 64; with bf16 q that takes the tensor-core body (one
+// launch), which needs `counters`: S*Hkv*ceil(G*T/16) int32 that are 0
+// (it leaves them 0). dtype: q's, 0 = float32, 1 = bfloat16.
+struct PagedCall {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* k_pool;
+  void* v_pool;
+  void* k_scale;
+  void* v_scale;
+  const void* tables;
+  const void* start;
+  const void* n_valid;
+  void* out;
+  void* part_acc;
+  void* part_ml;
+  void* counters;
+  void* stream;
+  int slots, t_len, hq, hkv, d, width, bs, n_blocks, layer, split_cols;
+  float scale;
+  int dtype;
+};
+
+// Returns cudaGetLastError() after the launches (0 = launched).
+HOCR_EXPORT int hocr_paged_append_attention(const PagedCall* call) {
+  const PagedCall& c = *call;
+  if (c.slots == 0 || c.t_len == 0) return 0;
+  if (c.split_cols <= 0 || c.split_cols % KT != 0) return cudaErrorInvalidValue;
+  const bool quant = c.k_scale != nullptr;
+  if (quant != (c.v_scale != nullptr) || (quant && c.t_len > MAX_NEW_INT8))
     return cudaErrorInvalidValue;
   PagedArgs a;
-  a.q = q;
-  a.k_new = k_new;
-  a.v_new = v_new;
-  a.k_pool = k_pool;
-  a.v_pool = v_pool;
-  a.k_scale = static_cast<float*>(k_scale);
-  a.v_scale = static_cast<float*>(v_scale);
-  a.tables = static_cast<const int*>(tables);
-  a.start = static_cast<const int*>(start);
-  a.n_valid = static_cast<const int*>(n_valid);
-  a.out = out;
-  a.part_acc = static_cast<float*>(part_acc);
-  a.part_ml = static_cast<float*>(part_ml);
-  a.slots = slots;
-  a.t_len = t_len;
-  a.hq = hq;
-  a.hkv = hkv;
-  a.width = width;
-  a.bs = bs;
-  a.n_blocks = n_blocks;
-  a.layer = layer;
-  a.split_cols = split_cols;
-  a.n_split = (width * bs + split_cols - 1) / split_cols;
-  a.scale = scale;
-  cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) return dispatch_d<__nv_bfloat16>(d, quant, a, stm);
-  if (dtype == kFloat32) return dispatch_d<float>(d, quant, a, stm);
+  a.q = c.q;
+  a.k_new = c.k_new;
+  a.v_new = c.v_new;
+  a.k_pool = c.k_pool;
+  a.v_pool = c.v_pool;
+  a.k_scale = static_cast<float*>(c.k_scale);
+  a.v_scale = static_cast<float*>(c.v_scale);
+  a.tables = static_cast<const int*>(c.tables);
+  a.start = static_cast<const int*>(c.start);
+  a.n_valid = static_cast<const int*>(c.n_valid);
+  a.out = c.out;
+  a.part_acc = static_cast<float*>(c.part_acc);
+  a.part_ml = static_cast<float*>(c.part_ml);
+  a.counters = static_cast<int*>(c.counters);
+  a.slots = c.slots;
+  a.t_len = c.t_len;
+  a.hq = c.hq;
+  a.hkv = c.hkv;
+  a.width = c.width;
+  a.bs = c.bs;
+  a.n_blocks = c.n_blocks;
+  a.layer = c.layer;
+  a.split_cols = c.split_cols;
+  a.n_split = (c.width * c.bs + c.split_cols - 1) / c.split_cols;
+  if (quant && c.dtype == kBFloat16 &&
+      (size_t)RT * (a.n_split + 1) * sizeof(float) > (size_t)STAGES8 * STAGE8_BYTES)
+    return cudaErrorInvalidValue;   // the split merge's weights must fit the ring
+  a.scale = c.scale;
+  cudaStream_t stm = static_cast<cudaStream_t>(c.stream);
+  if (c.dtype == kBFloat16) return dispatch_d<__nv_bfloat16>(c.d, quant, a, stm);
+  if (c.dtype == kFloat32) return dispatch_d<float>(c.d, quant, a, stm);
   return cudaErrorInvalidValue;
 }

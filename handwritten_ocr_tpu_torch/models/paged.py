@@ -187,7 +187,8 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
     """
     tables = cache.block_tables[slot_ids]
     if table_pages is not None and table_pages < tables.shape[1]:
-        tables = tables[:, :table_pages]
+        # once per step, not once per layer in the paged kernel's wrapper
+        tables = tables[:, :table_pages].contiguous()
     if attn_valid is None:
         n_valid = new_len - start
     else:

@@ -105,9 +105,57 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+@functools.cache
+def function(name: str, symbol: str, argtypes: tuple):
+    """C entry point ``symbol`` of kernel ``name``'s library, its argument
+    and return types set once (an int return: ``cudaGetLastError()``)."""
+    fn = getattr(load(name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return fn
+
+
 def launch(fn, *args) -> None:
     """Call a C entry point that returns ``cudaGetLastError()``; raise on
     a launch that CUDA refused."""
     code = fn(*args)
     if code != 0:
         raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {code}")
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA ``device``."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+class Workspace:
+    """Scratch of one kernel per device: fp32 partials and int32 arrival
+    counters. A buffer grows (to the next power of two) when a call needs
+    more than it holds and is reused by every later call; it is zeroed
+    only when it is allocated, which the counters rely on: the kernels
+    reset each counter to 0 before they finish."""
+
+    def __init__(self):
+        self._buffers = {}
+        self.allocations = 0
+
+    def take(self, device, dtype, numel: int):
+        """A ``dtype`` buffer of at least ``numel`` elements on ``device``
+        (for counters, all of them 0)."""
+        import torch
+        key = (device, dtype)
+        buf = self._buffers.get(key)
+        if buf is None or buf.numel() < numel:
+            size = 1 << max(numel - 1, 1).bit_length()
+            buf = torch.zeros(size, dtype=dtype, device=device)
+            self._buffers[key] = buf
+            self.allocations += 1
+        return buf

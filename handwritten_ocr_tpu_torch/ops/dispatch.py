@@ -13,9 +13,9 @@ import torch
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on a CUDA device (launch the kernel),
     False when every tensor is on the CPU (run the plain version)."""
-    kinds = {tensor.device.type for tensor in tensors}
-    if kinds == {"cuda"}:
+    if all(tensor.is_cuda for tensor in tensors):   # the hot path: no set
         return True
+    kinds = {tensor.device.type for tensor in tensors}
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(kinds)}")

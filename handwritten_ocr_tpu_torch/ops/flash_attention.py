@@ -18,6 +18,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (80, 128)     # vision and text head widths
 _KEY_TILE = 128            # the bf16 body's key tile; its mask rows are padded to it
 _MAX_GRID_Y = 65535        # batch x q-heads: the fp32 body's grid y extent
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_void_p)
+             + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p))
 
 
 def check_kernel_shapes(q_shape, kv_shape, dtype: torch.dtype, *,
@@ -126,12 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = _normalize_mask(kv_mask, b, s, q.device,
                            _KEY_TILE if q.dtype == torch.bfloat16 else 1)
     out = torch.empty_like(q)
-    lib = build.load("flash_attention")
-    fn = lib.hocr_flash_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = build.function("flash_attention", "hocr_flash_attention", _ARGTYPES)
     build.launch(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if mask is None else mask.data_ptr(),
                  0 if mask is None else mask.shape[1], out.data_ptr(),

@@ -11,6 +11,9 @@ where the JAX kernel returns them aliased.
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
+from typing import NamedTuple
 
 import torch
 
@@ -19,13 +22,67 @@ from handwritten_ocr_tpu_torch.ops.dispatch import check, use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128,)        # the text models' head width
-# Context cols per block of the kernel's split over the context (a
-# multiple of its 64-col key tile): at a 1k-token decode this gives each
-# live (slot, kv-head) 4 blocks, enough blocks to spread over the SMs.
+_ROW_TILE = 16             # query rows per block of both bodies
+_KEY_TILE = 64             # context cols per tile of both bodies
+# Context cols per block of the split over the context (a multiple of the
+# key tile). The fp body: 256, at a 1k-token decode 4 blocks per live
+# (slot, kv-head). The int8 tensor-core body streams faster per block, so
+# it splits finer: about 12 blocks per SM over the grid, which measured
+# best on the H100 at both engines' decode shapes (128 cols at 24 slots x
+# 4 kv-heads, 256 at 24 x 8, over 2048-col tables).
 _SPLIT_COLS = 256
+_MMA_BLOCKS_PER_SM = 12
 # New tokens per call the int8 kernel quantises in shared memory
 # (decode-shaped calls have T <= 64).
 _MAX_NEW_INT8 = 64
+# The kernel's arguments as one record (``PagedCall`` in the source): 15
+# pointers (0 for none), 10 ints, the float scale, the dtype code.
+_CALL = struct.Struct("=15Q10ifi")
+_WORKSPACE = build.Workspace()
+
+
+class Plan(NamedTuple):
+    """One launch of the kernel: the context split into ``n_split`` ranges
+    of ``split_cols`` cols, ``row_tiles`` tiles of 16 query rows per
+    kv-head, the grid, and the workspace it takes: ``partials`` rows of
+    fp32 partials (D + 2 floats each) and int32 ``counters`` (the int8
+    tensor-core body's)."""
+    split_cols: int
+    n_split: int
+    row_tiles: int
+    grid: tuple[int, int, int]
+    partials: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(slots: int, t: int, hq: int, hkv: int, width_cols: int,
+         mma: bool, sms: int) -> Plan:
+    """The launch for q ``[slots, t, hq, 128]`` over tables of
+    ``width_cols`` = W*BS cols on a card of ``sms`` SMs; ``mma``: the int8
+    tensor-core body, whose splits aim at ``_MMA_BLOCKS_PER_SM`` blocks per
+    SM over the whole grid (live or not: the host does not know which
+    slots are live). Needs no card."""
+    row_tiles = -(-(hq // hkv) * t // _ROW_TILE)
+    tiles = -(-width_cols // _KEY_TILE)
+    if mma:
+        want = max(1, round(_MMA_BLOCKS_PER_SM * sms
+                            / (slots * hkv * row_tiles)))
+        split_cols = _KEY_TILE * -(-tiles // min(tiles, want))
+    else:
+        split_cols = _SPLIT_COLS
+    n_split = -(-width_cols // split_cols)
+    partials = slots * hkv * row_tiles * _ROW_TILE * n_split
+    return Plan(split_cols, n_split, row_tiles,
+                (slots, hkv, row_tiles * n_split), partials,
+                slots * hkv * row_tiles if mma else 0)
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous int32 tensor, without a copy when it is one."""
+    if x.dtype == torch.int32 and x.is_contiguous():
+        return x
+    return x.to(torch.int32).contiguous()
 
 
 def quantize_rows(new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -116,6 +173,57 @@ def paged_append_attention_plain(q, k_new, v_new, k_pool, v_pool, tables,
     return out.reshape(s, t, hq, d).to(q.dtype)
 
 
+_CHECKED = set()   # argument signatures whose shapes and dtypes passed
+
+
+def _check_args(q, k_new, v_new, k_pool, v_pool, tables, start, n_valid,
+                k_scale_pool, v_scale_pool, *, layer: int,
+                kernel: bool) -> None:
+    """Raise ValueError unless the arguments' shapes and dtypes are valid
+    (``kernel``: also within the kernel's own limits). They depend on
+    nothing else, so the wrapper runs them once per signature."""
+    s, t, hq, d = q.shape
+    check(k_new.shape == v_new.shape and k_new.shape[:2] == (s, t)
+          and k_new.shape[3] == d, "k_new/v_new must be [S, T, Hkv, D]")
+    hkv = k_new.shape[2]
+    check(hq % hkv == 0, f"q heads {hq} not a multiple of kv heads {hkv}")
+    check(k_pool.dim() == 5 and k_pool.shape == v_pool.shape
+          and k_pool.shape[3:] == (hkv, d), "pools must be [L, N, BS, Hkv, D]")
+    check(tables.dim() == 2 and tables.shape[0] == s, "tables must be [S, W]")
+    check(start.shape == (s,) and n_valid.shape == (s,),
+          "start and n_valid must be [S]")
+    check(0 <= layer < k_pool.shape[0], f"layer {layer} out of range")
+    bs = k_pool.shape[2]
+    quant = k_scale_pool is not None or v_scale_pool is not None
+    if quant:
+        if t > bs:
+            # The TPU kernel's scale append touches at most two pages, so
+            # it refuses appends of more than a block; the port keeps the
+            # same contract.
+            raise ValueError(f"int8-KV append of {t} tokens exceeds the "
+                             f"block size {bs}")
+        l_, n_ = k_pool.shape[:2]
+        check(k_scale_pool is not None and v_scale_pool is not None
+              and k_scale_pool.shape == v_scale_pool.shape == (l_, n_, hkv, bs)
+              and k_scale_pool.dtype == v_scale_pool.dtype == torch.float32,
+              "int8 KV needs both scale pools, float32 [L, N, Hkv, BS]")
+        check(k_pool.dtype == v_pool.dtype == torch.int8,
+              "scale pools go with int8 pools")
+        check(q.dtype == k_new.dtype == v_new.dtype and q.is_floating_point(),
+              "q and the new rows must share one float dtype")
+    else:
+        check(t <= bs, "T must not exceed the block size")
+        check(q.dtype == k_new.dtype == v_new.dtype == k_pool.dtype
+              == v_pool.dtype, "q, the new rows and the pools must share a "
+              "dtype")
+    if kernel:
+        check(q.dtype in _DTYPE_CODES, f"unsupported dtype {q.dtype}")
+        check(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
+        check(not quant or t <= _MAX_NEW_INT8,
+              f"the int8 kernel appends at most {_MAX_NEW_INT8} tokens per "
+              "call")
+
+
 def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
@@ -142,88 +250,68 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     in bf16, 0.5 KB (+ 32 B of scales) in int8 — and does ~4 flops per
     bf16 byte read. The kernel reads only the pages below ``start +
     n_valid`` of live slots (a slot with n_valid 0 reads nothing), splits
-    each context over blocks of 256 cols so that a few live slots still
-    spread over the SMs (a second small kernel merges the splits), appends
-    the new rows in the same launch, and takes the new cols from
-    ``k_new``/``v_new`` (int8: quantised in each block's shared memory
+    each context over blocks so that a few live slots still spread over the
+    SMs, appends the new rows in the same launch, and takes the new cols
+    from ``k_new``/``v_new`` (int8: quantised in each block's shared memory
     exactly as the append quantises them) rather than from the pool rows
-    another block is writing.
+    another block is writing. Over int8 pools with bf16 q (both engines'
+    default) one block holds all G·T query rows of a kv-head (one
+    ``mma.sync`` tile at a decode step), keeps K and V int8 in a 3-stage
+    ``cp.async`` ring of shared memory, runs both products on the tensor
+    cores (P as bf16 hi + lo parts) and merges the splits in the same
+    launch, in split order, through a self-resetting arrival counter in a
+    per-device workspace. fp pools and fp32 q take an fp32 body whose
+    splits a second small kernel merges.
 
     ``launches`` counts launches over fp pools, ``int8_launches`` over
     int8 pools.
     """
-    s, t, hq, d = q.shape
-    check(k_new.shape == v_new.shape and k_new.shape[:2] == (s, t)
-          and k_new.shape[3] == d, "k_new/v_new must be [S, T, Hkv, D]")
-    hkv = k_new.shape[2]
-    check(hq % hkv == 0, f"q heads {hq} not a multiple of kv heads {hkv}")
-    check(k_pool.dim() == 5 and k_pool.shape == v_pool.shape
-          and k_pool.shape[3:] == (hkv, d), "pools must be [L, N, BS, Hkv, D]")
-    check(tables.dim() == 2 and tables.shape[0] == s, "tables must be [S, W]")
-    check(start.shape == (s,) and n_valid.shape == (s,),
-          "start and n_valid must be [S]")
-    check(0 <= layer < k_pool.shape[0], f"layer {layer} out of range")
-    bs = k_pool.shape[2]
-    quant = k_scale_pool is not None or v_scale_pool is not None
-    scale_pools = (k_scale_pool, v_scale_pool) if quant else ()
-    if quant:
-        if t > bs:
-            # The TPU kernel's scale append touches at most two pages, so
-            # it refuses appends of more than a block; the port keeps the
-            # same contract.
-            raise ValueError(f"int8-KV append of {t} tokens exceeds the "
-                             f"block size {bs}")
-        l_, n_ = k_pool.shape[:2]
-        check(k_scale_pool is not None and v_scale_pool is not None
-              and k_scale_pool.shape == v_scale_pool.shape == (l_, n_, hkv, bs)
-              and k_scale_pool.dtype == v_scale_pool.dtype == torch.float32,
-              "int8 KV needs both scale pools, float32 [L, N, Hkv, BS]")
-        check(k_pool.dtype == v_pool.dtype == torch.int8,
-              "scale pools go with int8 pools")
-        check(q.dtype == k_new.dtype == v_new.dtype and q.is_floating_point(),
-              "q and the new rows must share one float dtype")
-    else:
-        check(t <= bs, "T must not exceed the block size")
-        check(q.dtype == k_new.dtype == v_new.dtype == k_pool.dtype
-              == v_pool.dtype, "q, the new rows and the pools must share a "
-              "dtype")
-    if not use_kernel(q, k_new, v_new, k_pool, v_pool, tables, start, n_valid,
-                      *scale_pools):
+    tensors = (q, k_new, v_new, k_pool, v_pool, tables, start, n_valid,
+               k_scale_pool, v_scale_pool)
+    kernel = use_kernel(*[x for x in tensors if x is not None])
+    signature = (layer, kernel, *[None if x is None else (x.shape, x.dtype)
+                                  for x in tensors])
+    if signature not in _CHECKED:
+        _check_args(*tensors, layer=layer, kernel=kernel)
+        _CHECKED.add(signature)
+    if not kernel:
         return paged_append_attention_plain(q, k_new, v_new, k_pool, v_pool,
                                             tables, start, n_valid,
                                             k_scale_pool, v_scale_pool,
                                             layer=layer, scale=scale)
-    check(q.dtype in _DTYPE_CODES, f"unsupported dtype {q.dtype}")
-    check(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
-    check(not quant or t <= _MAX_NEW_INT8,
-          f"the int8 kernel appends at most {_MAX_NEW_INT8} tokens per call")
-    pools = (k_new, v_new, k_pool, v_pool, *scale_pools)
-    check(all(x.is_contiguous() for x in (q, *pools)),
+    s, t, hq, d = q.shape
+    hkv, bs = k_new.shape[2], k_pool.shape[2]
+    quant = k_scale_pool is not None
+    arrays = (q, k_new, v_new, k_pool, v_pool,
+              *((k_scale_pool, v_scale_pool) if quant else ()))
+    check(all(x.is_contiguous() for x in arrays),
           "q, the new rows and the pools must be contiguous")
-    check(all(x.data_ptr() % 16 == 0 for x in pools),
-          "the new rows and the pools must be 16-byte aligned")
-    tables32 = tables.to(torch.int32).contiguous()
-    start32 = start.to(torch.int32).contiguous()
-    valid32 = n_valid.to(torch.int32).contiguous()
+    ptrs = [x.data_ptr() for x in arrays]
+    check(all(p % 16 == 0 for p in ptrs),
+          "q, the new rows and the pools must be 16-byte aligned")
+    tables32, start32, valid32 = _int32(tables), _int32(start), _int32(n_valid)
     out = torch.empty_like(q)
     width = tables32.shape[1]
-    n_split = -(-width * bs // _SPLIT_COLS)
-    partials = s * hkv * (hq // hkv) * t * n_split
-    part_acc = torch.empty(partials * d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(partials * 2, dtype=torch.float32, device=q.device)
-    fn = build.load("paged_decode_attention").hocr_paged_append_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    build.launch(fn, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                 k_pool.data_ptr(), v_pool.data_ptr(),
-                 k_scale_pool.data_ptr() if quant else None,
-                 v_scale_pool.data_ptr() if quant else None,
-                 tables32.data_ptr(), start32.data_ptr(), valid32.data_ptr(),
-                 out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-                 s, t, hq, hkv, d, width, bs, k_pool.shape[1],
-                 int(layer), _SPLIT_COLS, float(scale), _DTYPE_CODES[q.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    launch = plan(s, t, hq, hkv, width * bs,
+                  quant and q.dtype == torch.bfloat16,
+                  build.sm_count(q.device.index))
+    device = q.device
+    part_acc = _WORKSPACE.take(device, torch.float32,
+                               launch.partials * (d + 2)).data_ptr()
+    part_ml = part_acc + launch.partials * d * 4
+    counters = (_WORKSPACE.take(device, torch.int32,
+                                launch.counters).data_ptr()
+                if launch.counters else 0)
+    build.launch(build.function("paged_decode_attention",
+                                "hocr_paged_append_attention",
+                                (ctypes.c_char_p,)),
+                 _CALL.pack(*ptrs, *((0, 0) if not quant else ()),
+                            tables32.data_ptr(), start32.data_ptr(),
+                            valid32.data_ptr(), out.data_ptr(), part_acc,
+                            part_ml, counters, build.current_stream(device),
+                            s, t, hq, hkv, d, width, bs, k_pool.shape[1],
+                            layer, launch.split_cols, scale,
+                            _DTYPE_CODES[q.dtype]))
     if quant:
         paged_append_attention.int8_launches += 1
     else:

@@ -19,6 +19,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (80,)         # the vision tower's head width
 _KERNEL_WINDOW = 64
 _HEAD_GROUP = 2            # heads per block of the bf16 body
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
+             + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def check_kernel_shapes(qkv_shape, dtype: torch.dtype, *, num_heads: int,
@@ -120,10 +122,8 @@ def window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
           "qkv and cos/sin must be 16-byte aligned")
     valid8 = (valid != 0).to(torch.uint8).contiguous()
     out = torch.empty((b, p_len, d), dtype=qkv.dtype, device=qkv.device)
-    fn = build.load("window_attention").hocr_window_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = build.function("window_attention", "hocr_window_attention",
+                        _ARGTYPES)
     build.launch(fn, qkv.data_ptr(), cos32.data_ptr(), sin32.data_ptr(),
                  valid8.data_ptr(), out.data_ptr(), b, p_len, num_heads, hd,
                  window_len, float(scale), _DTYPE_CODES[qkv.dtype],

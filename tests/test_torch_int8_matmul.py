@@ -108,3 +108,64 @@ def test_kernel_matches_plain_on_cuda(m, d_in, d_out, x_dtype, out_dtype):
     peak = float(want.abs().max())
     tol = 1e-5 * peak if out_dtype == torch.float32 else 2.0 ** -7 * peak
     torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+def assert_close_to_plain(got, want):
+    """The kernel's bf16 output against its plain version: the largest
+    error within 2 bf16 ulps of max|want| (two fp32 sums of the same terms
+    in another order round at most one ulp apart, one more covers their
+    fp32 difference) and the RMS error within 1% of RMS(want)."""
+    got, want = got.float(), want.float()
+    peak = float(want.abs().max())
+    diff = got - want
+    assert float(diff.abs().max()) <= 2 * 2.0 ** (np.floor(np.log2(peak)) - 7)
+    assert float(diff.pow(2).mean().sqrt()) <= 1e-2 * float(
+        want.pow(2).mean().sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 17, 24, 32])
+@pytest.mark.parametrize("d_in,d_out,out_dtype", [
+    (384, 130, torch.bfloat16),       # ragged N, K a whole number of tiles
+    (336, 1187, torch.bfloat16),      # ragged N, ragged last k tile
+    (300, 896, torch.bfloat16),       # K % 16 != 0: the unaligned loads
+    (5120, 1024, torch.bfloat16),     # qwen3:32b k/v: split K
+    (5120, 25600, torch.bfloat16),    # qwen3:32b gate/up
+    (5120, 151936, torch.float32),    # qwen3:32b lm_head
+])
+def test_bf16_kernel_on_cuda(m, d_in, d_out, out_dtype):
+    """The tensor-core kernel at decode shapes: within the plain version's
+    tolerance, one launch per call, and two calls bit-equal (the fixed
+    split order of the merge, the counters reset to 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(m + d_out)
+    x = torch.randn((m, d_in), generator=gen, device="cuda").bfloat16()
+    w = torch.randint(-127, 128, (d_out, d_in), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(d_out, generator=gen, device="cuda") * 1e-3 + 1e-4
+    before = int8_matmul.launches
+    got = int8_matmul(x, w, s, out_dtype=out_dtype)
+    again = int8_matmul(x, w, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 2
+    assert torch.equal(got, again)
+    assert_close_to_plain(got, int8_matmul_plain(x, w, s, out_dtype))
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_unaligned_x_on_cuda():
+    """x 2 bytes off a 16-byte boundary takes the byte-load path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m, d_in, d_out = 24, 5120, 1024
+    flat = torch.randn(m * d_in + 1, generator=gen, device="cuda").bfloat16()
+    x = flat[1:].view(m, d_in)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    w = torch.randint(-127, 128, (d_out, d_in), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(d_out, generator=gen, device="cuda") * 1e-3 + 1e-4
+    got = int8_matmul(x, w, s)
+    assert torch.equal(got, int8_matmul(x, w, s))
+    assert_close_to_plain(got, int8_matmul_plain(x, w, s))

@@ -176,3 +176,80 @@ def test_int8_kernel_matches_plain_on_cuda(dtype, t):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     for k in POOLS:
         assert torch.equal(dev[k], plain[k]), k
+
+
+def make_decode(seed, t, group, start, n_valid, hkv=2, bs=16, width=80):
+    """int8 pools of 2 layers and ``width`` pages of ``bs`` per slot (each
+    slot its own shuffled blocks; block 0 unused), bf16 q and new rows:
+    the shape of an engine's decode step over the int8 KV cache."""
+    rng = np.random.default_rng(seed)
+    s = len(start)
+    n_blocks = 1 + s * width
+    shape = (2, n_blocks, bs, hkv, D)
+    a = dict(
+        q=rng.standard_normal((s, t, group * hkv, D)).astype(np.float32),
+        k_new=rng.standard_normal((s, t, hkv, D)).astype(np.float32),
+        v_new=rng.standard_normal((s, t, hkv, D)).astype(np.float32),
+        k_pool=rng.integers(-127, 128, shape).astype(np.int8),
+        v_pool=rng.integers(-127, 128, shape).astype(np.int8),
+        tables=(1 + rng.permutation(s * width)).reshape(s, width)
+        .astype(np.int32),
+        start=np.asarray(start, np.int32),
+        n_valid=np.asarray(n_valid, np.int32),
+        k_scale=rng.uniform(0.001, 0.02, (2, n_blocks, hkv, bs))
+        .astype(np.float32),
+        v_scale=rng.uniform(0.001, 0.02, (2, n_blocks, hkv, bs))
+        .astype(np.float32))
+    return a
+
+
+def assert_close_to_plain(got, want):
+    """bf16 output against the plain version: the largest error within 2
+    bf16 ulps of max|want|, the RMS error within 1% of RMS(want) (as
+    ``chip_smoke.py`` holds the kernels)."""
+    got, want = got.float(), want.float()
+    peak = float(want.abs().max())
+    diff = got - want
+    assert float(diff.abs().max()) <= 2 * 2.0 ** (np.floor(np.log2(peak)) - 7)
+    assert float(diff.pow(2).mean().sqrt()) <= 1e-2 * float(
+        want.pow(2).mean().sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [7, 8])
+@pytest.mark.parametrize("t,start,n_valid", [
+    # inside a page; ending on a split boundary (128 cols); dead; many splits
+    (1, [37, 255, 0, 1000, 127], [1, 1, 0, 1, 1]),
+    (5, [37, 251, 0, 995, 128], [5, 5, 0, 5, 3]),
+])
+def test_int8_tensor_core_body_on_cuda(group, t, start, n_valid):
+    """The int8-KV body with bf16 q at the engines' group sizes: valid rows
+    within tolerance, dead slots zero, pools and scale pools bit-equal to
+    the plain append, one launch per call, and two calls bit-equal (the
+    split merge's fixed order and the counters' reset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = make_decode(group + t, t, group, start, n_valid)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+    for k in ("q", "k_new", "v_new"):
+        dev[k] = dev[k].bfloat16()
+    plain = {k: v.clone() for k, v in dev.items()}
+    names = NAMES + POOLS[2:]
+    before = paged_append_attention.int8_launches
+    got = paged_append_attention(*(dev[k] for k in names), layer=LAYER,
+                                 scale=D ** -0.5)
+    again = paged_append_attention(*(dev[k] for k in names), layer=LAYER,
+                                   scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert paged_append_attention.int8_launches == before + 2
+    assert torch.equal(got, again)
+    want = paged_append_attention_plain(*(plain[k] for k in names),
+                                        layer=LAYER, scale=D ** -0.5)
+    live = [s for s, nv in enumerate(n_valid) if nv > 0]
+    rows = [(s, i) for s in live for i in range(n_valid[s])]
+    pick = (torch.tensor([r[0] for r in rows]), torch.tensor([r[1] for r in rows]))
+    assert_close_to_plain(got[pick], want[pick])
+    for s, nv in enumerate(n_valid):
+        assert bool((got[s, nv:] == 0).all())
+    for k in POOLS:
+        assert torch.equal(dev[k], plain[k]), k
