@@ -10,8 +10,12 @@ attention, the int8 weight matmul) are hand-written CUDA C++ for
 instead (``ops/dispatch.py``).
 
 Entry points: ``engine.torch_engines.TorchOCRBackend.read_batch`` (the OCR
-read) and ``engine.torch_engines.TorchReasoningBackend.chat_batch`` (the
-reasoning engine, free decode).
+read), ``engine.torch_engines.TorchReasoningBackend.chat_batch`` (the
+reasoning engine, free or schema-guided decode), and the pipeline over
+both: ``graph.driver.OCRPipeline.run`` (one page through the critic /
+editor / re-OCR / arbitrator loop) and
+``graph.batch_driver.LockstepPipeline.run_many`` (many pages in lockstep,
+one batched call per phase).
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,17 @@
-"""Backend protocols (copied from ``handwritten_ocr_tpu/engine/protocols.py``)."""
+"""Backend protocols (copied from ``handwritten_ocr_tpu/engine/protocols.py``)
+and the strategy label every prepared image carries."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Protocol, Sequence, runtime_checkable
+
+
+def strategy_label(strategy: str | Sequence[str]) -> str:
+    """Human-readable label: chain elements joined with '+'."""
+    if isinstance(strategy, str):
+        return strategy
+    return "+".join(strategy)
 
 
 @dataclasses.dataclass

@@ -2,8 +2,8 @@
 reasoning backend.
 
 Port of ``TPUPreprocessor``, the paged read path of ``JaxOCRBackend`` and
-the paged free-decode path of ``JaxReasoningBackend``
-(``handwritten_ocr_tpu/engine/jax_engines.py``). The models stay resident
+the paged path of ``JaxReasoningBackend`` (free and schema-guided decode;
+``handwritten_ocr_tpu/engine/jax_engines.py``). The models stay resident
 on the device; the strategies of one page share one batched vision +
 prefill + decode (every transform keeps the page geometry, so they share
 a grid), and the turns of a chat batch share the continuous batcher.
@@ -16,6 +16,7 @@ decode over an int8 KV cache unless the caller passes ``kv_quant=False``
 
 from __future__ import annotations
 
+import json
 import time
 from typing import Sequence
 
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 
 from handwritten_ocr_tpu_torch import config as cfg_mod
-from handwritten_ocr_tpu_torch.engine.protocols import PreparedImage
+from handwritten_ocr_tpu_torch.engine.protocols import (PreparedImage,
+                                                        strategy_label)
 from handwritten_ocr_tpu_torch.models.processor import (TextTokenizer,
                                                         aligned_smart_size,
                                                         llm_chat_prompt,
@@ -41,34 +43,35 @@ def _full_fp32_on_the_card() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _ensure_batcher(batcher, needed_context: int, text: dict, text_cfg,
-                    eos_token_id: int, device, kv_quant: bool):
-    """``batcher``, or a new one when it is None or its context bound is
+def _ensure_batcher(owner, needed_context: int, text: dict, text_cfg,
+                    eos_token_id: int):
+    """``owner._batcher``, rebuilt when it is None or its context bound is
     below ``needed_context``. The bound rounds up to a power of two (floor
     512); the table-width ladder keeps attention reads length-bounded
-    inside it, so rounding up costs only pool capacity."""
+    inside it, so rounding up costs only pool capacity. The old batcher
+    (and its KV pools) is dropped, and the allocator's cache emptied,
+    before the new pools are allocated: with both models resident the
+    card cannot hold two sets of pools."""
     from handwritten_ocr_tpu_torch.engine.serving import (ContinuousBatcher,
                                                           PagedProgram)
     context = 512
     while context < needed_context:
         context *= 2
-    if batcher is not None and batcher.max_context >= context:
-        return batcher
+    if owner._batcher is not None and owner._batcher.max_context >= context:
+        return owner._batcher
+    owner._batcher = None
+    if owner.device.type == "cuda":
+        torch.cuda.empty_cache()
     program = PagedProgram(text, text_cfg, eos_token_id=eos_token_id)
-    return ContinuousBatcher(
+    owner._batcher = ContinuousBatcher(
         program, n_slots=cfg_mod.SERVE_SLOTS,
         block_size=cfg_mod.SERVE_BLOCK_SIZE, max_context=context,
         chunk=cfg_mod.SERVE_CHUNK,
         throughput_chunk=cfg_mod.SERVE_THROUGHPUT_CHUNK,
         prefill_bucket=cfg_mod.SERVE_PREFILL_BUCKET,
-        dtype=text["embed"]["w"].dtype, device=device, kv_quant=kv_quant)
-
-
-def strategy_label(strategy: str | Sequence[str]) -> str:
-    """Human-readable label: chain elements joined with '+'."""
-    if isinstance(strategy, str):
-        return strategy
-    return "+".join(strategy)
+        dtype=text["embed"]["w"].dtype, device=owner.device,
+        kv_quant=owner.kv_quant)
+    return owner._batcher
 
 
 class TorchPreprocessor:
@@ -139,10 +142,8 @@ class TorchOCRBackend:
 
     def _ensure_batcher(self, needed_context: int):
         config = self.model.config
-        self._batcher = _ensure_batcher(
-            self._batcher, needed_context, self.model.params["text"],
-            config.text, config.eos_token_id, self.device, self.kv_quant)
-        return self._batcher
+        return _ensure_batcher(self, needed_context, self.model.params["text"],
+                               config.text, config.eos_token_id)
 
     def _prompt_ids(self, prompt: str, n_image_tokens: int) -> np.ndarray:
         image_token = self.model.config.image_token_id
@@ -216,12 +217,12 @@ class TorchOCRBackend:
 
 
 class TorchReasoningBackend:
-    """Qwen3 chat decode for the critic / editor / arbitrator: greedy free
-    decode through the continuous batcher over the paged KV cache.
+    """Qwen3 chat decode for the critic / editor / arbitrator: greedy
+    decode through the continuous batcher over the paged KV cache, free
+    or schema-guided (``json_schema``).
 
     ``model`` is a :class:`~handwritten_ocr_tpu_torch.models.qwen3.
-    Qwen3Model`` (bf16 or int8 weights). Schema-guided decode is not
-    ported: ``json_schema`` raises.
+    Qwen3Model`` (bf16 or int8 weights).
     """
 
     def __init__(self, model, tokenizer: TextTokenizer,
@@ -241,10 +242,8 @@ class TorchReasoningBackend:
 
     def _ensure_batcher(self, needed_context: int):
         config = self.model.config
-        self._batcher = _ensure_batcher(
-            self._batcher, needed_context, self.model.params, config,
-            config.eos_token_id, self.device, self.kv_quant)
-        return self._batcher
+        return _ensure_batcher(self, needed_context, self.model.params,
+                               config, config.eos_token_id)
 
     def _stream_printer(self):
         """on_tokens callback: prints the decoded text incrementally."""
@@ -281,6 +280,21 @@ class TorchReasoningBackend:
         token_lists = batcher.run(requests)
         return [self.tokenizer.decode(tokens) for tokens in token_lists]
 
+    def _chat_guided(self, encoded: list[list[int]], json_schema: dict,
+                     max_tokens: int) -> list[str | None]:
+        """Schema-constrained decode of a batch of prompts: the host forces
+        the JSON scaffolding and type-constrains every value, so each
+        non-None result validates against ``json_schema``. None: the model
+        emitted EOS (or spent its budget) before a required field."""
+        from handwritten_ocr_tpu_torch.engine.serving import GenRequest
+        longest = max(len(ids) for ids in encoded)
+        batcher = self._ensure_batcher(longest + max_tokens)
+        requests = [GenRequest(np.asarray(ids, np.int32), max_tokens)
+                    for ids in encoded]
+        outcomes = batcher.run_guided(requests, json_schema, self.tokenizer)
+        return [(json.dumps(obj) if obj is not None and complete else None)
+                for obj, complete in outcomes]
+
     def _encode(self, system: str, user: str) -> list[int]:
         return self.tokenizer.encode(llm_chat_prompt(
             system, user, enable_thinking=self.enable_thinking))
@@ -288,20 +302,33 @@ class TorchReasoningBackend:
     def chat(self, system_prompt: str, user_message: str, *,
              temperature: float, max_tokens: int,
              json_schema: dict | None = None) -> str:
-        """Greedy chat decode. ``temperature`` is accepted for protocol
-        parity (the reference uses 0.1, close to greedy)."""
+        """Greedy chat decode; ``json_schema`` asks for schema-constrained
+        JSON (forced scaffolding, type-constrained values), with free
+        decode when the guided session is not complete (the caller's parse
+        ladder takes over). ``temperature`` is accepted for protocol
+        parity (the pipeline uses 0.1, close to greedy)."""
+        ids = self._encode(system_prompt, user_message)
         if json_schema is not None:
-            raise NotImplementedError("schema-guided decode: next slice")
-        return self._generate_paged([self._encode(system_prompt,
-                                                  user_message)],
-                                    max_tokens)[0]
+            [constrained] = self._chat_guided([ids], json_schema, max_tokens)
+            if constrained is not None:
+                return constrained
+        return self._generate_paged([ids], max_tokens)[0]
 
     def chat_batch(self, requests, *, temperature: float, max_tokens: int,
                    json_schema: dict | None = None) -> list[str]:
         """Many chat turns (objects with ``.system`` and ``.user``) as one
         continuous batch: mixed-length prompts skip the pad-to-longest
-        prefill, and a turn that hits EOS frees its slot for the queue."""
-        if json_schema is not None:
-            raise NotImplementedError("schema-guided decode: next slice")
-        return self._generate_paged([self._encode(r.system, r.user)
-                                     for r in requests], max_tokens)
+        prefill, and a turn that hits EOS frees its slot for the queue.
+        With ``json_schema`` the batch runs schema-guided; rows whose
+        session is not complete fall back to free decode."""
+        encoded = [self._encode(r.system, r.user) for r in requests]
+        if json_schema is None:
+            return self._generate_paged(encoded, max_tokens)
+        texts = self._chat_guided(encoded, json_schema, max_tokens)
+        missing = [i for i, text in enumerate(texts) if text is None]
+        if missing:
+            free = self._generate_paged([encoded[i] for i in missing],
+                                        max_tokens)
+            for index, text in zip(missing, free):
+                texts[index] = text
+        return texts  # type: ignore[return-value]

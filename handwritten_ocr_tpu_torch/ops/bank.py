@@ -1,15 +1,11 @@
 """Transform registry and strategy-chain runner (port of ``ops/bank.py``).
 
-Transforms apply left to right; "original" is a no-op. high_contrast and
-binarize return grayscale, deskew keeps the input mode. All transforms
-take and return uint8 tensors ([H, W] gray or [H, W, 3] RGB) on the
-image's device.
-
-The JAX chain skips names it does not know. The port raises
-NotImplementedError for a transform the JAX package has and the port does
-not yet (sharpen, denoise, remove_lines), so a chain never silently gives
-another page than the reference; only a name the JAX package also lacks
-is skipped.
+Transforms apply left to right; "original" is a no-op and unknown names
+are skipped, as in the JAX package. high_contrast and binarize return
+grayscale, deskew / denoise / remove_lines keep the input mode, sharpen
+filters whatever it is given. All transforms take and return uint8
+tensors ([H, W] gray or [H, W, 3] RGB) on the image's device. The
+registry has every transform of the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,10 +15,13 @@ from typing import Callable, Sequence
 import torch
 
 from handwritten_ocr_tpu_torch.ops.clahe import clahe
+from handwritten_ocr_tpu_torch.ops.denoise import nl_means, nl_means_colored
 from handwritten_ocr_tpu_torch.ops.geometry import (deskew_angle,
                                                     rotation_matrix,
                                                     warp_affine_bicubic)
 from handwritten_ocr_tpu_torch.ops.gray import rgb_to_gray
+from handwritten_ocr_tpu_torch.ops.lines import remove_lines
+from handwritten_ocr_tpu_torch.ops.sharpen import sharpen
 from handwritten_ocr_tpu_torch.ops.threshold import adaptive_threshold_gaussian
 
 
@@ -50,28 +49,31 @@ def apply_deskew(image: torch.Tensor) -> torch.Tensor:
     return warp_affine_bicubic(image, rotation_matrix((w // 2, h // 2), angle))
 
 
+def apply_denoise(image: torch.Tensor) -> torch.Tensor:
+    """Non-local means, h=10, template 7, search 21: RGB goes through the
+    CIELAB L/ab split (fastNlMeansDenoisingColored), grayscale through the
+    single-plane variant (fastNlMeansDenoising)."""
+    return nl_means_colored(image) if image.dim() == 3 else nl_means(image)
+
+
 TRANSFORMS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "high_contrast": apply_high_contrast,
     "binarize": apply_binarize,
+    "sharpen": sharpen,
     "deskew": apply_deskew,
+    "denoise": apply_denoise,
+    "remove_lines": remove_lines,
 }
-
-# Every transform name of the JAX package's registry.
-REFERENCE_TRANSFORMS = frozenset({"high_contrast", "binarize", "sharpen",
-                                  "deskew", "denoise", "remove_lines"})
 
 
 def preprocess_chain(image: torch.Tensor,
                      strategy: str | Sequence[str]) -> torch.Tensor:
-    """Apply a strategy chain left to right."""
+    """Apply a strategy chain left to right; "original" and names not in
+    the registry are skipped."""
     steps = [strategy] if isinstance(strategy, str) else list(strategy)
     out = image
     for step in steps:
         transform = TRANSFORMS.get(step)
-        if transform is None:
-            if step in REFERENCE_TRANSFORMS:
-                raise NotImplementedError(
-                    f"transform '{step}' is not ported to PyTorch yet")
-            continue                       # "original" and unknown names
-        out = transform(out)
+        if transform is not None:
+            out = transform(out)
     return out

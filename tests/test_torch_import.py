@@ -33,20 +33,26 @@ def test_port_has_the_slice_modules():
                  "models.qwen3", "models.processor", "models.paged",
                  "models.qwen25vl.vision", "models.qwen25vl.language",
                  "models.qwen25vl.model", "engine.serving",
-                 "engine.torch_engines"):
+                 "engine.torch_engines", "engine.llm_client",
+                 "utils.jsonio", "utils.schema_decode", "agents.schemas",
+                 "agents.schema_prompt", "agents.runners", "text.normalize",
+                 "text.metrics", "text.diff", "text.merge", "text.gt",
+                 "state", "trace", "graph.routing", "graph.driver",
+                 "graph.batch_driver", "ops.sharpen", "ops.colorspace",
+                 "ops.denoise", "ops.lines"):
         assert f"handwritten_ocr_tpu_torch.{name}" in modules
 
 
 def test_importing_every_module_loads_no_jax_and_no_triton():
+    """Nor pydantic or PIL: the card's machine has neither (PIL is read
+    only inside the function that loads an image file)."""
     code = (
         "import importlib, json, sys\n"
         f"names = {_port_modules()!r}\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'triton' or m.startswith('triton.')\n"
-        "             or m == 'handwritten_ocr_tpu'\n"
-        "             or m.startswith('handwritten_ocr_tpu.'))\n"
+        "roots = ('jax', 'triton', 'handwritten_ocr_tpu', 'pydantic', 'PIL')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "print(json.dumps(bad))\n")
     result = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                             capture_output=True, text=True, timeout=120)

@@ -6,6 +6,7 @@ and carried over. The JAX backend on the CPU decodes over a full-precision
 KV cache, so the port's runs with ``kv_quant=False`` here. The tokenizer
 spells every id, so the texts carry the whole greedy token stream; they
 must be equal. The vocabulary covers the chat template's special ids.
+Schema-guided chat is held against JAX in ``test_torch_guided.py``.
 """
 
 import numpy as np
@@ -94,15 +95,32 @@ def test_int8_kv_is_the_default(models):
     assert port._batcher.cache.quantized
 
 
-def test_schema_guided_decode_is_refused(models):
+def test_growing_the_context_releases_the_old_pools(models, monkeypatch):
+    """When a longer call needs a larger context bound, the old batcher
+    and its KV pools are gone before the new pools are allocated (both
+    sets would not fit beside two resident models on the card); the
+    answer equals that of a backend that starts at the larger bound."""
+    import weakref
+    from handwritten_ocr_tpu_torch.engine import serving
     _, port_model = models
     port = backend(port_model)
-    with pytest.raises(NotImplementedError, match="schema-guided decode"):
-        port.chat("s", "u", temperature=0.1, max_tokens=4,
-                  json_schema={"type": "object"})
-    with pytest.raises(NotImplementedError, match="schema-guided decode"):
-        port.chat_batch(TURNS, temperature=0.1, max_tokens=4,
-                        json_schema={"type": "object"})
+    port.chat("s", "u", temperature=0.1, max_tokens=4)
+    assert port._batcher.max_context == 512
+    old_pool = weakref.ref(port._batcher.cache.k)
+    seen = []
+    zeros = serving.PagedKVCache.zeros
+
+    def watching_zeros(*args, **kwargs):
+        seen.append(old_pool() is None)
+        return zeros(*args, **kwargs)
+
+    monkeypatch.setattr(serving.PagedKVCache, "zeros", watching_zeros)
+    long_user = "x" * 600
+    text = port.chat("s", long_user, temperature=0.1, max_tokens=4)
+    assert port._batcher.max_context == 1024
+    assert seen == [True]
+    assert text == backend(port_model).chat("s", long_user, temperature=0.1,
+                                            max_tokens=4)
 
 
 def test_streaming_prints_the_text_once(models, capsys):
