@@ -38,17 +38,37 @@ Phases, each printing one JSON line:
      schema-guided ``chat_batch`` at a 256-token budget; every text must
      parse and validate against its contract; counts set to 0 before and
      read after;
-  7. pipeline: olmOCR-2-7B (bf16) joins the resident qwen3:32b;
-     ``LockstepPipeline.run_many`` takes 4 synthetic pages through the
-     critic / editor / re-OCR / arbitrator loop (default strategy bank,
-     max_iterations 2, 128 OCR and 256 agent tokens), then
-     ``OCRPipeline.run`` resumes one page from a snapshot at its re-OCR
-     node (re-OCR read, arbitrator, critic again); every page must end
-     at a terminal node by a legal walk of ``graph/routing.py``, and the
-     resumed one must pass through reocr; counts set to 0 before each run
-     and read after (the path's launches are both runs'); also the
-     planned KV pool bytes of both engines at the default budgets;
-  8. reference checks: narrow models in fp32 on the card (kernels) and on
+  7. pool_plan: olmOCR-2-7B (bf16) joins the resident qwen3:32b; one
+     ``coresident_plan`` for the card (``plan_pools``: both resident
+     trees, the card's memory, ``config.ACTIVATION_RESERVE_BYTES``) hands
+     each engine its pool budget, and both batchers are built at the
+     default budgets' context bounds (OCR: prompt + 2048 new tokens;
+     reasoner: the agents' prompts + 4096, 16384 for the arbitrator); the
+     plan must fit and the allocated peak stay under the card's memory;
+     also the full pools' plan at the same bounds (``pipeline_plan``),
+     which does not fit;
+  8. cli: the port's CLI (``cli.transcribe.main(argv, pipeline=...)``)
+     with those engines and pools over a folder of the four contract
+     pages (PNG files read without PIL through ``TorchPreprocessor``),
+     128 OCR and 256 agent tokens: ``--lockstep --max-iterations 2``
+     (also the pipeline path's ``LockstepPipeline.run_many``: every page
+     must end at a terminal node by a legal walk of ``graph/routing.py``
+     and its four artifacts must be its final state's), then
+     ``--skip-existing`` (no read, no launch), then one page in
+     single-file mode with ``--snapshot`` (one iteration), then
+     ``cli.eval_final``; the
+     counts are set to 0 before the CLI calls and read after them;
+  9. pipeline: ``OCRPipeline.run`` resumes one page from a snapshot at
+     its re-OCR node (re-OCR read, arbitrator, critic again) with the
+     same engines and pools; the walk must pass through reocr;
+ 10. loaders: narrow VL and Qwen3 snapshots in HF layout (config.json,
+     sharded safetensors + index, a hand-written byte-level
+     tokenizer.json) written with the port's writer and loaded through
+     ``from_pretrained`` on the card (the Qwen3 one quantised at load);
+     trees and greedy tokens must equal engines built from the in-memory
+     trees; a 1600x1200 PNG page (not 28-aligned) is resized on the card
+     bit-equal to the CPU, and ``_pack_one`` packs it on the host;
+ 11. reference checks: narrow models in fp32 on the card (kernels) and on
      the CPU (plain versions) must give the same tokens: the VL read and a
      Qwen3 with int8 weights, each with the int8 and the fp KV cache (the
      fp-KV read's launch counts are those of the fp-KV paged branch); the
@@ -58,27 +78,30 @@ Phases, each printing one JSON line:
      levels, remove_lines' mask bit-equal and its page within 1 level; the
      mask must hold the ruled lines), with the card's time of each
      transform;
-  9. each kernel again at the shapes the guided and pipeline runs gave
+ 12. each kernel again at the shapes the guided and pipeline runs gave
      it, taken from those runs: flash prefill at each agent's largest
      prefill group, int8 paged attention at its longest prompt plus the
      budget, and vision flash, window, the VL prefill and the read's
      paged attention at every read batch other than 8.
 
-Phases 6-8 decode through ``DenseTokenizer``: every id decodes to one
+Phases 6-9 and 11 decode through ``DenseTokenizer``: every id decodes to one
 character, so random weights write texts of their budget's length (with
 quotes, digits and braces among them) as a real tokenizer would, where
 ``ByteTokenizer`` decodes the ids above 255 to nothing.
 
 Every failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
-``{"ok": true, "device": {...}}``; the kernels line and the card's name
-and power limit come before it.
+``{"ok": true, "device": {...}}``; the kernels line (each kernel's
+launches on its own path and on the guided, pipeline and cli paths) and
+the card's name and power limit come before it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
+import io
 import json
 import math
 import subprocess
@@ -1116,10 +1139,12 @@ class PagePreprocessor:
         return prepared
 
 
-def _observe(obj, name: str, on_call) -> None:
-    """Wrap the bound method ``name`` of ``obj``: it runs unchanged, and
-    ``on_call(seconds, args, kwargs)`` sees each call's host seconds."""
+def _observe(obj, name: str, on_call):
+    """Wrap the method ``name`` of ``obj`` (an instance or a class): it
+    runs unchanged, and ``on_call(seconds, args, kwargs)`` sees each call's
+    host seconds. Returns a function that takes the wrapper off again."""
     method = getattr(obj, name)
+    original = obj.__dict__.get(name)
 
     @functools.wraps(method)       # keeps the signature callers inspect
     def observed(*args, **kwargs):
@@ -1130,17 +1155,27 @@ def _observe(obj, name: str, on_call) -> None:
             on_call(time.perf_counter() - t0, args, kwargs)
     setattr(obj, name, observed)
 
+    def restore():
+        if original is None:
+            delattr(obj, name)
+        else:
+            setattr(obj, name, original)
+    return restore
 
-def instrument(pipeline, nodes) -> tuple[dict, object]:
-    """Per-node-kind seconds and calls of ``pipeline``, agent calls by
-    contract and OCR reads by strategy, observed on its methods and
-    backends: also each agent call's prompt lengths and each read's
-    batch size, the shapes its kernels ran at. Returns (the record, a
-    function that takes every observer off again)."""
+
+def instrument(pipeline, nodes, llm=None, ocr=None) -> tuple[dict, object]:
+    """Per-node-kind seconds and calls of ``pipeline`` (an instance, or
+    the pipeline class when the CLI builds the instance), agent calls by
+    contract and OCR reads by strategy, observed on its methods and on the
+    backends (``llm`` / ``ocr``, default the pipeline's): also each agent
+    call's prompt lengths and each read's batch size, the shapes its
+    kernels ran at. Returns (the record, a function that takes every
+    observer off again)."""
     record = {"node_s": {}, "node_calls": {}, "agent_rows": {},
               "agent_calls": {}, "agent_prompt_tokens": {}, "ocr_reads": {},
               "ocr_calls": 0, "read_batches": []}
-    llm = pipeline.llm
+    llm = llm or pipeline.llm
+    ocr = ocr or pipeline.ocr
 
     def node_hook(kind):
         def on_call(seconds, args, kwargs):
@@ -1148,9 +1183,8 @@ def instrument(pipeline, nodes) -> tuple[dict, object]:
             record["node_calls"][kind] = record["node_calls"].get(kind, 0) + 1
         return on_call
 
-    observed = [(pipeline, method) for method in nodes]
-    for method, kind in nodes.items():
-        _observe(pipeline, method, node_hook(kind))
+    restores = [_observe(pipeline, method, node_hook(kind))
+                for method, kind in nodes.items()]
 
     def on_chat(seconds, args, kwargs):
         schema = kwargs.get("json_schema")
@@ -1170,15 +1204,13 @@ def instrument(pipeline, nodes) -> tuple[dict, object]:
             label = image.strategy_label
             record["ocr_reads"][label] = record["ocr_reads"].get(label, 0) + 1
 
-    _observe(pipeline.llm, "chat_batch", on_chat)
-    _observe(pipeline.llm, "chat", on_chat)
-    _observe(pipeline.ocr, "read_batch", on_read)
-    observed += [(pipeline.llm, "chat_batch"), (pipeline.llm, "chat"),
-                 (pipeline.ocr, "read_batch")]
+    restores += [_observe(llm, "chat_batch", on_chat),
+                 _observe(llm, "chat", on_chat),
+                 _observe(ocr, "read_batch", on_read)]
 
     def restore():     # also breaks the pipeline -> wrapper -> pipeline cycles
-        for obj, name in observed:
-            delattr(obj, name)
+        for undo in restores:
+            undo()
     return record, restore
 
 
@@ -1290,110 +1322,52 @@ def planned_pool_bytes(layers: int, kv_heads: int, head_dim: int,
     return blocks * bs * _kv_bytes_per_token(layers, kv_heads, head_dim)
 
 
-def phase_pipeline(cfg, reasoner, prompt_len: int, card: str) -> dict:
-    """Both models resident: olmOCR-2-7B (bf16, random from a seed) beside
-    the guided phase's qwen3:32b. ``LockstepPipeline.run_many`` over 4
-    synthetic pages (default strategy bank, max_iterations 2, 128 OCR and
-    256 agent tokens), then ``OCRPipeline.run`` on one page resumed at its
-    re-OCR node (``run_from_reocr``; max_iterations 2, no accept by
-    confidence alone), so the re-OCR read, the arbitrator and the re-OCR
-    strategies run at full width. Launch counts set to 0 before each run
-    and read after it; every page must end at a terminal node by a legal
-    walk, and the resumed page's walk must pass through reocr. ``card``
-    (nvidia-smi's name and power limit) goes into every record. Returns
-    the runs, the planned pools, and the shapes the runs gave the kernels
-    (for ``phase_kernels_paths``)."""
-    import tempfile
+class BudgetCap:
+    """An engine whose token budgets are capped at ``cap``: the CLI's
+    ``RunConfig`` carries the default budgets (2048 OCR / 4096 agent
+    tokens), and the smoke run decodes at the pipeline phase's 128 / 256
+    over pools planned for the defaults. Everything else is the engine's."""
 
+    def __init__(self, engine, cap: int):
+        self.engine, self.cap = engine, cap
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def read_batch(self, images, prompt, max_new_tokens):
+        return self.engine.read_batch(images, prompt,
+                                      min(max_new_tokens, self.cap))
+
+    def read(self, image, prompt, max_new_tokens):
+        return self.read_batch([image], prompt, max_new_tokens)[0]
+
+    def chat(self, system_prompt, user_message, *, temperature, max_tokens,
+             json_schema=None):
+        return self.engine.chat(system_prompt, user_message,
+                                temperature=temperature,
+                                max_tokens=min(max_tokens, self.cap),
+                                json_schema=json_schema)
+
+    def chat_batch(self, requests, *, temperature, max_tokens,
+                   json_schema=None):
+        return self.engine.chat_batch(requests, temperature=temperature,
+                                      max_tokens=min(max_tokens, self.cap),
+                                      json_schema=json_schema)
+
+
+BUDGETS = dict(ocr_max_new_tokens=128, llm_max_tokens=256)
+
+
+def _default_contexts(reasoner, prompt_len: int) -> tuple[int, dict]:
+    """The context each engine needs at the default budgets: the OCR
+    read's prompt + OCR_MAX_NEW_TOKENS; each agent's prompt with
+    full-budget transcriptions (its template's tokens + OCR_MAX_NEW_TOKENS
+    per transcription it quotes) + LLM_MAX_TOKENS."""
     from handwritten_ocr_tpu_torch import config as cfg_mod
-    from handwritten_ocr_tpu_torch.config import RunConfig
-    from handwritten_ocr_tpu_torch.engine.torch_engines import TorchOCRBackend
-    from handwritten_ocr_tpu_torch.graph.batch_driver import LockstepPipeline
-    from handwritten_ocr_tpu_torch.graph.driver import OCRPipeline
-    from handwritten_ocr_tpu_torch.models.init import init_vl
-    from handwritten_ocr_tpu_torch.models.quant import quantized_bytes
-    from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
-    from handwritten_ocr_tpu_torch.state import initial_state
-
-    params = init_vl(cfg, dtype=torch.bfloat16, device="cuda", seed=SEED)
-    ocr = TorchOCRBackend(VLModel(params, cfg), reasoner.tokenizer)
-    pages = {f"page{i}": p for i, p in enumerate(synthetic_pages(4))}
-    prep = PagePreprocessor(pages)
-    budgets = dict(ocr_max_new_tokens=128, llm_max_tokens=256)
-    run_cfgs = {
-        "run_many": RunConfig(max_iterations=2, **budgets),
-        # 101: no confidence accepts on its own, only the verdict does
-        "run": RunConfig(max_iterations=2, accept_threshold=101, **budgets)}
-
-    runs, seen = {}, {"agent_prompt_tokens": {}, "read_batches": [],
-                      "llm_budget": budgets["llm_max_tokens"],
-                      "ocr_budget": budgets["ocr_max_new_tokens"]}
-    snapshot_dir = tempfile.TemporaryDirectory()
-    for run, names in (("run_many", list(pages)), ("run", ["page0"])):
-        if run == "run_many":
-            pipeline = LockstepPipeline(ocr, reasoner, preprocessor=prep,
-                                        quiet=True)
-            nodes = {"_initial_ocr_all": "initial_ocr",
-                     "_critic_round": "critic", "_editor_round": "editor",
-                     "_reocr_round": "reocr"}
-        else:
-            pipeline = OCRPipeline(ocr, reasoner, preprocessor=prep,
-                                   quiet=True)
-            nodes = {f"node_{k}": k for k in ("initial_ocr", "critic",
-                                              "editor", "reocr")}
-        record, restore = instrument(pipeline, nodes)
-        run_cfg = run_cfgs[run]
-        todo = [initial_state(name, config=run_cfg.as_state_dict(),
-                              max_iterations=run_cfg.max_iterations)
-                for name in names]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        finals = (pipeline.run_many(todo) if run == "run_many"
-                  else [run_from_reocr(pipeline, todo[0], snapshot_dir.name
-                                       + "/page0.json")])
-        torch.cuda.synchronize()
-        pipeline_s = time.perf_counter() - t0
-        launches = read_launches()
-        restore()
-        walks = [check_walk(state) for state in finals]
-        require_launches(f"pipeline {run}", launches, (
-            "flash_attention", "window_attention",
-            "paged_append_attention_int8", "int8_matmul"))
-        if run == "run" and ("reocr" not in walks[0] or
-                             "ArbitratorResult" not in record["agent_calls"]):
-            raise AssertionError(f"the resumed page did not re-OCR and "
-                                 f"arbitrate: {walks[0]}, "
-                                 f"{record['agent_calls']}")
-        for name, calls in record["agent_prompt_tokens"].items():
-            agent = name.removesuffix("Result").lower()
-            seen["agent_prompt_tokens"].setdefault(agent, []).extend(calls)
-        seen["read_batches"] += record["read_batches"]
-        runs[run] = dict(
-            pages=len(finals), pipeline_s=pipeline_s,
-            pages_per_s=len(finals) / pipeline_s, **record,
-            walks=walks, reasons=[s["reason"] for s in finals],
-            iterations=[s["iteration"] for s in finals],
-            transcription_chars=[len(s["current_best"]) for s in finals],
-            peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-            launches=launches)
-        emit(phase="pipeline", card=card, run=run,
-             max_iterations=run_cfg.max_iterations,
-             accept_threshold=run_cfg.accept_threshold, **budgets,
-             **runs[run])
-    snapshot_dir.cleanup()
-
-    # KV pools of both engines at the default budgets, from the configs
-    # (nothing allocated). OCR: the read's prompt + OCR_MAX_NEW_TOKENS.
-    # Reasoner: each agent's prompt with full-budget transcriptions (its
-    # template's tokens + OCR_MAX_NEW_TOKENS per transcription it quotes)
-    # + LLM_MAX_TOKENS; the batcher only grows, so the largest sets them.
     from handwritten_ocr_tpu_torch.agents.runners import (arbitrator_request,
                                                           critic_request,
                                                           editor_request)
     from handwritten_ocr_tpu_torch.agents.schemas import CriticResult
-    txt, q = cfg.text, reasoner.model.config
     templates = {
         "critic": (critic_request(""), 1),
         "editor": (editor_request("", CriticResult()), 1),
@@ -1404,23 +1378,539 @@ def phase_pipeline(cfg, reasoner, prompt_len: int, card: str) -> dict:
         agent: len(reasoner._encode(r.system, r.user))
         + n * cfg_mod.OCR_MAX_NEW_TOKENS + cfg_mod.LLM_MAX_TOKENS
         for agent, (r, n) in templates.items()}
+    return prompt_len + cfg_mod.OCR_MAX_NEW_TOKENS, llm_context
+
+
+def _pool_bytes(cache) -> int:
+    pools = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale]
+                                  if cache.quantized else [])
+    return sum(p.numel() * p.element_size() for p in pools)
+
+
+def phase_pool_plan(cfg, reasoner, prompt_len: int, card: str):
+    """olmOCR-2-7B (bf16, random from a seed) joins the guided phase's
+    resident qwen3:32b. One ``coresident_plan`` for the card hands each
+    engine its pool budget (``plan_pools``); then both batchers are built
+    at the default budgets' context bounds: the OCR read's prompt +
+    OCR_MAX_NEW_TOKENS, and the agents' prompts + LLM_MAX_TOKENS (the
+    arbitrator's, the largest, rounds to 16384). Requires the plan to fit
+    and the allocated peak with both models and both pools in place to
+    stay under the card's memory. Also the old ``pipeline_plan`` record:
+    full pools (1 + slots x blocks) at the same bounds, which do not fit.
+    Returns the OCR engine."""
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, plan_pools)
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    from handwritten_ocr_tpu_torch.models.quant import quantized_bytes
+    from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
+
+    params = init_vl(cfg, dtype=torch.bfloat16, device="cuda", seed=SEED)
+    ocr = TorchOCRBackend(VLModel(params, cfg), reasoner.tokenizer)
+    ocr_context, llm_context = _default_contexts(reasoner, prompt_len)
+
+    txt, q = cfg.text, reasoner.model.config
     ocr_pools = planned_pool_bytes(
         txt.num_hidden_layers, txt.num_key_value_heads, txt.head_dim,
-        prompt_len + cfg_mod.OCR_MAX_NEW_TOKENS)
+        ocr_context)
     llm_pools = {agent: planned_pool_bytes(
         q.num_hidden_layers, q.num_key_value_heads, q.head_dim, needed)
         for agent, needed in llm_context.items()}
     weights = _count_params(params) * 2 + quantized_bytes(reasoner.model.params)
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     total = weights + ocr_pools + max(llm_pools.values())
-    planned = dict(weight_bytes=weights, ocr_pool_bytes=ocr_pools,
-                   llm_needed_context=llm_context, llm_pool_bytes=llm_pools,
-                   total_bytes=total, card_bytes=card_bytes,
-                   fits=total < card_bytes)
-    emit(phase="pipeline_plan", card=card, **planned)
-    del ocr, params
+    emit(phase="pipeline_plan", card=card, weight_bytes=weights,
+         ocr_pool_bytes=ocr_pools, llm_needed_context=llm_context,
+         llm_pool_bytes=llm_pools, total_bytes=total, card_bytes=card_bytes,
+         fits=total < card_bytes)
+
+    plan = plan_pools(ocr, reasoner)
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"runs": runs, "plan": planned, "seen": seen}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batchers = {"ocr": ocr._ensure_batcher(ocr_context),
+                "reasoner": reasoner._ensure_batcher(max(llm_context.values()))}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engines = {"ocr": ocr, "reasoner": reasoner}
+    pools = {}
+    for name, batcher in batchers.items():
+        full = 1 + batcher.n_slots * batcher.max_blocks
+        pools[name] = dict(
+            max_context=batcher.max_context, n_blocks=batcher.n_blocks,
+            full_n_blocks=full, slots_at_full_context=(batcher.n_blocks - 1)
+            / batcher.max_blocks, budget_bytes=engines[name].pool_bytes,
+            pool_bytes=_pool_bytes(batcher.cache))
+        if pools[name]["pool_bytes"] > engines[name].pool_bytes:
+            raise AssertionError(f"{name} pools exceed their budget: "
+                                 f"{pools[name]}")
+    record = dict(
+        phase="pool_plan", card=card, card_bytes=card_bytes,
+        plan=plan.components, plan_total_bytes=plan.total_per_chip,
+        fits=plan.fits, report=plan.report().splitlines(),
+        ocr_needed_context=ocr_context, llm_needed_context=llm_context,
+        pools=pools, build_s=build_s,
+        memory_allocated=torch.cuda.memory_allocated(),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(**record)
+    if not plan.fits:
+        raise AssertionError(f"the pool plan does not fit the card: {record}")
+    if record["max_memory_allocated"] >= card_bytes:
+        raise AssertionError(f"peak memory above the card's: {record}")
+    return ocr, record
+
+
+def _capture(cls, name: str, out: list):
+    """Wrap ``cls.name``: each call's return value is appended to
+    ``out``. Returns the function that takes the wrapper off."""
+    method = getattr(cls, name)
+
+    @functools.wraps(method)
+    def captured(*args, **kwargs):
+        result = method(*args, **kwargs)
+        out.append(result)
+        return result
+    setattr(cls, name, captured)
+    return lambda: setattr(cls, name, method)
+
+
+def _check_artifacts(out_dir, stems, finals=None) -> None:
+    """Every page's four artifacts: a str transcription, a trace that is
+    the state's trace (when ``finals`` are given), a summary, and an eval
+    that parses."""
+    from pathlib import Path
+    out_dir = Path(out_dir)
+    for i, stem in enumerate(stems):
+        paths = {kind: out_dir / f"{stem}_{kind}" for kind in (
+            "transcription.txt", "trace.json", "trace_summary.txt",
+            "eval.json")}
+        missing = [str(p) for p in paths.values() if not p.exists()]
+        if missing:
+            raise AssertionError(f"missing artifacts: {missing}")
+        # bytes, not read_text: that would turn a "\r" of the text into "\n"
+        text = paths["transcription.txt"].read_bytes().decode("utf-8")
+        trace = json.loads(paths["trace.json"].read_text(encoding="utf-8"))
+        evaluation = json.loads(paths["eval.json"].read_text(encoding="utf-8"))
+        if not isinstance(text, str) or "pipeline_status" not in evaluation \
+                or "tier1_raw_vs_gt" not in evaluation:
+            raise AssertionError(f"{stem}: bad transcription or eval")
+        if finals is not None:
+            if text != finals[i]["current_best"] or \
+                    [e["action"] for e in trace] != \
+                    [e["action"] for e in finals[i]["trace_events"]]:
+                raise AssertionError(f"{stem}: artifacts differ from the "
+                                     "final state")
+
+
+def phase_cli(ocr, reasoner, card: str) -> dict:
+    """The port's CLI (``cli.transcribe.main(argv, pipeline=...)``) over
+    a folder of the four contract pages (924x672 PNG files, the pixels of
+    ``synthetic_pages(4)``), with the engines and pools of ``pool_plan``
+    and the pipeline phase's budgets (``BudgetCap``): the pages are read
+    from the files through ``TorchPreprocessor``, so the PNG reader and
+    the card's resize path run. In order:
+    1. ``--lockstep --max-iterations 2`` with a ground-truth file per page:
+       this run is also the pipeline path's ``run_many`` (its record keeps
+       the pipeline phase's keys); every page must end by a legal walk and
+       its four artifacts must be the final state's;
+    2. the same command with ``--skip-existing``: no read, no launch;
+    3. one page in single-file mode with ``--snapshot`` and
+       ``--max-iterations 1`` (initial reads and one critique);
+    4. ``cli.eval_final`` over the folder's results.
+    Counts set to 0 before the CLI calls and read after them (the cli
+    path's launches: all three calls); flash, window, paged int8 and the
+    int8 matmul must be launched. Returns the records and the shapes the
+    lockstep run gave the kernels."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from handwritten_ocr_tpu_torch.cli import eval_final, transcribe
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchPreprocessor)
+    from handwritten_ocr_tpu_torch.graph.batch_driver import LockstepPipeline
+    from handwritten_ocr_tpu_torch.graph.driver import OCRPipeline
+    from handwritten_ocr_tpu_torch.models.processor import load_image_rgb
+
+    work = tempfile.TemporaryDirectory()
+    root = Path(work.name)
+    pages, gt, out, single = (root / d for d in ("pages", "gt", "out",
+                                                 "single"))
+    pages.mkdir()
+    gt.mkdir()
+    stems = [f"page{i}" for i in range(4)]
+    source = Path(__file__).resolve().parent / ".contract_pages"
+    decode_ms = []
+    for stem in stems:
+        shutil.copy(source / f"{stem}.png", pages / f"{stem}.png")
+        (gt / f"{stem}.md").write_text(
+            "## Ground Truth\nthe letter was written in march\n",
+            encoding="utf-8")
+        t0 = time.perf_counter()
+        load_image_rgb(pages / f"{stem}.png")
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    ocr_c = BudgetCap(ocr, BUDGETS["ocr_max_new_tokens"])
+    llm_c = BudgetCap(reasoner, BUDGETS["llm_max_tokens"])
+    pipeline = OCRPipeline(ocr_c, llm_c, preprocessor=TorchPreprocessor(),
+                           quiet=True)
+    argv = [str(pages), "--output-dir", str(out), "--ground-truth-dir",
+            str(gt), "--lockstep", "--max-iterations", "2", "--quiet"]
+    nodes = {"_initial_ocr_all": "initial_ocr", "_critic_round": "critic",
+             "_editor_round": "editor", "_reocr_round": "reocr"}
+
+    finals: list = []
+    undo_capture = _capture(LockstepPipeline, "run_many", finals)
+    record, restore = instrument(LockstepPipeline, nodes, llm=llm_c,
+                                 ocr=ocr_c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):    # its chatter
+            transcribe.main(argv, pipeline=pipeline)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        undo_capture()
+    lockstep_s = time.perf_counter() - t0
+    lockstep_launches = read_launches()
+    [finals] = finals
+    walks = [check_walk(state) for state in finals]
+    require_launches("cli lockstep", lockstep_launches, (
+        "flash_attention", "window_attention",
+        "paged_append_attention_int8", "int8_matmul"))
+    _check_artifacts(out, stems, finals)
+    run_many = dict(
+        pages=len(finals), pipeline_s=lockstep_s,
+        pages_per_s=len(finals) / lockstep_s, **record, walks=walks,
+        reasons=[s["reason"] for s in finals],
+        iterations=[s["iteration"] for s in finals],
+        transcription_chars=[len(s["current_best"]) for s in finals],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=lockstep_launches)
+    emit(phase="pipeline", card=card, run="run_many", max_iterations=2,
+         accept_threshold=finals[0]["config"]["accept_threshold"], **BUDGETS,
+         driven_by="cli --lockstep",
+         **run_many)
+
+    # 2. --skip-existing: every page's transcription exists
+    reads = {"n": 0}
+    undo = _observe(ocr_c, "read_batch",
+                    lambda *_: reads.__setitem__("n", reads["n"] + 1))
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            transcribe.main(argv + ["--skip-existing"], pipeline=pipeline)
+    finally:
+        undo()
+    skip_s = time.perf_counter() - t0
+    skip_launches = read_launches()
+    if reads["n"] or any(skip_launches.values()) or \
+            said.getvalue().count("(transcription exists)") != len(stems):
+        raise AssertionError(f"--skip-existing read pages again: {reads}, "
+                             f"{skip_launches}, {said.getvalue()!r}")
+
+    # 3. one page, single-file mode, with snapshots
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        transcribe.main([str(pages / "page0.png"), "--output-dir",
+                         str(single), "--ground-truth", str(gt / "page0.md"),
+                         "--max-iterations", "1", "--snapshot", "--quiet"],
+                        pipeline=pipeline)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_launches = read_launches()
+    _check_artifacts(single, ["page0"])
+    if (single / "page0_state.json").exists():     # removed once finished
+        raise AssertionError("the single page left its snapshot behind")
+    require_launches("cli single page", single_launches, (
+        "flash_attention", "window_attention",
+        "paged_append_attention_int8", "int8_matmul"))
+
+    # 4. the standalone evaluator over the folder's results
+    eval_path = root / "eval_all.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        eval_final.main([str(out), "--ground-truth-dir", str(gt),
+                         "--output", str(eval_path)])
+    evaluated = json.loads(eval_path.read_text())
+    if len(evaluated) != len(stems) or not all(
+            "tier1_raw_vs_gt" in r for r in evaluated):
+        raise AssertionError(f"eval_final: {evaluated}")
+    work.cleanup()
+    launches = {name: lockstep_launches[name] + skip_launches[name]
+                + single_launches[name] for name in lockstep_launches}
+    cli = dict(phase="cli", card=card, pages=len(stems), **BUDGETS,
+               lockstep_s=lockstep_s, seconds_per_page=lockstep_s / len(stems),
+               skip_existing_s=skip_s, single_page_s=single_s,
+               png_decode_ms=decode_ms, artifacts_per_page=4,
+               cer=[r["tier1_raw_vs_gt"]["cer"] for r in evaluated],
+               launches=launches, lockstep_launches=lockstep_launches,
+               single_launches=single_launches)
+    emit(**cli)
+    seen = {"agent_prompt_tokens": {}, "read_batches": record["read_batches"],
+            "llm_budget": BUDGETS["llm_max_tokens"],
+            "ocr_budget": BUDGETS["ocr_max_new_tokens"]}
+    for name, calls in record["agent_prompt_tokens"].items():
+        seen["agent_prompt_tokens"].setdefault(
+            name.removesuffix("Result").lower(), []).extend(calls)
+    return {"cli": cli, "run_many": run_many, "seen": seen}
+
+
+def phase_pipeline(ocr, reasoner, card: str, seen: dict) -> dict:
+    """Both models resident, with the pools of ``pool_plan``:
+    ``OCRPipeline.run`` on one page resumed at its re-OCR node
+    (``run_from_reocr``; max_iterations 2, no accept by confidence alone,
+    128 OCR and 256 agent tokens), so the re-OCR read, the arbitrator and
+    the re-OCR strategies run at full width. (The pipeline path's
+    ``run_many`` is the CLI's lockstep run, ``phase_cli``.) Launch counts
+    set to 0 before the run and read after it; the walk must be legal and
+    pass through reocr. ``card`` (nvidia-smi's name and power limit) goes
+    into the record. Adds the run's kernel shapes to ``seen`` (for
+    ``phase_kernels_paths``) and returns the run."""
+    import tempfile
+
+    from handwritten_ocr_tpu_torch.config import RunConfig
+    from handwritten_ocr_tpu_torch.graph.driver import OCRPipeline
+    from handwritten_ocr_tpu_torch.state import initial_state
+
+    pages = {f"page{i}": p for i, p in enumerate(synthetic_pages(4))}
+    prep = PagePreprocessor(pages)
+    # 101: no confidence accepts on its own, only the verdict does
+    run_cfg = RunConfig(max_iterations=2, accept_threshold=101, **BUDGETS)
+    snapshot_dir = tempfile.TemporaryDirectory()
+    pipeline = OCRPipeline(ocr, reasoner, preprocessor=prep, quiet=True)
+    nodes = {f"node_{k}": k for k in ("initial_ocr", "critic", "editor",
+                                      "reocr")}
+    record, restore = instrument(pipeline, nodes)
+    state = initial_state("page0", config=run_cfg.as_state_dict(),
+                          max_iterations=run_cfg.max_iterations)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    final = run_from_reocr(pipeline, state, snapshot_dir.name + "/page0.json")
+    torch.cuda.synchronize()
+    pipeline_s = time.perf_counter() - t0
+    launches = read_launches()
+    restore()
+    snapshot_dir.cleanup()
+    walk = check_walk(final)
+    require_launches("pipeline run", launches, (
+        "flash_attention", "window_attention",
+        "paged_append_attention_int8", "int8_matmul"))
+    if "reocr" not in walk or "ArbitratorResult" not in record["agent_calls"]:
+        raise AssertionError(f"the resumed page did not re-OCR and "
+                             f"arbitrate: {walk}, {record['agent_calls']}")
+    for name, calls in record["agent_prompt_tokens"].items():
+        seen["agent_prompt_tokens"].setdefault(
+            name.removesuffix("Result").lower(), []).extend(calls)
+    seen["read_batches"] = seen["read_batches"] + record["read_batches"]
+    run = dict(pages=1, pipeline_s=pipeline_s, pages_per_s=1 / pipeline_s,
+               **record, walks=[walk], reasons=[final["reason"]],
+               iterations=[final["iteration"]],
+               transcription_chars=[len(final["current_best"])],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    emit(phase="pipeline", card=card, run="run",
+         max_iterations=run_cfg.max_iterations,
+         accept_threshold=run_cfg.accept_threshold, **BUDGETS, **run)
+    return run
+
+
+def byte_level_tokenizer_json() -> dict:
+    """A hand-written byte-level BPE ``tokenizer.json`` in the Qwen2
+    layout: the 256 byte symbols (id = byte), a few merges, and the chat
+    template's added tokens at Qwen's ids (specials and the non-special
+    think tags)."""
+    from handwritten_ocr_tpu_torch.models.tokenizer import bytes_to_unicode
+    table = bytes_to_unicode()
+    vocab = {table[b]: b for b in range(256)}
+    merges = []
+    for pair in ("Ġ t", "h e", "Ġt he", "i n", "e r", "Ġ a", "o n", "r e",
+                 "Ġ w", "a n", "e n", "Ċ Ċ"):
+        left, right = pair.split(" ")
+        vocab[left + right] = len(vocab)
+        merges.append(pair)
+    pattern = ("(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\\r\\n\\p{L}\\p{N}]?\\p{L}+|"
+               "\\p{N}| ?[^\\s\\p{L}\\p{N}]+[\\r\\n]*|\\s*[\\r\\n]+|"
+               "\\s+(?!\\S)|\\s+")
+    specials = {"<|endoftext|>": 151643, "<|im_start|>": 151644,
+                "<|im_end|>": 151645, "<|vision_start|>": 151652,
+                "<|vision_end|>": 151653, "<|image_pad|>": 151655}
+    added = [{"id": i, "content": c, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for c, i in specials.items()]
+    added += [{"id": i, "content": c, "single_word": False, "lstrip": False,
+               "rstrip": False, "normalized": False, "special": False}
+              for c, i in (("<think>", 151667), ("</think>", 151668))]
+    return {"version": "1.0", "added_tokens": added,
+            "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": pattern},
+                 "behavior": "Isolated", "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False,
+                 "trim_offsets": False, "use_regex": False}]},
+            "decoder": {"type": "ByteLevel", "add_prefix_space": False,
+                        "trim_offsets": False, "use_regex": False},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "",
+                      "end_of_word_suffix": "", "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+
+
+class SpelledTokens:
+    """Encodes with ``tokenizer``, decodes to the ids themselves, so that
+    compared texts carry the whole greedy token stream."""
+
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+
+    def encode(self, text):
+        return self.tokenizer.encode(text)
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_trees_equal, a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_loaders(card: str) -> dict:
+    """Snapshots and page files on the card, with narrow models (the
+    reference phase's widths, bf16 as checkpoints ship):
+    - a VL and a Qwen3 snapshot in HF layout (``config.json``, two
+      ``*.safetensors`` shards and their index, a hand-written byte-level
+      ``tokenizer.json``), written with the port's safetensors writer and
+      loaded through ``from_pretrained`` on the card (the Qwen3 one
+      quantised to int8 at load); each tree must equal the in-memory one
+      (int8: ``quantize_tree`` of it), and one greedy read / one chat
+      batch must give the same tokens as engines built from the in-memory
+      trees;
+    - a 1600x1200 PNG page (not 28-aligned) written with the port's PNG
+      writer and read back: its smart resize on the card must be
+      bit-equal to the CPU's, ``_pack_one`` of the unaligned page must
+      take the host path (``pack_image``'s patches and grid), and a read
+      of the unaligned page must run."""
+    import tempfile
+    from pathlib import Path
+
+    from handwritten_ocr_tpu_torch.config import PREPROCESSING_STRATEGIES
+    from handwritten_ocr_tpu_torch.engine.protocols import PreparedImage
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3, init_vl
+    from handwritten_ocr_tpu_torch.models.png import write_png
+    from handwritten_ocr_tpu_torch.models.processor import (
+        aligned_smart_size, load_image_rgb, pack_image)
+    from handwritten_ocr_tpu_torch.models.quant import quantize_tree
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import (
+        TextConfig, VLConfig, VisionConfig)
+    from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+    from handwritten_ocr_tpu_torch.models.tokenizer import BPETokenizer
+    from handwritten_ocr_tpu_torch.models.weights import save_snapshot
+
+    work = tempfile.TemporaryDirectory()
+    root = Path(work.name)
+    spec = json.dumps(byte_level_tokenizer_json())
+    vl_cfg = VLConfig(
+        vision=VisionConfig(depth=4, hidden_size=160, intermediate_size=320,
+                            num_heads=2, fullatt_block_indexes=(1, 3),
+                            out_hidden_size=256),
+        text=TextConfig(hidden_size=256, intermediate_size=512,
+                        num_hidden_layers=2, num_attention_heads=2,
+                        num_key_value_heads=1))
+    q_cfg = Qwen3Config(vocab_size=152000, hidden_size=256,
+                        intermediate_size=512, num_hidden_layers=2,
+                        num_attention_heads=2, num_key_value_heads=1,
+                        head_dim=128)
+    record = dict(phase="loaders", card=card)
+    t0 = time.perf_counter()
+    vl_tree = init_vl(vl_cfg, dtype=torch.bfloat16, device="cpu", seed=SEED + 8)
+    q_tree = init_qwen3(q_cfg, dtype=torch.bfloat16, device="cpu", seed=SEED + 9)
+    for name, tree, cfg in (("vl", vl_tree, vl_cfg), ("qwen3", q_tree, q_cfg)):
+        save_snapshot(root / name, tree, cfg, shards=2)
+        (root / name / "tokenizer.json").write_text(spec, encoding="utf-8")
+    record["write_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vl_loaded = TorchOCRBackend.from_pretrained(root / "vl")
+    q_loaded = TorchReasoningBackend.from_pretrained(root / "qwen3",
+                                                     quantize="int8")
+    record["load_s"] = time.perf_counter() - t0
+    tokenizer = BPETokenizer.from_dir(root / "vl")
+    vl_memory = TorchOCRBackend(VLModel(_to(vl_tree, "cuda"), vl_cfg),
+                                SpelledTokens(tokenizer))
+    q_memory = TorchReasoningBackend(
+        Qwen3Model(quantize_tree(_to(q_tree, "cuda")), q_cfg),
+        SpelledTokens(tokenizer))
+    if not (_trees_equal(vl_loaded.model.params, vl_memory.model.params)
+            and _trees_equal(q_loaded.model.params, q_memory.model.params)):
+        raise AssertionError("trees loaded from the snapshots differ from "
+                             "the in-memory trees")
+    vl_loaded.tokenizer = SpelledTokens(vl_loaded.tokenizer)
+    q_loaded.tokenizer = SpelledTokens(q_loaded.tokenizer)
+
+    page_path = Path(__file__).resolve().parent / ".contract_pages/page0.png"
+    prep = TorchPreprocessor()
+    images = [prep.apply(str(page_path), s)
+              for s in PREPROCESSING_STRATEGIES[:2]]
+    reads = {name: engine.read_batch(images, "Read the page.", 16)
+             for name, engine in (("snapshot", vl_loaded),
+                                  ("memory", vl_memory))}
+    turns = [Turn("sys", "Correct: teh cat sat"),
+             Turn(EDITOR_SYSTEM, "Correct this transcription:\nthe letter")]
+    chats = {name: engine.chat_batch(turns, temperature=0.1, max_tokens=16)
+             for name, engine in (("snapshot", q_loaded),
+                                  ("memory", q_memory))}
+    if reads["snapshot"] != reads["memory"] or \
+            chats["snapshot"] != chats["memory"]:
+        raise AssertionError(f"snapshot and in-memory engines differ: "
+                             f"{reads}, {chats}")
+    record.update(read_tokens=sum(len(t.split()) for t in reads["memory"]),
+                  chat_tokens=sum(len(t.split()) for t in chats["memory"]),
+                  prompt_tokens=len(q_loaded._encode("sys",
+                                                     "Correct: teh cat sat")))
+
+    # an unaligned page file
+    big = synthetic_pages(1, 1600, 1200)[0]
+    big_path = root / "big.png"
+    write_png(big_path, big)
+    t0 = time.perf_counter()
+    pixels = load_image_rgb(big_path)
+    record["png_decode_ms_1600x1200"] = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(pixels, big):
+        raise AssertionError("the PNG page does not read back")
+    target = aligned_smart_size(1600, 1200)
+    card_page = TorchPreprocessor()._load_aligned(str(big_path))
+    cpu_page = TorchPreprocessor(device="cpu")._load_aligned(str(big_path))
+    if tuple(card_page.shape[:2]) != target or \
+            not torch.equal(card_page.cpu(), cpu_page):
+        raise AssertionError("the card's resize differs from the CPU's")
+    patches, grid = vl_memory._pack_one(pixels)
+    host = pack_image(pixels)
+    if grid != host.grid or not torch.equal(
+            patches.cpu(), torch.from_numpy(host.patches)):
+        raise AssertionError("_pack_one did not take the host path")
+    raw = PreparedImage(data=pixels, strategy_label="original",
+                        source_path=str(big_path))
+    [text] = vl_memory.read_batch([raw], "Read the page.", 16)
+    record.update(unaligned_page=[1600, 1200], resized_to=list(target),
+                  grid=list(grid), resize_bit_equal=True, host_pack=True,
+                  unaligned_read_tokens=len(text.split()))
+    work.cleanup()
+    emit(**record)
+    return record
 
 
 def _reference_guided() -> dict:
@@ -1583,21 +2073,24 @@ def main() -> int:
     # The guided and pipeline phases decode with the published EOS id.
     reasoner, paths["guided"], guided_seen = phase_guided(
         Qwen3Config(), turns, info["smi"])
-    pipeline = phase_pipeline(cfg, reasoner, prompt_len, info["smi"])
-    # the pipeline path: both runs, each counted from 0
-    runs = pipeline["runs"]
-    paths["pipeline"] = {name: runs["run_many"]["launches"][name]
-                         + runs["run"]["launches"][name]
-                         for name in runs["run"]["launches"]}
-    del reasoner
+    ocr, _ = phase_pool_plan(cfg, reasoner, prompt_len, info["smi"])
+    cli = phase_cli(ocr, reasoner, info["smi"])
+    paths["cli"] = cli["cli"]["launches"]
+    run = phase_pipeline(ocr, reasoner, info["smi"], cli["seen"])
+    # the pipeline path: the CLI's lockstep run and the resumed run, each
+    # counted from 0
+    paths["pipeline"] = {name: cli["run_many"]["launches"][name]
+                         + run["launches"][name] for name in run["launches"]}
+    del reasoner, ocr
     gc.collect()                # both models go before the last phases
     torch.cuda.empty_cache()
+    phase_loaders(info["smi"])
     reference = phase_reference(info["smi"])
     # The fp-KV paged branch runs on no default path any more (both
     # engines default to int8 KV): its count is the fp-KV reference read's.
     paths["reference_fp_kv"] = reference["launches"]["vl_fp_kv"]
     rows += phase_kernels_paths(cfg, Qwen3Config(), prompt_len, {
-        "guided": guided_seen, "pipeline": pipeline["seen"]})
+        "guided": guided_seen, "pipeline": cli["seen"]})
     kernels = []
     for r in rows:
         kernels.append({key: r[key] for key in (
@@ -1609,7 +2102,7 @@ def main() -> int:
                                        "library_ratio")}
             | {key: r.get(key) for key in ("graph_ms", "library_graph_ms")}
             | {f"{path}_launches": paths[path][r["counter"]]
-               for path in ("guided", "pipeline")})
+               for path in ("guided", "pipeline", "cli")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

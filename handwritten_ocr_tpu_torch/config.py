@@ -17,6 +17,7 @@ LLM_MAX_TOKENS = 4096
 LLM_ENABLE_THINKING = False
 
 # ── OCR model configuration ─────────────────────────────────────────
+OLMOCR_MODEL = "allenai/olmOCR-2-7B-1025"
 OCR_MAX_PIXELS = 1024 * 1024
 OCR_MIN_PIXELS = 256 * 256
 OCR_MAX_NEW_TOKENS = 2048
@@ -60,6 +61,11 @@ SERVE_KV_INT8 = True
 # Pages per vision-tower call: wider batches encode in sequential chunks,
 # which caps the tower's activation memory at one chunk.
 SERVE_VISION_CHUNK = 8
+# Device memory the KV pool plan keeps back for everything but weights and
+# pools: vision-tower chunks, prefill groups (PREFILL_GROUP_TOKENS rows of
+# the 32B model's MLP), logits and kernel workspaces (parallel/budget.py;
+# engine/torch_engines.py:plan_pools).
+ACTIVATION_RESERVE_BYTES = 8 * 2**30
 
 
 @dataclasses.dataclass(frozen=True)

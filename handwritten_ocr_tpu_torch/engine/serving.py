@@ -378,6 +378,17 @@ class ContinuousBatcher:
                     self.max_context)
         return -(-total // self.block_size)
 
+    def _check_fits(self, requests: Sequence[GenRequest]) -> None:
+        """Raise at once when a request needs more blocks than the whole
+        pool holds: it could never be admitted. Any other request waits
+        in the queue until retiring requests free enough blocks."""
+        for request in requests:
+            need = self._blocks_needed(request)
+            if need > self.n_blocks - 1:
+                raise RuntimeError(
+                    "request needs more KV blocks than the pool has: "
+                    f"{need} > {self.n_blocks - 1}")
+
     def _try_admit(self, queue: deque) -> list[tuple[int, GenRequest]]:
         admitted = []
         while queue and self._free_slots:
@@ -485,6 +496,7 @@ class ContinuousBatcher:
         ``tokens`` receives every token committed to its context."""
         from handwritten_ocr_tpu_torch.utils.schema_decode import (
             SchemaSession, compile_schema)
+        self._check_fits(requests)
         spec = compile_schema(schema)
         eos = self.program.eos_token_id
         stats = self.stats
@@ -594,12 +606,9 @@ class ContinuousBatcher:
         while queue or sessions:
             admit()
             if not sessions:
-                if queue:
-                    raise RuntimeError(
-                        "request needs more KV blocks than the pool has: "
-                        f"{self._blocks_needed(queue[0])} > "
-                        f"{self.n_blocks - 1}")
-                break
+                # Every admitted session finished at once; with every
+                # block free again, the queue's head fits next round.
+                continue
             # Drain string value spans; afterwards no session is mid-span
             # (a resolved span always refills the forced scaffold queue).
             while sessions and any(s.in_string_span()
@@ -630,6 +639,7 @@ class ContinuousBatcher:
         """Drive all requests to completion; returns their token lists in
         order (EOS excluded). Requests stream through ``on_tokens`` as
         chunks complete."""
+        self._check_fits(requests)
         eos = self.program.eos_token_id
         queue = deque(requests)
         while queue or self._slot_req:
@@ -637,12 +647,9 @@ class ContinuousBatcher:
             if admitted:
                 self._prefill_admitted(admitted)
             if not self._slot_req:
-                if queue:        # nothing admissible yet nothing running
-                    raise RuntimeError(
-                        "request needs more KV blocks than the pool has: "
-                        f"{self._blocks_needed(queue[0])} > "
-                        f"{self.n_blocks - 1}")
-                break
+                # Every admitted request finished in its prefill; with
+                # every block free again, the queue's head fits next round.
+                continue
             t0 = time.perf_counter()
             done0 = np.ones((self.n_slots,), bool)
             remaining = np.zeros((self.n_slots,), np.int32)

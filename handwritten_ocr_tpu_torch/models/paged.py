@@ -58,6 +58,16 @@ class PagedKVCache:
     def max_context(self) -> int:
         return self.block_tables.shape[1] * self.block_size
 
+    @staticmethod
+    def block_bytes(num_layers: int, block_size: int, num_kv_heads: int,
+                    head_dim: int, dtype=torch.bfloat16,
+                    kv_quant: bool = False) -> int:
+        """Bytes one pool block takes across layers, k and v (and their
+        fp32 scales when ``kv_quant``), as :meth:`zeros` allocates."""
+        per_row = (head_dim + 4 if kv_quant
+                   else head_dim * torch.empty(0, dtype=dtype).element_size())
+        return 2 * num_layers * block_size * num_kv_heads * per_row
+
     @classmethod
     def zeros(cls, num_layers: int, n_blocks: int, block_size: int,
               n_slots: int, max_blocks: int, num_kv_heads: int,

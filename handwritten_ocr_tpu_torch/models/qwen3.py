@@ -13,6 +13,8 @@ continuous batcher; the dense ``generate`` path is not ported.
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +47,11 @@ class Qwen3Config:
         if kwargs.get("pad_token_id") is None:
             kwargs.pop("pad_token_id", None)
         return cls(**kwargs)
+
+    @classmethod
+    def from_pretrained_dir(cls, model_dir: str | Path) -> "Qwen3Config":
+        return cls.from_hf(json.loads((Path(model_dir) / "config.json")
+                                      .read_text()))
 
 
 class Qwen3Model:

@@ -96,8 +96,14 @@ def test_int8_kv_read_matches_jax(pages, monkeypatch):
 
 
 def test_unaligned_image_is_refused():
+    """Only an image that smart resize refuses (aspect ratio over 200) is
+    refused. Other unaligned images are packed on the host, as the JAX
+    engine's ``_pack_one`` does (``tests/test_torch_png.py`` holds the
+    read against it); they are no longer refused outright."""
     _, port_cfg = configs(vocab_size=300)
     backend = TorchOCRBackend(VLModel({}, port_cfg), ByteTokenizer(),
-                              device="cpu")
-    with pytest.raises(ValueError, match="28-aligned"):
-        backend.read_batch([torch.zeros((30, 56), dtype=torch.uint8)], "x", 2)
+                              device="cpu", **PIXELS)
+    with pytest.raises(ValueError, match="aspect ratio"):
+        backend.read_batch([torch.zeros((2, 500), dtype=torch.uint8)], "x", 2)
+    patches, grid = backend._pack_one(torch.zeros((30, 56), dtype=torch.uint8))
+    assert grid == (1, 2, 4) and tuple(patches.shape) == (8, 3 * 2 * 14 * 14)

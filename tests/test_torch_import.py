@@ -1,4 +1,6 @@
-"""The PyTorch port stands alone: no JAX, no JAX package, no Triton at import.
+"""The PyTorch port stands alone: no JAX, no JAX package, no Triton at import,
+and none of PIL, pydantic, safetensors, transformers, tokenizers or regex,
+which the card's machine lacks.
 
 Also checks that the port's entry points refuse to fall back to the CPU
 when no card is present and no device was asked for.
@@ -20,8 +22,11 @@ PORT = ROOT / "handwritten_ocr_tpu_torch"
 
 
 def _port_modules() -> list[str]:
+    """Every module of the port but ``__main__`` (importing it runs the
+    CLI)."""
     return sorted(info.name for info in pkgutil.walk_packages(
-        [str(PORT)], prefix="handwritten_ocr_tpu_torch."))
+        [str(PORT)], prefix="handwritten_ocr_tpu_torch.")
+        if not info.name.endswith(".__main__"))
 
 
 def test_port_has_the_slice_modules():
@@ -39,19 +44,25 @@ def test_port_has_the_slice_modules():
                  "text.metrics", "text.diff", "text.merge", "text.gt",
                  "state", "trace", "graph.routing", "graph.driver",
                  "graph.batch_driver", "ops.sharpen", "ops.colorspace",
-                 "ops.denoise", "ops.lines"):
+                 "ops.denoise", "ops.lines", "parallel.budget", "models.png",
+                 "utils.safetensors", "models.tokenizer",
+                 "models.checkpoint", "engine.dryrun", "engine.prefetch",
+                 "evaluation", "cli.eval_final", "cli.transcribe"):
         assert f"handwritten_ocr_tpu_torch.{name}" in modules
 
 
 def test_importing_every_module_loads_no_jax_and_no_triton():
-    """Nor pydantic or PIL: the card's machine has neither (PIL is read
-    only inside the function that loads an image file)."""
+    """Nor pydantic, PIL, safetensors, transformers, tokenizers or regex:
+    the card's machine has none of them (PIL is imported only inside the
+    function that loads a non-PNG image file). ``__main__`` runs the CLI,
+    so it is left out of the import loop."""
     code = (
         "import importlib, json, sys\n"
         f"names = {_port_modules()!r}\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "roots = ('jax', 'triton', 'handwritten_ocr_tpu', 'pydantic', 'PIL')\n"
+        "roots = ('jax', 'triton', 'handwritten_ocr_tpu', 'pydantic', 'PIL',\n"
+        "         'safetensors', 'transformers', 'tokenizers', 'regex')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "print(json.dumps(bad))\n")
     result = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -66,7 +77,10 @@ def test_importing_every_module_loads_no_jax_and_no_triton():
 def test_source_names_no_jax(path):
     text = (ROOT / path).read_text()
     for needle in ("import jax", "from jax", "handwritten_ocr_tpu.",
-                   "import handwritten_ocr_tpu\n"):
+                   "import handwritten_ocr_tpu\n", "import safetensors",
+                   "from safetensors", "import transformers",
+                   "from transformers", "import tokenizers",
+                   "from tokenizers", "import regex"):
         assert needle not in text, f"{path} mentions {needle!r}"
 
 
