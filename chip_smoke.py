@@ -38,6 +38,15 @@ Phases, each printing one JSON line:
      schema-guided ``chat_batch`` at a 256-token budget; every text must
      parse and validate against its contract; counts set to 0 before and
      read after;
+  6b. speculative: prompt-lookup speculative decoding on that resident
+     qwen3:32b (a second backend on the same weights, no EOS id): 8
+     editor turns x 128 tokens plain, then with drafts read from the
+     plain streams (``GenRequest.draft_oracle``; counts set to 0 before
+     and read after: the int8 paged kernel must launch at 17 query
+     tokens), then ``chat_batch`` with ``HOCR_SPEC=1``; each speculative
+     stream must equal the plain one up to a near-tie (``TIE_GAP``); a
+     verify round against a decode step (wall and device ms); one guided
+     editor round with ``HOCR_SPEC=1`` beside phase 6's;
   7. pool_plan: olmOCR-2-7B (bf16) joins the resident qwen3:32b; one
      ``coresident_plan`` for the card (``plan_pools``: both resident
      trees, the card's memory, ``config.ACTIVATION_RESERVE_BYTES``) hands
@@ -61,6 +70,12 @@ Phases, each printing one JSON line:
   9. pipeline: ``OCRPipeline.run`` resumes one page from a snapshot at
      its re-OCR node (re-OCR read, arbitrator, critic again) with the
      same engines and pools; the walk must pass through reocr;
+  9b. dense: both resident models with their pools dropped, through
+     ``serving="dense"`` engines: the read phase's 8 reads, the 8 editor
+     turns left-padded, one critic call through ``generate_json``; wall
+     s, peak memory and launches per call (flash, window and the int8
+     matmul must launch), finite ``forward_logits``, and the first token
+     where each row leaves the paged fp-KV path's;
  10. loaders: narrow VL and Qwen3 snapshots in HF layout (config.json,
      sharded safetensors + index, a hand-written byte-level
      tokenizer.json) written with the port's writer and loaded through
@@ -82,7 +97,10 @@ Phases, each printing one JSON line:
      it, taken from those runs: flash prefill at each agent's largest
      prefill group, int8 paged attention at its longest prompt plus the
      budget, and vision flash, window, the VL prefill and the read's
-     paged attention at every read batch other than 8.
+     paged attention at every read batch other than 8; then int8 paged
+     attention at 17 query tokens (a verify round, appends across a page
+     boundary) at 64:8 and 28:4 heads, flash at the dense prefills and
+     the int8 matmul at one row.
 
 Phases 6-9 and 11 decode through ``DenseTokenizer``: every id decodes to one
 character, so random weights write texts of their budget's length (with
@@ -94,19 +112,26 @@ result. Without a CUDA card it exits non-zero at once. The last line is
 ``{"ok": true, "device": {...}}``; the kernels line (each kernel's
 launches on its own path and on the guided, pipeline and cli paths) and
 the card's name and power limit come before it.
+
+``HOCR_SPEC`` is set only inside the speculative phase; every other
+phase runs with it unset, and every engine but the dense phase's serves
+paged.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+from collections import Counter, deque
 
 import numpy as np
 import torch
@@ -361,18 +386,23 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
 
 def _paged_case(name: str, case: str, slots: int, live: int, context: int,
                 layers: int, hq: int, hkv: int, hd: int, kv_quant: bool,
-                gen, path: str) -> dict:
-    """One decode step of the paged kernel (``live`` of ``slots`` slots at
-    ``context`` cached tokens) against its plain version: outputs within
-    tolerance, pools (and scale pools) bit-equal after the append. ``ms``
-    times a loop of wrapper calls, ``graph_ms`` the device time alone (a
-    CUDA graph); both cycle over the layers, so every call finds its
-    pages cold, as in decode."""
+                gen, path: str, t: int = 1) -> dict:
+    """One call of the paged kernel (``live`` of ``slots`` slots at
+    ``context`` cached tokens, ``t`` new tokens a slot) against its plain
+    version: outputs within tolerance, pools (and scale pools) bit-equal
+    after the append. With ``t`` > 1 (a speculative verify round) slot s
+    starts 1 + s rows before a page boundary and appends t - s rows, so
+    every live slot's append crosses into the next page with its own
+    count of real rows. ``ms`` times a loop of wrapper calls,
+    ``graph_ms`` the device time alone (a CUDA graph); both cycle over
+    the layers, so every call finds its pages cold, as in decode."""
     from handwritten_ocr_tpu_torch import config as cfg_mod
     from handwritten_ocr_tpu_torch.ops.paged_decode_attention import (
         paged_append_attention, paged_append_attention_plain)
     dev, bf16 = "cuda", torch.bfloat16
     bs = cfg_mod.SERVE_BLOCK_SIZE
+    if t > 1:
+        context = -(-context // bs) * bs       # the next page boundary
     total = 512
     while total < context + 128:
         total *= 2
@@ -396,14 +426,14 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
     n_valid = torch.zeros(slots, dtype=torch.int32, device=dev)
     for s in range(live):
         tables[s] = torch.arange(1 + s * width, 1 + (s + 1) * width)
-        start[s] = context
-        n_valid[s] = 1
+        start[s] = context if t == 1 else context - 1 - s
+        n_valid[s] = 1 if t == 1 else t - s
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
-    q = randn(slots, 1, hq, hd)
-    k_new, v_new = randn(slots, 1, hkv, hd), randn(slots, 1, hkv, hd)
+    q = randn(slots, t, hq, hd)
+    k_new, v_new = randn(slots, t, hkv, hd), randn(slots, t, hkv, hd)
     pools = [k_pool, v_pool, *scales]
     refs = [x.clone() for x in pools]
     tscale = hd ** -0.5
@@ -414,22 +444,27 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
     want = paged_append_attention_plain(q, k_new, v_new, refs[0], refs[1],
                                         tables, start, n_valid, *refs[2:],
                                         layer=layer, scale=tscale)
-    cmp = _compare(f"{name} {case}", got[:live], want[:live])
+    real = torch.arange(t, device=dev)[None] < n_valid[:, None]   # [S, t]
+    cmp = _compare(f"{name} {case}", got[real], want[real])
     if not all(torch.equal(a, b) for a, b in zip(pools, refs)):
         raise AssertionError(f"{name} {case}: pools differ from plain")
-    if not bool((got[live:] == 0).all()):
-        raise AssertionError(f"{name} {case}: dead slots not zero")
+    if not bool((got[~real] == 0).all()):
+        raise AssertionError(f"{name} {case}: dead slots or rows not zero")
     del refs, want, got
-    ctx = live * context
+    ctx = int(start[:live].sum())
+    new = int(n_valid.sum())                 # real new rows
     # bytes of one token's K (or V) row of one layer, with its scales
     row = hkv * hd * (1 if kv_quant else 2) + (hkv * 4 if kv_quant else 0)
     n_bytes = (2 * ctx * row                 # cached K and V of live slots
-               + 2 * live * hkv * hd * 2     # new rows read (bf16)
-               + 2 * live * row              # new rows written
-               + live * hq * hd * 2          # q of live slots
-               + slots * hq * hd * 2         # every slot's output
+               + 2 * new * hkv * hd * 2      # new rows read (bf16)
+               + 2 * new * row               # new rows written
+               + new * hq * hd * 2           # q of the real rows
+               + slots * t * hq * hd * 2     # every slot's output
                + tables.numel() * 4 + 2 * slots * 4)
-    flops = 4 * hq * hd * (ctx + live)
+    # query row i of a slot attends start + i + 1 cols (causal)
+    attended = sum(int(n) * int(st) + int(n) * (int(n) + 1) // 2
+                   for st, n in zip(start[:live], n_valid[:live]))
+    flops = 4 * hq * hd * attended
     bound, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
     layer_cycle = iter(range(10 ** 9))
 
@@ -444,7 +479,8 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
                  else "paged_append_attention"),
         source="handwritten_ocr_tpu_torch/csrc/paged_decode_attention.cu",
         replaces="handwritten_ocr_tpu/ops/paged_decode_attention.py:64",
-        shape=[slots, 1, hq, hd], live_slots=live, context=context,
+        shape=[slots, t, hq, hd], live_slots=live, context=context,
+        starts=start[:live].tolist(), new_rows=n_valid[:live].tolist(),
         pool=list(k_pool.shape), dtype="int8 KV, bf16 q" if kv_quant else "bf16",
         **cmp, ms=time_ms(step(paged_append_attention), iters=56),
         graph_ms=graph_ms([step(paged_append_attention)]),
@@ -1044,9 +1080,12 @@ def _guided_stats(batcher) -> dict:
     return {key: batcher.stats[key] for key in keys}
 
 
-def _reset_guided_stats(batcher) -> None:
-    for key in _guided_stats(batcher):
-        batcher.stats[key] = 0.0 if key.endswith("_s") else 0
+def _reset_stats(batcher) -> None:
+    """Every serving count of the batcher to 0, and no cooldown."""
+    for key, value in batcher.stats.items():
+        batcher.stats[key] = 0.0 if isinstance(value, float) else 0
+    batcher.spec_stats.update(rounds=0, drafted=0, accepted=0)
+    batcher._spec_cooldown = 0
 
 
 def phase_guided(qcfg, turns: list[Turn], card: str,
@@ -1059,7 +1098,8 @@ def phase_guided(qcfg, turns: list[Turn], card: str,
     read after them. ``card`` (nvidia-smi's name and power limit) goes
     into every record. Returns (the backend, kept for the pipeline; the
     path's launches; its prompt lengths per agent call and budget, for
-    ``phase_kernels_paths``)."""
+    ``phase_kernels_paths``, and each agent's texts and stats, for
+    ``phase_speculative``)."""
     from handwritten_ocr_tpu_torch.agents.schemas import (CriticResult,
                                                           EditorResult)
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
@@ -1079,11 +1119,11 @@ def phase_guided(qcfg, turns: list[Turn], card: str,
                        json_schema=requests["critic"][0].schema)   # warm-up
     torch.cuda.synchronize()
     reset_launches()
-    total, prompts = {}, {}
+    total, prompts, agents = {}, {}, {}
     for agent in ("critic", "editor"):
         batch = requests[agent]
         batcher = backend._batcher
-        _reset_guided_stats(batcher)
+        _reset_stats(batcher)
         t0 = time.perf_counter()
         texts = backend.chat_batch(batch, json_schema=batch[0].schema, **kw)
         torch.cuda.synchronize()
@@ -1099,6 +1139,8 @@ def phase_guided(qcfg, turns: list[Turn], card: str,
             contracts[agent].validate(parsed)
         prompts[agent] = [[len(backend._encode(r.system, r.user))
                            for r in batch]]
+        agents[agent] = dict(texts=texts, stats=stats,
+                             max_new_tokens=max_new_tokens)
         emit(phase="guided", card=card, agent=agent,
              model="qwen3:32b (Qwen3Config())",
              weights="int8", kv_cache="int8", tokenizer="DenseTokenizer",
@@ -1118,7 +1160,7 @@ def phase_guided(qcfg, turns: list[Turn], card: str,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          launches=launches)
     return backend, launches, dict(agent_prompt_tokens=prompts,
-                                   llm_budget=max_new_tokens)
+                                   llm_budget=max_new_tokens, agents=agents)
 
 
 class PagePreprocessor:
@@ -2044,6 +2086,504 @@ def phase_reference(card: str) -> dict:
     emit(**record)
     return record
 
+# The verify forward's products (408 rows: each int8 weight widened to
+# bf16, the product rounded to bf16, then times the bf16 scale) and the
+# decode step's (24 rows: the int8 kernel, fp32 sum times the fp32 scale,
+# one rounding) round differently, and 64 layers carry the difference to
+# the logits: on the same inputs the two paths' logits at the plain
+# step's top-2 ids differed by at most 0.29 on an H100 (136 compared, median top-1
+# logit 6.3, random weights). Each verify forward must stay within
+# TIE_GAP of the plain step there, and a speculative stream may leave the
+# plain one only where the plain step's top-2 gap is below it.
+TIE_GAP = 0.5
+
+
+@contextlib.contextmanager
+def _spec_env(on: bool):
+    """``HOCR_SPEC`` set to 1 (or unset) for the block."""
+    old = os.environ.pop("HOCR_SPEC", None)
+    if on:
+        os.environ["HOCR_SPEC"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("HOCR_SPEC", None)
+        if old is not None:
+            os.environ["HOCR_SPEC"] = old
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, wrap):
+    """``module.name`` replaced by ``wrap(original)`` for the block."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def _first_difference(a: list[int], b: list[int]) -> int | None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _check_stream(name: str, plain: list[list[int]], got: list[list[int]],
+                  gaps: list) -> list[dict]:
+    """Each row of ``got`` equals the plain greedy row up to its first
+    difference, which must sit where the plain decode step's top-2 gap
+    (``gaps[row][position - 1]``) was below TIE_GAP. Returns the
+    differences (row, position, plain gap)."""
+    found = []
+    for row, (want, have) in enumerate(zip(plain, got)):
+        pos = _first_difference(want, have)
+        if pos is None:
+            continue
+        if pos == 0 or pos > len(gaps[row]):
+            raise AssertionError(f"{name}: row {row} leaves the plain stream "
+                                 f"at {pos}, outside the decode steps")
+        gap = float(gaps[row][pos - 1])
+        if not gap < TIE_GAP:
+            raise AssertionError(f"{name}: row {row} leaves the plain stream "
+                                 f"at {pos}, where the plain top-2 gap is "
+                                 f"{gap} (tolerance {TIE_GAP})")
+        found.append(dict(row=row, position=pos, plain_gap=gap))
+    return found
+
+
+def _verify_vs_step(batcher, encoded: list[list[int]], repeats: int = 3):
+    """A verify round (16 random drafts for every live slot) against a
+    plain decode step, on the batcher's pools with the turns prefilled:
+    wall ms of each (host clock to the tokens on the host, the median of
+    ``repeats`` alternating calls) and device ms (the kernels' sum under
+    the profiler, one call each). Each call appends its rows as a real
+    round does; the slots are retired afterwards."""
+    from handwritten_ocr_tpu_torch.engine.serving import GenRequest
+    admitted = batcher._try_admit(deque(
+        GenRequest(np.asarray(ids, np.int32), 128) for ids in encoded))
+    batcher._prefill_admitted(admitted)
+    n, k = batcher.n_slots, batcher.draft_k
+    live = sorted(batcher._slot_req)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    drafts = torch.randint(0, batcher.program.cfg.vocab_size, (n, k),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    active = torch.zeros(n, dtype=torch.bool, device="cuda")
+    active[live] = True
+    draft_len = torch.where(active, k, 0).to(torch.int32)
+    rope = batcher._tensor(batcher._rope_delta)
+    pages = batcher._table_pages(live, k + 2)
+    program, cache = batcher.program, batcher.cache
+
+    def verify(_=None):
+        tokens, accepted = program.verify_step(
+            cache, cache.lengths.new_tensor(batcher._last), drafts,
+            draft_len, active, rope, table_pages=pages)
+        return tokens.cpu(), accepted.cpu()
+
+    def step(_=None):
+        tokens, _, _ = program.decode_chunk(
+            cache, cache.lengths.new_tensor(batcher._last), ~active,
+            torch.full((n,), 2, dtype=torch.int32, device="cuda"), rope, 1,
+            table_pages=pages)
+        return tokens.cpu()
+
+    walls = {"verify": [], "step": []}
+    verify(), step()                      # warm-up
+    for name in ("step", "verify", "verify", "step") * repeats:
+        t0 = time.perf_counter()
+        {"verify": verify, "step": step}[name]()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    device = {name: _profiled(fn, 0)[1] * 1e3
+              for name, fn in (("verify", verify), ("step", step))}
+    if int(cache.lengths.max()) >= (pages or batcher.max_blocks) * batcher.block_size:
+        raise AssertionError("the measured rounds outgrew their table")
+    for slot in list(batcher._slot_req):
+        batcher._retire(slot)
+    return {name: dict(wall_ms=float(np.median(w)), wall_ms_all=w,
+                       device_ms=device[name] if device[name] else None)
+            for name, w in walls.items()} | {"rows_per_verify": n * (k + 1)}
+
+
+def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
+                      max_new_tokens: int = 128) -> dict:
+    """Prompt-lookup speculative decoding on the guided phase's resident
+    qwen3:32b (int8 weights and KV, 24 slots, draft_k 16), through a
+    second backend on the same weights with ``eos_token_id=-1`` (random
+    weights then decode to the budget) and a tokenizer that spells every
+    id: 8 editor turns of ~1.2k tokens, 128 new tokens.
+
+    1. plain greedy (``HOCR_SPEC`` unset), with each decode step's top-2
+       logit gap per slot observed;
+    2. speculative with drafts read from the plain streams
+       (``GenRequest.draft_oracle``): rounds, drafted, accepted, tokens
+       committed per round; launch counts set to 0 before this run and
+       read after it (the int8 paged kernel must launch, and at 17 query
+       tokens);
+    3. ``chat_batch`` with ``HOCR_SPEC=1`` (prompt-lookup drafts; the
+       editor turns repeat their words);
+    4. a verify round against a decode step, wall and device ms;
+    5. one guided editor round (``chat_batch(json_schema=...)``, 256
+       tokens) with ``HOCR_SPEC=1`` on the resident reasoner, beside the
+       guided phase's editor round on the same turns without it.
+    Streams 2 and 3 must equal the plain one up to a near-tie
+    (``_check_stream``)."""
+    from handwritten_ocr_tpu_torch.agents.schemas import EditorResult
+    from handwritten_ocr_tpu_torch.engine import serving
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models import paged
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
+    from handwritten_ocr_tpu_torch.utils.jsonio import extract_json
+
+    reasoner._batcher = None               # its pools go before this phase's
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = TorchReasoningBackend(
+        Qwen3Model(reasoner.model.params,
+                   dataclasses.replace(reasoner.model.config, eos_token_id=-1)),
+        spelling_tokenizer(), kv_quant=True)
+    with _spec_env(False):
+        backend.chat_batch(turns, temperature=0.1, max_tokens=8)  # pools
+    batcher = backend._batcher
+    encoded = [backend._encode(t.system, t.user) for t in turns]
+    slots = batcher._free_slots[::-1][:len(turns)]   # _try_admit's order
+    n = batcher.n_slots
+
+    row_of: dict = {}              # id(request) -> its turn, for the run
+
+    def run(speculate: bool, oracle=None):
+        requests = [serving.GenRequest(
+            np.asarray(ids, np.int32), max_new_tokens, speculate=speculate,
+            draft_oracle=None if oracle is None else np.asarray(o, np.int32))
+            for ids, o in zip(encoded, oracle or encoded)]
+        row_of.clear()
+        row_of.update((id(q), r) for r, q in enumerate(requests))
+        _reset_stats(batcher)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = batcher.run(requests)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def summary(call_s: float, tokens: list[list[int]]) -> dict:
+        st, spec = batcher.stats, batcher.spec_stats
+        committed = st["decode_tokens"] + st["verify_tokens"]
+        return dict(call_s=call_s, **spec, **{k: st[k] for k in (
+            "prefill_s", "decode_s", "decode_tokens", "verify_s",
+            "verify_tokens")},
+            tokens_per_round=(st["verify_tokens"] / spec["rounds"]
+                              if spec["rounds"] else None),
+            verify_round_wall_ms=(st["verify_s"] / spec["rounds"] * 1e3
+                                  if spec["rounds"] else None),
+            tokens_per_s=committed / (st["decode_s"] + st["verify_s"]),
+            generated=[len(t) for t in tokens])
+
+    steps: list = []
+
+    def observe_plain(lm_logits):
+        def observed(params, cfg, hidden):
+            logits = lm_logits(params, cfg, hidden)
+            if tuple(hidden.shape[:2]) == (n, 1):        # a decode step
+                steps.append(torch.topk(logits[:, -1], 2))
+            return logits
+        return observed
+
+    with _spec_env(False), _patched(serving, "lm_logits", observe_plain):
+        plain, plain_s = run(False)
+    # The plain decode step's top-2 logits and ids of token j of turn r
+    # (j >= 1; token 0 comes from the prefill): [r][j - 1, 2].
+    top_vals = torch.stack([t.values for t in steps]).cpu()
+    top_ids = torch.stack([t.indices for t in steps])
+    top_vals = [top_vals[:, slot] for slot in slots]
+    top_ids = [top_ids[:, slot] for slot in slots]
+    gaps = [v[:, 0] - v[:, 1] for v in top_vals]
+    del steps
+    records = {"plain": summary(plain_s, plain)}
+    records["plain"]["decode_step_wall_ms"] = (
+        batcher.stats["decode_s"] / (batcher.stats["decode_tokens"]
+                                     / len(turns)) * 1e3)
+
+    t_counts: Counter = Counter()
+
+    def count_t(paged_append_attention):
+        def counted(q, *args, **kwargs):
+            t_counts[int(q.shape[1])] += 1
+            return paged_append_attention(q, *args, **kwargs)
+        return counted
+
+    # Each verify forward of the oracle run, at the rows whose inputs are
+    # the plain stream's: its logits at the plain step's top-2 ids minus
+    # the plain step's (the two paths' disagreement on the same inputs).
+    k = batcher.draft_k
+    deltas, delta_at = [], []
+
+    def observe_verify(lm_logits):
+        def observed(params, cfg, hidden):
+            logits = lm_logits(params, cfg, hidden)
+            if tuple(hidden.shape[:2]) != (n, k + 1):
+                return logits
+            picks = []
+            for slot, request in batcher._slot_req.items():
+                r = row_of[id(request)]
+                done = len(request.tokens)
+                if request.tokens != plain[r][:done]:
+                    continue                     # it left the plain stream
+                picks += [(slot, i, r, done + i) for i in range(k + 1)
+                          if 1 <= done + i < len(plain[r])]
+            if picks:
+                slot_i = [p[0] for p in picks]
+                row_i = [p[1] for p in picks]
+                ids = torch.stack([top_ids[r][j - 1] for _, _, r, j in picks])
+                got = logits[slot_i, row_i].gather(1, ids).cpu()
+                deltas.append(got - torch.stack([top_vals[r][j - 1]
+                                                 for _, _, r, j in picks]))
+                delta_at.extend((r, j) for _, _, r, j in picks)
+            return logits
+        return observed
+
+    reset_launches()
+    with _patched(paged, "paged_append_attention", count_t), \
+            _patched(serving, "lm_logits", observe_verify):
+        oracle, oracle_s = run(True, oracle=plain)
+    launches = read_launches()
+    records["oracle"] = summary(oracle_s, oracle)
+    records["oracle"]["paged_calls_by_query_tokens"] = dict(t_counts)
+    agree = torch.cat(deltas) if deltas else torch.zeros(0, 2)
+    # how far the verify forward moved plain's second token above its first
+    flip = agree[:, 1] - agree[:, 0]
+    records["oracle"]["logit_disagreement"] = dict(
+        compared=len(agree),
+        max_abs=float(agree.abs().max()) if len(agree) else None,
+        p99_abs=float(agree.abs().quantile(0.99)) if len(agree) else None,
+        max_flip_margin=float(flip.max()) if len(agree) else None,
+        p99_flip_margin=float(flip.quantile(0.99)) if len(agree) else None)
+    if not (len(agree) and records["oracle"]["logit_disagreement"]["max_abs"]
+            < TIE_GAP):
+        raise AssertionError(f"the verify forward's logits are not within "
+                             f"{TIE_GAP} of the plain step's: "
+                             f"{records['oracle']['logit_disagreement']}")
+    records["oracle"]["left_plain"] = _check_stream("oracle", plain, oracle,
+                                                    gaps)
+    if not (records["oracle"]["rounds"] > 0
+            and records["oracle"]["accepted"] > 0):
+        raise AssertionError(f"oracle drafts were not accepted: "
+                             f"{records['oracle']}")
+    require_launches("speculative", launches, (
+        "paged_append_attention_int8", "int8_matmul"))
+    if t_counts[batcher.draft_k + 1] == 0:
+        raise AssertionError(f"no paged launch at {batcher.draft_k + 1} "
+                             f"query tokens: {dict(t_counts)}")
+
+    _reset_stats(batcher)
+    with _spec_env(True):
+        t0 = time.perf_counter()
+        texts = backend.chat_batch(turns, temperature=0.1,
+                                   max_tokens=max_new_tokens)
+        torch.cuda.synchronize()
+        lookup_s = time.perf_counter() - t0
+    if backend._batcher is not batcher:
+        raise AssertionError("the prompt-lookup call rebuilt the batcher")
+    lookup = [[int(x) for x in text.split()] for text in texts]
+    records["prompt_lookup"] = summary(lookup_s, lookup)
+    records["prompt_lookup"]["left_plain"] = _check_stream(
+        "prompt lookup", plain, lookup, gaps)
+    round_vs_step = _verify_vs_step(batcher, encoded)
+    del backend, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    editor = guided_requests(turns)["editor"]
+    schema = editor[0].schema
+    with _spec_env(True):
+        reasoner.chat_batch(editor[:1], temperature=0.1, max_tokens=8,
+                            json_schema=schema)                  # pools
+        gbatcher = reasoner._batcher
+        _reset_stats(gbatcher)
+        t0 = time.perf_counter()
+        gtexts = reasoner.chat_batch(editor, temperature=0.1,
+                                     max_tokens=guided["max_new_tokens"],
+                                     json_schema=schema)
+        torch.cuda.synchronize()
+        guided_s = time.perf_counter() - t0
+    stats = _guided_stats(gbatcher)
+    valid = 0
+    for text in gtexts:
+        parsed = extract_json(text)
+        if parsed is not None:
+            EditorResult.validate(parsed)
+            valid += 1
+    fallbacks = stats["sessions"] - stats["sessions_complete"]
+    if valid + fallbacks < len(gtexts):
+        raise AssertionError(f"guided editor with HOCR_SPEC=1: {valid} valid "
+                             f"texts and {fallbacks} fallbacks of "
+                             f"{len(gtexts)}")
+    records["guided_editor"] = dict(
+        call_s=guided_s, **stats, **gbatcher.spec_stats,
+        verify_s=gbatcher.stats["verify_s"],
+        verify_tokens=gbatcher.stats["verify_tokens"], validated=valid,
+        fallbacks=fallbacks,
+        same_texts_as_plain=sum(a == b for a, b in zip(gtexts,
+                                                       guided["texts"])),
+        plain=guided["stats"])
+    record = dict(phase="speculative", card=card,
+                  model="qwen3:32b (Qwen3Config(eos_token_id=-1))",
+                  weights="int8", kv_cache="int8", turns=len(turns),
+                  prompt_tokens=[len(ids) for ids in encoded],
+                  max_new_tokens=max_new_tokens, draft_k=16, tie_gap=TIE_GAP,
+                  plain_top2_gap_median=float(torch.cat(gaps).median()),
+                  plain_top2_gap_min=float(torch.cat(gaps).min()),
+                  plain_top1_logit_median=float(torch.cat(
+                      [v[:, 0] for v in top_vals]).median()),
+                  round_vs_step=round_vs_step, **records,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  launches=launches)
+    emit(**record)
+    return record
+
+
+def phase_dense(ocr, reasoner, turns: list[Turn], card: str,
+                max_new_tokens: int = 128, json_tokens: int = 256) -> dict:
+    """The dense (contiguous-cache) path of both engines at full width, on
+    the resident models once their KV pools are dropped:
+    ``TorchOCRBackend(serving="dense").read_batch`` on the read phase's 4
+    pages x 2 strategies (128 tokens), ``TorchReasoningBackend(serving=
+    "dense")``: ``chat_batch`` on the 8 left-padded editor turns (128
+    tokens, ``eos_token_id=-1``) and one ``chat(json_schema=critic)``
+    through ``generate_json`` (256 tokens, the published EOS). Per call:
+    wall s, peak memory and launches; flash, window and the int8 matmul
+    must launch. Both models' ``forward_logits`` must be finite. Then the
+    same reads and turns through the paged engines over fp KV (the closer
+    yardstick: dense KV is bf16): the first differing token per row is
+    reported, not required to be absent."""
+    from handwritten_ocr_tpu_torch.config import (OCR_PROMPT,
+                                                  PREPROCESSING_STRATEGIES)
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
+
+    ocr._batcher = reasoner._batcher = None     # the pools go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokenizer = spelling_tokenizer()
+    prep = TorchPreprocessor()
+    images = [prep.apply(page, s) for page in synthetic_pages(4)
+              for s in PREPROCESSING_STRATEGIES[:2]]
+    free = Qwen3Model(reasoner.model.params,
+                      dataclasses.replace(reasoner.model.config, eos_token_id=-1))
+    critic = guided_requests(turns[:1])["critic"][0]
+    engines = {
+        "read_batch": (TorchOCRBackend(ocr.model, tokenizer, serving="dense"),
+                       lambda e: e.read_batch(images, OCR_PROMPT,
+                                              max_new_tokens)),
+        "chat_batch": (TorchReasoningBackend(free, tokenizer, serving="dense"),
+                       lambda e: e.chat_batch(turns, temperature=0.1,
+                                              max_tokens=max_new_tokens)),
+        "chat_json": (TorchReasoningBackend(reasoner.model, dense_tokenizer(),
+                                            serving="dense"),
+                      lambda e: [e.chat(critic.system, critic.user,
+                                        temperature=0.1, max_tokens=json_tokens,
+                                        json_schema=critic.schema)])}
+    calls, outputs = {}, {}
+    reset_launches()
+    for name, (engine, call) in engines.items():
+        before = read_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outputs[name] = call(engine)
+        torch.cuda.synchronize()
+        calls[name] = dict(
+            call_s=time.perf_counter() - t0,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches={k: v - before[k] for k, v in read_launches().items()},
+            batcher=engine._batcher is not None)
+    launches = read_launches()
+    require_launches("dense", launches, ("flash_attention", "window_attention",
+                                         "int8_matmul"))
+    if any(c["batcher"] for c in calls.values()):
+        raise AssertionError(f"a dense engine built a batcher: {calls}")
+    if len(outputs["read_batch"]) != len(images) or \
+            len(outputs["chat_batch"]) != len(turns):
+        raise AssertionError("dense calls returned the wrong number of texts")
+    ids = [engines["chat_batch"][0]._encode(t.system, t.user) for t in turns]
+    logits = free.forward_logits([ids[0][:512]])
+    vl_ids = engines["read_batch"][0]._prompt_ids(OCR_PROMPT, 0)
+    vl_logits = ocr.model.forward_logits([vl_ids])
+    for name, out in (("qwen3", logits), ("vl", vl_logits)):
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite {name} forward_logits")
+    del logits, vl_logits
+    paged = {"read_batch": TorchOCRBackend(ocr.model, tokenizer,
+                                           kv_quant=False),
+             "chat_batch": TorchReasoningBackend(free, tokenizer,
+                                                 kv_quant=False)}
+    agreement = {}
+    for name, engine in paged.items():
+        want = [[int(x) for x in t.split()]
+                for t in engines[name][1](engine)]
+        got = [[int(x) for x in t.split()] for t in outputs[name]]
+        agreement[name] = dict(
+            first_difference=[_first_difference(a, b)
+                              for a, b in zip(want, got)],
+            tokens=[len(t) for t in got])
+        engine._batcher = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    record = dict(phase="dense", card=card,
+                  models=["olmOCR-2-7B (VLConfig()), bf16",
+                          "qwen3:32b (Qwen3Config()), int8 weights"],
+                  kv_cache="bf16, contiguous, per call", reads=len(images),
+                  turns=len(turns), prompt_tokens=[len(i) for i in ids],
+                  json_prompt_tokens=len(engines["chat_json"][0]._encode(
+                      critic.system, critic.user)),
+                  max_new_tokens=max_new_tokens, json_tokens=json_tokens,
+                  calls=calls, json_text=outputs["chat_json"][0][:160],
+                  agreement_with_paged_fp_kv=agreement, launches=launches)
+    emit(**record)
+    return record
+
+
+def phase_kernels_decode_modes(cfg, qcfg, prompt_len: int, q_prompt_len: int,
+                         json_prompt_len: int) -> list[dict]:
+    """The kernels at the speculative and dense paths' shapes: int8 paged
+    attention at 17 query tokens (a verify round, draft_k 16) with 8 of 24
+    slots live and every append crossing a page boundary, at 64:8 and
+    28:4 heads; flash at the dense VL prefill (unpadded prompt, causal)
+    and at ``generate_json``'s one-row Qwen3 prefill; the int8 matmul at
+    one row (``generate_json``'s steps). Runs when no model is
+    resident."""
+    from handwritten_ocr_tpu_torch import config as cfg_mod
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    txt, slots = cfg.text, cfg_mod.SERVE_SLOTS
+    rows = [
+        _paged_case("paged_append_attention", "qwen3_verify_int8_t17", slots,
+                    8, q_prompt_len + 64, qcfg.num_hidden_layers,
+                    qcfg.num_attention_heads, qcfg.num_key_value_heads,
+                    qcfg.head_dim, True, gen, "speculative", t=17),
+        _paged_case("paged_append_attention", "vl_verify_int8_t17", slots, 8,
+                    prompt_len + 64, txt.num_hidden_layers,
+                    txt.num_attention_heads, txt.num_key_value_heads,
+                    txt.head_dim, True, gen, "speculative", t=17),
+        _flash_case("dense_vl_prefill_causal", "dense", 8, prompt_len,
+                    txt.num_attention_heads, txt.num_key_value_heads,
+                    txt.head_dim, gen, causal=True),
+        _flash_case("dense_qwen3_json_prefill_causal", "dense", 1,
+                    json_prompt_len, qcfg.num_attention_heads,
+                    qcfg.num_key_value_heads, qcfg.head_dim, gen,
+                    causal=True)]
+    d, ffn, vocab = qcfg.hidden_size, qcfg.intermediate_size, qcfg.vocab_size
+    for case, d_in, d_out, out_dtype in (
+            ("gate_m1", d, ffn, torch.bfloat16),
+            ("lm_head_m1", d, vocab, torch.float32)):
+        rows.append(_int8_matmul_case(case, 1, d_in, d_out, out_dtype, gen,
+                                      "dense"))
+    rows = [with_ratio(r) for r in rows]
+    for r in rows:
+        emit(phase="kernel", **r)
+    return rows
+
 
 def main() -> int:
     from handwritten_ocr_tpu_torch.config import OCR_PROMPT
@@ -2054,6 +2594,8 @@ def main() -> int:
     from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
 
     info = phase_device()
+    for name in ("HOCR_SPEC", "HOCR_VL_SERVING", "HOCR_LLM_SERVING"):
+        os.environ.pop(name, None)        # every engine's defaults
     t_start = time.perf_counter()
     phase_build()
     cfg = VLConfig()                        # olmOCR-2-7B / Qwen2.5-VL-7B widths
@@ -2073,6 +2615,8 @@ def main() -> int:
     # The guided and pipeline phases decode with the published EOS id.
     reasoner, paths["guided"], guided_seen = phase_guided(
         Qwen3Config(), turns, info["smi"])
+    paths["speculative"] = phase_speculative(
+        reasoner, turns, info["smi"], guided_seen["agents"]["editor"])["launches"]
     ocr, _ = phase_pool_plan(cfg, reasoner, prompt_len, info["smi"])
     cli = phase_cli(ocr, reasoner, info["smi"])
     paths["cli"] = cli["cli"]["launches"]
@@ -2081,6 +2625,8 @@ def main() -> int:
     # counted from 0
     paths["pipeline"] = {name: cli["run_many"]["launches"][name]
                          + run["launches"][name] for name in run["launches"]}
+    dense = phase_dense(ocr, reasoner, turns, info["smi"])
+    paths["dense"] = dense["launches"]
     del reasoner, ocr
     gc.collect()                # both models go before the last phases
     torch.cuda.empty_cache()
@@ -2091,6 +2637,8 @@ def main() -> int:
     paths["reference_fp_kv"] = reference["launches"]["vl_fp_kv"]
     rows += phase_kernels_paths(cfg, Qwen3Config(), prompt_len, {
         "guided": guided_seen, "pipeline": cli["seen"]})
+    rows += phase_kernels_decode_modes(cfg, Qwen3Config(), prompt_len, q_prompt_len,
+                                 dense["json_prompt_tokens"])
     kernels = []
     for r in rows:
         kernels.append({key: r[key] for key in (
@@ -2102,7 +2650,8 @@ def main() -> int:
                                        "library_ratio")}
             | {key: r.get(key) for key in ("graph_ms", "library_graph_ms")}
             | {f"{path}_launches": paths[path][r["counter"]]
-               for path in ("guided", "pipeline", "cli")})
+               for path in ("guided", "pipeline", "cli", "speculative",
+                            "dense")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

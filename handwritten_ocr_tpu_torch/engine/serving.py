@@ -6,8 +6,10 @@ retires the sequences that hit EOS or their budget (freeing their blocks
 at once) and admits queued requests into the freed slots.
 ``ContinuousBatcher.run_guided`` is the schema-guided counterpart: one
 batched top-k step per committed token, and chunked greedy steps through
-string value spans. Speculative decoding (``string_verify_round``,
-``_verify_step``, off by default in the JAX package) is not ported.
+string value spans. Requests that ``speculate`` (prompt-lookup decoding,
+off by default as in the JAX package) interleave verify rounds with both:
+up to ``draft_k`` drafted tokens per slot scored in one forward, the
+longest greedy-matching prefix accepted.
 
 Greedy argmax and the top-k run on fp32 logits on the device, and so do
 the EOS, budget and quote stops; the host reads one flag per step to end
@@ -141,6 +143,20 @@ class GenRequest:
     # Pre-spliced prompt embeddings [T, D] (VL vision splice); None =
     # embedding-table lookup of prompt_ids.
     embeds: torch.Tensor | None = None
+    # Prompt-lookup speculative decoding: draft the next tokens from the
+    # last earlier occurrence of the current suffix n-gram in (prompt +
+    # generated), score them all in ONE forward, accept the longest
+    # prefix greedy decode would have produced. Greedy-invisible where the
+    # verify forward and the decode step round alike (the CPU); on the
+    # card the 17-token verify's products tile differently, so a
+    # near-tie can flip.
+    speculate: bool = False
+    # Teacher-forced drafting (a measurement hook): drafts are read from
+    # this token stream at the current generated offset instead of by
+    # prompt lookup. Verify and accept are unchanged; only the drafts'
+    # source differs, so acceptance can be controlled with random
+    # weights, which never accept an n-gram draft. No engine sets it.
+    draft_oracle: np.ndarray | None = None
     # Filled by the batcher:
     tokens: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
@@ -150,6 +166,27 @@ class GenRequest:
         self.done = done
         if self.on_tokens is not None and (new_tokens or done):
             self.on_tokens(new_tokens, done)
+
+
+def _ngram_draft(context: np.ndarray, k: int, max_n: int = 3,
+                 min_n: int = 2) -> np.ndarray:
+    """Prompt-lookup draft: the continuation after the LAST earlier
+    occurrence of the current suffix n-gram (longest n first); at most
+    ``k`` tokens, possibly none. Host numpy only."""
+    length = len(context)
+    for n in range(max_n, min_n - 1, -1):
+        if length < n + 1:
+            continue
+        suffix = context[length - n:]
+        windows = np.lib.stride_tricks.sliding_window_view(
+            context[:length - 1], n)
+        hits = np.nonzero((windows == suffix).all(axis=1))[0]
+        if len(hits):
+            i = int(hits[-1])
+            cont = context[i + n: i + n + k]
+            if len(cont):
+                return cont.astype(np.int32)
+    return np.empty(0, np.int32)
 
 
 class PagedProgram:
@@ -269,6 +306,45 @@ class PagedProgram:
             steps += 1
         return tokens, last, auto, steps
 
+    def verify_step(self, cache: PagedKVCache, last: torch.Tensor,
+                    drafts: torch.Tensor, draft_len: torch.Tensor,
+                    active: torch.Tensor, rope_delta: torch.Tensor,
+                    table_pages: int | None = None):
+        """Speculative verify: score ``[last, draft_0..draft_{K-1}]`` of
+        every slot in one forward and accept the longest prefix of drafts
+        that greedy decode would have produced; the tokens then equal K+1
+        greedy steps over the accepted prefix plus the bonus token at the
+        first divergence.
+
+        drafts [S, K] int32 (junk beyond draft_len[s]); active [S] marks
+        the slots whose drafts and outputs are real. Token i of a slot is
+        real for i <= draft_len (0 is the committed ``last``): only those
+        are appended and attend. Lengths become start + 1 + accepted
+        (capped at the table) for active slots, and stay for the others;
+        the rejected positions hold rows that later steps overwrite
+        before they read them. Returns (tokens [S, K+1] int32, accepted
+        [S]) on the device."""
+        n_slots, k = drafts.shape
+        steps = torch.arange(k + 1, device=last.device)
+        slot_ids = torch.arange(n_slots, device=last.device)
+        in_tokens = torch.cat([last[:, None], drafts], dim=1)
+        embeds = self.params["embed"]["w"][in_tokens.long()]
+        start = cache.lengths.clone()
+        pos = (start + rope_delta)[:, None] + steps[None]
+        if self.mrope:
+            pos = pos[None].expand(3, n_slots, k + 1)
+        token_valid = active[:, None] & (steps[None] <= draft_len[:, None])
+        hidden = paged_forward(self.params, self.cfg, embeds, pos, cache,
+                               slot_ids, start, start,    # lengths set below
+                               attn_valid=token_valid, table_pages=table_pages)
+        logits = lm_logits(self.params, self.cfg, hidden)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        match = (nxt[:, :k] == drafts) & (steps[None, :k] < draft_len[:, None])
+        accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        new_len = torch.clamp(start + 1 + accepted, max=cache.max_context)
+        cache.lengths.copy_(torch.where(active, new_len, start))
+        return nxt, accepted
+
     def decode_chunk(self, cache: PagedKVCache, last: torch.Tensor,
                      done: torch.Tensor, remaining: torch.Tensor,
                      rope_delta: torch.Tensor, chunk: int,
@@ -303,15 +379,19 @@ class ContinuousBatcher:
     n_blocks: pool size (block 0 is the trash sink); max_context: per-
     sequence bound (table width); chunk: decode steps per dispatch when a
     live request streams tokens, throughput_chunk otherwise;
-    prefill_bucket: prompt lengths pad up to a multiple of this; dtype:
-    the fp pools' dtype; kv_quant: int8 pools with per-token, per-head
-    scales instead (the serving default, ``config.SERVE_KV_INT8``).
+    prefill_bucket: prompt lengths pad up to a multiple of this;
+    draft_k: tokens drafted per slot for a speculative verify round;
+    dtype: the fp pools' dtype; kv_quant: int8 pools with per-token,
+    per-head scales instead (the serving default, ``config.SERVE_KV_INT8``).
 
     ``stats`` accumulates host-clock seconds of prefill and decode (each
     ends in a device-to-host read, so the times include the device work)
     and the tokens the decode chunks emitted; guided decode adds its
     top-k steps, string-chunk steps, committed tokens, the host seconds
-    spent inside the schema sessions, and its sessions (complete or not).
+    spent inside the schema sessions, and its sessions (complete or not);
+    verify rounds add their seconds and the tokens they committed.
+    ``spec_stats`` counts the verify rounds and the tokens drafted and
+    accepted, as the JAX batcher does.
     """
 
     # Prefill activations scale with rows x bucket tokens; cap the rows
@@ -321,8 +401,9 @@ class ContinuousBatcher:
     def __init__(self, program: PagedProgram, *, n_slots: int = 8,
                  block_size: int = 64, n_blocks: int | None = None,
                  max_context: int = 4096, chunk: int = 16,
-                 prefill_bucket: int = 128, dtype=torch.bfloat16,
-                 device="cpu", throughput_chunk: int | None = None,
+                 prefill_bucket: int = 128, draft_k: int = 16,
+                 dtype=torch.bfloat16, device="cpu",
+                 throughput_chunk: int | None = None,
                  kv_quant: bool = False):
         cfg = program.cfg
         self.program = program
@@ -351,10 +432,17 @@ class ContinuousBatcher:
         # Host mirror of each slot's cache length; drives the table-width
         # ladder (attention reads scale with the table width).
         self._host_len = np.zeros((n_slots,), np.int64)
+        # Speculative decoding: draft_k tokens drafted per verify round; a
+        # round that averaged under 2 accepted tokens a slot is followed
+        # by one plain dispatch, so inputs that never match pay little.
+        self.draft_k = draft_k
+        self._spec_cooldown = 0
+        self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0,
                       "topk_steps": 0, "string_steps": 0,
                       "guided_tokens": 0, "session_s": 0.0, "sessions": 0,
-                      "sessions_complete": 0}
+                      "sessions_complete": 0, "verify_s": 0.0,
+                      "verify_tokens": 0}
 
     def _tensor(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array), device=self.device)
@@ -558,6 +646,74 @@ class ContinuousBatcher:
             self._retire(slot)
             self._last[slot] = eos
 
+        def string_verify_round() -> bool:
+            """Speculative advance of the in-span sessions: draft from
+            (prompt + committed) with the drafts cut at the first stop
+            token (the chunked loop would have stalled there), verify in
+            one forward, take in the accepted tokens and the bonus token
+            as a chunk row. False when the drafts do not justify a verify
+            round; the caller then runs the chunked loop. An editor's
+            ``corrected_text`` copies its prompt almost verbatim."""
+            if self._spec_cooldown > 0:
+                self._spec_cooldown -= 1
+                return False
+            drafters = [slot for slot, session in sessions.items()
+                        if session.in_string_span()
+                        and self._slot_req[slot].speculate]
+            if not drafters:
+                return False
+            drafts = np.zeros((self.n_slots, self.draft_k), np.int32)
+            draft_len = np.zeros((self.n_slots,), np.int32)
+            auto = np.zeros((self.n_slots,), bool)
+            for slot in drafters:
+                cap = min(self.draft_k, sessions[slot].budget - 1)
+                if cap <= 0:
+                    continue
+                request = self._slot_req[slot]
+                draft = _ngram_draft(np.concatenate([
+                    np.asarray(request.prompt_ids, np.int32),
+                    np.asarray(request.tokens, np.int32)]), cap)
+                stop_at = next((i for i, t in enumerate(draft)
+                                if stop_mask_host[t]), len(draft))
+                draft = draft[:stop_at]
+                if len(draft) >= 2:
+                    auto[slot] = True
+                    drafts[slot, :len(draft)] = draft
+                    draft_len[slot] = len(draft)
+            # Gate on every in-span session, speculating or not: the
+            # others make no progress in a verify round.
+            good = int(auto.sum())
+            n_in_span = sum(1 for s in sessions.values()
+                            if s.in_string_span())
+            if good * 2 < n_in_span or good == 0:
+                return False
+            t0 = clock()
+            tokens, accepted = self.program.verify_step(
+                self.cache, self._tensor(self._last), self._tensor(drafts),
+                self._tensor(draft_len), self._tensor(auto),
+                self._tensor(self._rope_delta),
+                table_pages=self._table_pages(sessions, self.draft_k + 2))
+            tokens = tokens.cpu().numpy()
+            accepted = accepted.cpu().numpy()
+            stats["verify_s"] += clock() - t0
+            total = 0
+            for slot in list(sessions):
+                if not auto[slot]:
+                    continue
+                n_acc = int(accepted[slot])
+                total += n_acc
+                emitted = [int(t) for t in tokens[slot, :n_acc + 1]]
+                self._host_len[slot] += 1 + n_acc
+                self._last[slot] = emitted[-1]
+                self._slot_req[slot].tokens.extend(emitted)
+                stats["guided_tokens"] += len(emitted)
+                stats["verify_tokens"] += len(emitted)
+                in_session(sessions[slot].absorb_string_tokens, emitted)
+                if sessions[slot].done:
+                    retire_slot(slot)
+            self._count_round(draft_len, total, good)
+            return True
+
         def string_chunk_round() -> None:
             """Advance every session inside a string value span with the
             chunked device loop (up to ``chunk`` string tokens per in-span
@@ -609,11 +765,13 @@ class ContinuousBatcher:
                 # Every admitted session finished at once; with every
                 # block free again, the queue's head fits next round.
                 continue
-            # Drain string value spans; afterwards no session is mid-span
-            # (a resolved span always refills the forced scaffold queue).
+            # Drain string value spans: verify rounds while the drafts
+            # justify them, else the chunked loop. Afterwards no session
+            # is mid-span (a resolved span refills the scaffold queue).
             while sessions and any(s.in_string_span()
                                    for s in sessions.values()):
-                string_chunk_round()
+                if not string_verify_round():
+                    string_chunk_round()
             if queue and self._free_slots:
                 admit()
             if not sessions:
@@ -634,11 +792,100 @@ class ContinuousBatcher:
                 commit(slot, in_session(sessions[slot].next_token, ids[slot]))
         return [results[id(request)] for request in requests]
 
+    # ── speculative decoding (prompt-lookup drafting) ─────────────
+    def _count_round(self, draft_len: np.ndarray, accepted: int,
+                     live: int) -> None:
+        """Count a verify round; after one that averaged under 2 accepted
+        tokens a slot, the next dispatch is a plain one."""
+        self.spec_stats["rounds"] += 1
+        self.spec_stats["drafted"] += int(draft_len.sum())
+        self.spec_stats["accepted"] += accepted
+        if live and accepted / live < 2.0:
+            self._spec_cooldown = 1
+
+    def _spec_drafts(self) -> tuple[np.ndarray, np.ndarray] | None:
+        """Per-slot drafts for a verify round, or None when a plain decode
+        chunk is the better dispatch: nobody speculates, the drafts came
+        up short, or a cooldown is on."""
+        if self._spec_cooldown > 0:
+            self._spec_cooldown -= 1
+            return None
+        speculating = [slot for slot, request in self._slot_req.items()
+                       if request.speculate]
+        if not speculating:
+            return None
+        drafts = np.zeros((self.n_slots, self.draft_k), np.int32)
+        draft_len = np.zeros((self.n_slots,), np.int32)
+        good = 0
+        for slot in speculating:
+            request = self._slot_req[slot]
+            cap = min(self.draft_k, request.max_new - len(request.tokens) - 1)
+            if cap <= 0:
+                continue
+            if request.draft_oracle is not None:
+                pos = len(request.tokens)
+                draft = np.asarray(request.draft_oracle[pos:pos + cap],
+                                   np.int32)
+            else:
+                draft = _ngram_draft(np.concatenate([
+                    np.asarray(request.prompt_ids, np.int32),
+                    np.asarray(request.tokens, np.int32)]), cap)
+            good += len(draft) >= 2
+            drafts[slot, :len(draft)] = draft
+            draft_len[slot] = len(draft)
+        # Verify only when at least half of ALL live slots drafted two
+        # tokens or more: a verify round advances a slot without a draft
+        # by one token, where a plain chunk advances it by a chunk.
+        if good * 2 < len(self._slot_req) or good == 0:
+            return None
+        return drafts, draft_len
+
+    def _verify_round(self, drafts: np.ndarray, draft_len: np.ndarray) -> None:
+        """One verify forward: every live slot takes its longest
+        greedy-matching draft prefix and the bonus token."""
+        t0 = time.perf_counter()
+        eos = self.program.eos_token_id
+        active = np.zeros((self.n_slots,), bool)
+        active[list(self._slot_req)] = True
+        tokens, accepted = self.program.verify_step(
+            self.cache, self._tensor(self._last), self._tensor(drafts),
+            self._tensor(draft_len), self._tensor(active),
+            self._tensor(self._rope_delta),
+            table_pages=self._table_pages(self._slot_req, self.draft_k + 2))
+        tokens = tokens.cpu().numpy()
+        accepted = accepted.cpu().numpy()
+        self.stats["verify_s"] += time.perf_counter() - t0
+        total = 0
+        for slot in list(self._slot_req):
+            request = self._slot_req[slot]
+            n_acc = int(accepted[slot])
+            total += n_acc
+            emitted = [int(t) for t in tokens[slot, :n_acc + 1]]
+            self._host_len[slot] += 1 + n_acc       # the rows written
+            self._last[slot] = emitted[-1]          # committed, not embedded
+            budget = request.max_new - len(request.tokens)
+            fresh: list[int] = []
+            finished = False
+            for token in emitted:
+                if token == eos:
+                    finished = True
+                    break
+                fresh.append(token)
+                if len(fresh) >= budget:
+                    finished = True
+                    break
+            request._emit(fresh, finished)
+            self.stats["verify_tokens"] += len(fresh)
+            if finished:
+                self._retire(slot)
+        self._count_round(draft_len, total, int(active.sum()))
+
     # ── the serving loop ──────────────────────────────────────────
     def run(self, requests: Sequence[GenRequest]) -> list[list[int]]:
         """Drive all requests to completion; returns their token lists in
         order (EOS excluded). Requests stream through ``on_tokens`` as
-        chunks complete."""
+        chunks complete. Requests that ``speculate`` interleave verify
+        rounds with the plain decode chunks."""
         self._check_fits(requests)
         eos = self.program.eos_token_id
         queue = deque(requests)
@@ -649,6 +896,10 @@ class ContinuousBatcher:
             if not self._slot_req:
                 # Every admitted request finished in its prefill; with
                 # every block free again, the queue's head fits next round.
+                continue
+            spec = self._spec_drafts()
+            if spec is not None:
+                self._verify_round(*spec)
                 continue
             t0 = time.perf_counter()
             done0 = np.ones((self.n_slots,), bool)

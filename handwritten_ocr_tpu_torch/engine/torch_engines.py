@@ -1,13 +1,20 @@
 """PyTorch engines: the preprocessor, the batched OCR backend, the
 reasoning backend, and the pipeline over both.
 
-Port of ``TPUPreprocessor``, the paged read path of ``JaxOCRBackend``, the
-paged path of ``JaxReasoningBackend`` (free and schema-guided decode) and
-``build_jax_pipeline`` (``handwritten_ocr_tpu/engine/jax_engines.py``).
-The models stay resident on the device; the strategies of one page share
-one batched vision + prefill + decode (every transform keeps the page
-geometry, so they share a grid), and the turns of a chat batch share the
-continuous batcher.
+Port of ``TPUPreprocessor``, ``JaxOCRBackend``, ``JaxReasoningBackend``
+(free and schema-guided decode) and ``build_jax_pipeline``
+(``handwritten_ocr_tpu/engine/jax_engines.py``). The models stay resident
+on the device; the strategies of one page share one batched vision +
+prefill + decode (every transform keeps the page geometry, so they share
+a grid), and the turns of a chat batch share the continuous batcher.
+
+Each engine serves ``"paged"`` (the default: the continuous batcher over
+a paged KV pool) or ``"dense"`` (one contiguous cache per call, the
+reference path the paged one is held to), chosen by its ``serving``
+argument, else ``HOCR_VL_SERVING`` / ``HOCR_LLM_SERVING`` at
+construction. ``HOCR_SPEC`` in ``("1", "on", "true")``, read at each
+call, turns on prompt-lookup speculative decoding of the reasoner's paged
+free and guided decode (off by default, as in the JAX package).
 
 KV pools are planned for the card: each engine sizes its pool from a byte
 budget (``pool_bytes``). Whoever builds both engines plans them together
@@ -49,6 +56,13 @@ from handwritten_ocr_tpu_torch.ops.dispatch import resolve_device
 
 OLMOCR_DIR_ENV = "HOCR_OLMOCR_DIR"
 QWEN3_DIR_ENV = "HOCR_QWEN3_DIR"
+
+
+def _spec_enabled() -> bool:
+    """Prompt-lookup speculative decoding (``HOCR_SPEC``), off by default
+    as in the JAX package; an explicit allowlist, so a set-but-empty
+    variable stays off."""
+    return os.environ.get("HOCR_SPEC", "0") in ("1", "on", "true")
 
 
 def _full_fp32_on_the_card() -> None:
@@ -132,7 +146,9 @@ def plan_pools(ocr, llm, card_bytes: int | None = None):
     memory (``card_bytes``, else the card of ``ocr.device``), the resident
     weights of both engines and ``config.ACTIVATION_RESERVE_BYTES``: the
     OCR pool holds ``SERVE_SLOTS`` reads at a 4096-token context, the
-    reasoner's 8 agent calls at 16384 (the default budgets' bounds). Any
+    reasoner's 8 agent calls at 16384 (the default budgets' bounds). Only
+    a paged engine gets a pool budget: a dense engine's share goes to the
+    other engine (a dense engine allocates its cache per call). Any
     batcher built before is dropped, so the next call builds within its
     budget."""
     from handwritten_ocr_tpu_torch.parallel.budget import (coresident_plan,
@@ -147,9 +163,13 @@ def plan_pools(ocr, llm, card_bytes: int | None = None):
         vl_weight_bytes=tree_bytes(ocr.model.params),
         llm_weight_bytes=tree_bytes(llm.model.params),
         activation_reserve=cfg_mod.ACTIVATION_RESERVE_BYTES)
-    for engine, prefix in ((ocr, "vl_kv"), (llm, "llm_kv")):
-        engine.pool_bytes = plan.component(prefix)
+    engines = ((ocr, "vl_kv"), (llm, "llm_kv"))
+    spare = sum(plan.component(prefix) for engine, prefix in engines
+                if engine.serving != "paged")
+    for engine, prefix in engines:
         engine._batcher = None
+        if engine.serving == "paged":
+            engine.pool_bytes = plan.component(prefix) + spare
     return plan
 
 
@@ -208,13 +228,17 @@ class TorchPreprocessor:
 
 
 class TorchOCRBackend:
-    """Batched VLM OCR over preprocessed device images, decoded through
-    the continuous batcher over the paged KV cache.
+    """Batched VLM OCR over preprocessed device images.
+
+    ``serving="paged"`` (default, else ``HOCR_VL_SERVING``): the pages
+    decode together through the continuous batcher over the paged KV
+    cache. ``"dense"``: one batched ``VLModel.generate`` per grid group
+    over a contiguous cache allocated per call (no batcher, no pool).
 
     ``stats`` accumulates host-clock seconds of the vision tower (with a
-    device sync at its end), and the batcher's prefill and decode seconds.
-    ``pool_bytes``: the KV pool's byte budget (None: plan alone, see
-    :func:`_pool_blocks`).
+    device sync at its end; paged reads), and the batcher's prefill and
+    decode seconds. ``pool_bytes``: the KV pool's byte budget (None: plan
+    alone, see :func:`_pool_blocks`).
     """
 
     def __init__(self, model, tokenizer: TextTokenizer,
@@ -222,7 +246,7 @@ class TorchOCRBackend:
                  min_pixels: int = cfg_mod.OCR_MIN_PIXELS,
                  max_pixels: int = cfg_mod.OCR_MAX_PIXELS,
                  kv_quant: bool = cfg_mod.SERVE_KV_INT8,
-                 pool_bytes: int | None = None):
+                 pool_bytes: int | None = None, serving: str | None = None):
         self.device = resolve_device(device)
         _full_fp32_on_the_card()
         self.model = model
@@ -231,6 +255,7 @@ class TorchOCRBackend:
         self.max_pixels = max_pixels
         self.kv_quant = kv_quant
         self.pool_bytes = pool_bytes
+        self.serving = serving or os.environ.get("HOCR_VL_SERVING", "paged")
         self._batcher = None
         self.stats = {"vision_s": 0.0}
 
@@ -311,6 +336,26 @@ class TorchOCRBackend:
 
     def read_batch(self, images: Sequence, prompt: str,
                    max_new_tokens: int) -> list[str]:
+        if self.serving == "paged":
+            return self._read_batch_paged(images, prompt, max_new_tokens)
+        return self._read_batch_dense(images, prompt, max_new_tokens)
+
+    def _read_batch_dense(self, images: Sequence, prompt: str,
+                          max_new_tokens: int) -> list[str]:
+        """One batched generate over a contiguous cache per grid group."""
+        results: list[str | None] = [None] * len(images)
+        for group, grid, patches in self._grid_groups(images):
+            ids_row = self._prompt_ids(prompt, grid[0] * grid[1] * grid[2] // 4)
+            gen = self.model.generate(np.tile(ids_row, (len(group), 1)),
+                                      patches, grid, max_new_tokens)
+            tokens, lengths = gen.tokens.cpu().numpy(), gen.lengths.tolist()
+            for row, img_idx in enumerate(group):
+                results[img_idx] = self.tokenizer.decode(
+                    tokens[row, :lengths[row]].tolist())
+        return results  # type: ignore[return-value]
+
+    def _read_batch_paged(self, images: Sequence, prompt: str,
+                          max_new_tokens: int) -> list[str]:
         """Vision encode + splice per grid group, then all pages decode
         together through the continuous batcher."""
         from handwritten_ocr_tpu_torch.engine.serving import GenRequest
@@ -348,9 +393,15 @@ class TorchOCRBackend:
 
 
 class TorchReasoningBackend:
-    """Qwen3 chat decode for the critic / editor / arbitrator: greedy
-    decode through the continuous batcher over the paged KV cache, free
-    or schema-guided (``json_schema``).
+    """Qwen3 chat decode for the critic / editor / arbitrator, free or
+    schema-guided (``json_schema``).
+
+    ``serving="paged"`` (default, else ``HOCR_LLM_SERVING``): greedy
+    decode through the continuous batcher over the paged KV cache, with
+    prompt-lookup speculation when ``HOCR_SPEC`` is on. ``"dense"``:
+    ``Qwen3Model.generate`` over left-padded batches and
+    ``generate_json`` for a single guided call, each over a contiguous
+    cache allocated per call.
 
     ``model`` is a :class:`~handwritten_ocr_tpu_torch.models.qwen3.
     Qwen3Model`` (bf16 or int8 weights).
@@ -361,16 +412,17 @@ class TorchReasoningBackend:
                  stream: bool = False,
                  device: str | torch.device | None = None,
                  kv_quant: bool = cfg_mod.SERVE_KV_INT8,
-                 pool_bytes: int | None = None):
+                 pool_bytes: int | None = None, serving: str | None = None):
         self.device = resolve_device(device)
         _full_fp32_on_the_card()
         self.model = model
         self.tokenizer = tokenizer
         self.enable_thinking = enable_thinking
-        # Live token streaming to stdout for single-request calls.
+        # Live token streaming to stdout for single-request paged calls.
         self.stream = stream
         self.kv_quant = kv_quant
         self.pool_bytes = pool_bytes
+        self.serving = serving or os.environ.get("HOCR_LLM_SERVING", "paged")
         self._batcher = None
 
     @classmethod
@@ -439,7 +491,8 @@ class TorchReasoningBackend:
         stream = (self._stream_printer()
                   if self.stream and len(encoded) == 1 else None)
         requests = [GenRequest(np.asarray(ids, np.int32), max_tokens,
-                               on_tokens=stream) for ids in encoded]
+                               on_tokens=stream, speculate=_spec_enabled())
+                    for ids in encoded]
         token_lists = batcher.run(requests)
         return [self.tokenizer.decode(tokens) for tokens in token_lists]
 
@@ -452,7 +505,8 @@ class TorchReasoningBackend:
         from handwritten_ocr_tpu_torch.engine.serving import GenRequest
         longest = max(len(ids) for ids in encoded)
         batcher = self._ensure_batcher(longest + max_tokens)
-        requests = [GenRequest(np.asarray(ids, np.int32), max_tokens)
+        requests = [GenRequest(np.asarray(ids, np.int32), max_tokens,
+                               speculate=_spec_enabled())
                     for ids in encoded]
         outcomes = batcher.run_guided(requests, json_schema, self.tokenizer)
         return [(json.dumps(obj) if obj is not None and complete else None)
@@ -462,29 +516,59 @@ class TorchReasoningBackend:
         return self.tokenizer.encode(llm_chat_prompt(
             system, user, enable_thinking=self.enable_thinking))
 
+    def _generate_dense(self, encoded: list[list[int]],
+                        max_tokens: int) -> list[str]:
+        """Left-padded prompts through one ``Qwen3Model.generate``."""
+        config = self.model.config
+        longest = max(len(ids) for ids in encoded)
+        batch_ids = np.full((len(encoded), longest),
+                            config.pad_token_id % config.vocab_size, np.int32)
+        pad_mask = np.zeros((len(encoded), longest), bool)
+        for row, ids in enumerate(encoded):
+            batch_ids[row, longest - len(ids):] = ids
+            pad_mask[row, longest - len(ids):] = True
+        gen = self.model.generate(batch_ids, max_tokens, pad_mask=pad_mask)
+        tokens, lengths = gen.tokens.cpu().numpy(), gen.lengths.tolist()
+        return [self.tokenizer.decode(tokens[row, :lengths[row]].tolist())
+                for row in range(len(encoded))]
+
     def chat(self, system_prompt: str, user_message: str, *,
              temperature: float, max_tokens: int,
              json_schema: dict | None = None) -> str:
         """Greedy chat decode; ``json_schema`` asks for schema-constrained
-        JSON (forced scaffolding, type-constrained values), with free
-        decode when the guided session is not complete (the caller's parse
-        ladder takes over). ``temperature`` is accepted for protocol
-        parity (the pipeline uses 0.1, close to greedy)."""
+        JSON (paged: forced scaffolding, type-constrained values; dense:
+        the JSON-prefix guard of ``generate_json``), with free decode when
+        that gives no result (the caller's parse ladder takes over).
+        ``temperature`` is accepted for protocol parity (the pipeline uses
+        0.1, close to greedy)."""
         ids = self._encode(system_prompt, user_message)
-        if json_schema is not None:
+        if json_schema is not None and self.serving == "paged":
             [constrained] = self._chat_guided([ids], json_schema, max_tokens)
             if constrained is not None:
                 return constrained
-        return self._generate_paged([ids], max_tokens)[0]
+        elif json_schema is not None:
+            constrained = self.model.generate_json([ids], max_tokens,
+                                                   self.tokenizer)
+            if constrained:
+                return constrained
+        if self.serving == "paged":
+            return self._generate_paged([ids], max_tokens)[0]
+        gen = self.model.generate([ids], max_tokens)
+        return self.tokenizer.decode(
+            gen.tokens[0, :int(gen.lengths[0])].tolist())
 
     def chat_batch(self, requests, *, temperature: float, max_tokens: int,
                    json_schema: dict | None = None) -> list[str]:
         """Many chat turns (objects with ``.system`` and ``.user``) as one
-        continuous batch: mixed-length prompts skip the pad-to-longest
-        prefill, and a turn that hits EOS frees its slot for the queue.
-        With ``json_schema`` the batch runs schema-guided; rows whose
-        session is not complete fall back to free decode."""
+        batch. Paged: one continuous batch (mixed-length prompts skip the
+        pad-to-longest prefill, and a turn that hits EOS frees its slot);
+        with ``json_schema`` it runs schema-guided, and rows whose session
+        is not complete fall back to free decode. Dense: one left-padded
+        free-decode ``generate``, which takes no ``json_schema`` (as in
+        the JAX package)."""
         encoded = [self._encode(r.system, r.user) for r in requests]
+        if self.serving != "paged":
+            return self._generate_dense(encoded, max_tokens)
         if json_schema is None:
             return self._generate_paged(encoded, max_tokens)
         texts = self._chat_guided(encoded, json_schema, max_tokens)

@@ -190,10 +190,13 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
     cached per row (0 for a fresh prefill); new_len [B]: the length to
     record for each slot afterwards. ``fresh`` asserts start == 0 for
     every row. attn_valid (optional): bool [B] rows whose output is
-    consumed; the others append nothing and skip their attention.
-    table_pages (optional): attend over only the first N pages of each
-    slot's table; callers keep every valid row's length below
-    ``table_pages * block_size``.
+    consumed (the others append nothing and skip their attention), or
+    bool [B, T] marking a per-row PREFIX of real tokens (speculative
+    verify: only those are appended, and a row's count of them bounds its
+    attention; the caller may then record lengths other than
+    ``new_len``). table_pages (optional): attend over only the first N
+    pages of each slot's table; callers keep every valid row's length
+    (and every write position) below ``table_pages * block_size``.
     """
     tables = cache.block_tables[slot_ids]
     if table_pages is not None and table_pages < tables.shape[1]:
@@ -201,6 +204,8 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
         tables = tables[:, :table_pages].contiguous()
     if attn_valid is None:
         n_valid = new_len - start
+    elif attn_valid.dim() == 2:
+        n_valid = attn_valid.sum(dim=1).to(torch.int32)
     else:
         n_valid = torch.where(attn_valid, new_len - start,
                               torch.zeros_like(start))

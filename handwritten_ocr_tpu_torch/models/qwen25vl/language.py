@@ -1,8 +1,11 @@
-"""Qwen2.5-VL text decoder pieces: M-RoPE tables and the LM head.
+"""Qwen2.5-VL text decoder: M-RoPE tables, the dense decoder stack over a
+contiguous KV cache, and the LM head.
 
-Port of ``mrope_cos_sin`` and ``lm_logits`` from
-``handwritten_ocr_tpu/models/qwen25vl/language.py``. The decoder stack
-itself runs over the paged cache (``models/paged.py``).
+Port of ``handwritten_ocr_tpu/models/qwen25vl/language.py``. The serving
+path runs the same layers over the paged cache (``models/paged.py``);
+:func:`text_forward` over a :class:`KVCache` is the dense path
+(``HOCR_VL_SERVING`` / ``HOCR_LLM_SERVING`` = ``dense``) and the parity
+entry point (``forward_logits``, no cache).
 
 M-RoPE: position ids are [3, B, T] (temporal, height, width planes); the
 rotary half-dim is cut by ``mrope_section`` with plane ``i % 3`` supplying
@@ -11,11 +14,42 @@ chunk ``i``. Text tokens carry equal ids in all planes.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import NamedTuple
+
 import torch
 
-from handwritten_ocr_tpu_torch.models.layers import rope_inv_freq
+from handwritten_ocr_tpu_torch.models.layers import (apply_rope, attention,
+                                                     linear, rms_norm,
+                                                     rope_inv_freq,
+                                                     swiglu_mlp)
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import TextConfig
+from handwritten_ocr_tpu_torch.ops.flash_attention import flash_attention
 from handwritten_ocr_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_matmul
+
+# The masked attention of the dense path runs in query chunks whose fp32
+# scores stay within this many bytes (a left-padded 2.8k-token prefill of
+# 8 rows over a 6.9k-token cache would otherwise take ~40 GB).
+SCORE_BYTES = 2 ** 30
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Contiguous per-layer keys and values and the write cursor (the
+    number of tokens already cached). Mutated in place by
+    :func:`text_forward`, where the JAX package returns a new cache."""
+
+    k: torch.Tensor     # [L, B, S_max, H_kv, D]
+    v: torch.Tensor     # [L, B, S_max, H_kv, D]
+    cursor: int = 0
+
+    @classmethod
+    def zeros(cls, num_layers: int, batch: int, max_len: int,
+              num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
+              device="cpu") -> "KVCache":
+        shape = (num_layers, batch, max_len, num_kv_heads, head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def mrope_cos_sin(cfg: TextConfig, position_ids: torch.Tensor):
@@ -38,6 +72,111 @@ def mrope_cos_sin(cfg: TextConfig, position_ids: torch.Tensor):
         half = torch.cat(chunks, dim=-1)
     emb = torch.cat([half, half], dim=-1)
     return torch.cos(emb), torch.sin(emb)
+
+
+def _chunked_attention(q, k, v, mask, scale: float) -> torch.Tensor:
+    """``layers.attention`` in chunks of query tokens whose fp32 scores
+    stay within SCORE_BYTES; each query row's softmax is its own, so the
+    chunks change nothing but the peak memory."""
+    b, t, hq, _ = q.shape
+    step = max(1, SCORE_BYTES // (b * hq * k.shape[1] * 4))
+    if step >= t:
+        return attention(q, k, v, mask, scale)
+    return torch.cat([attention(q[:, i:i + step], k, v,
+                                mask[:, :, i:i + step], scale)
+                      for i in range(0, t, step)], dim=1)
+
+
+def _self_attention(layer: dict, cfg: TextConfig, x: torch.Tensor, cos,
+                    sin, layer_idx: int, cache: KVCache | None,
+                    key_padding: torch.Tensor | None) -> torch.Tensor:
+    """One attention layer of the dense stack: x [B, T, D]; the new k/v
+    go into ``cache`` at its cursor. T > 1 without key padding is a
+    prefill into an empty cache and runs causal flash attention over the
+    current tokens; anything else runs the plain masked attention over
+    the whole cache (or the current tokens without one), causal by
+    position and ANDed with ``key_padding`` [B, S] (True = a real key)."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    q = linear(layer["q"], x).reshape(b, t, cfg.num_attention_heads, hd)
+    k = linear(layer["k"], x).reshape(b, t, cfg.num_key_value_heads, hd)
+    v = linear(layer["v"], x).reshape(b, t, cfg.num_key_value_heads, hd)
+    if "q_norm" in layer:  # Qwen3: RMSNorm over the head dim before rotary
+        q = rms_norm(layer["q_norm"], q, cfg.rms_norm_eps)
+        k = rms_norm(layer["k_norm"], k, cfg.rms_norm_eps)
+    q, k = apply_rope(q, k, cos[:, :, None, :], sin[:, :, None, :])
+
+    if cache is not None:
+        end = cache.cursor + t
+        cache.k[layer_idx, :, cache.cursor:end] = k.to(cache.k.dtype)
+        cache.v[layer_idx, :, cache.cursor:end] = v.to(cache.v.dtype)
+    if t > 1 and key_padding is None:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True, scale=hd ** -0.5)
+        return linear(layer["o"], out.reshape(b, t, -1))
+
+    rows = torch.arange(t, device=x.device)[:, None]
+    if cache is None:
+        keys, values = k, v
+    else:
+        keys, values = cache.k[layer_idx], cache.v[layer_idx]
+        rows = rows + cache.cursor
+    cols = torch.arange(keys.shape[1], device=x.device)[None, :]
+    mask = (cols <= rows)[None, None]                       # [1, 1, T, S]
+    if key_padding is not None:
+        mask = mask & key_padding[:, None, None, :]
+    out = _chunked_attention(q, keys.to(q.dtype), values.to(q.dtype), mask,
+                             hd ** -0.5)
+    return linear(layer["o"], out.reshape(b, t, -1))
+
+
+def text_forward(params: dict, cfg: TextConfig, embeds: torch.Tensor,
+                 position_ids: torch.Tensor, cache: KVCache | None = None,
+                 key_padding: torch.Tensor | None = None,
+                 ) -> tuple[torch.Tensor, KVCache | None]:
+    """Dense decoder stack over ``embeds [B, T, D]`` at ``position_ids``
+    ([3, B, T] M-RoPE or [B, T] 1D); key_padding: optional bool [B, S]
+    valid-key mask (S = the cache length, or T without a cache). Returns
+    (final-normed hidden [B, T, D], the cache, advanced by T in place)."""
+    cos, sin = mrope_cos_sin(cfg, position_ids)
+    x = embeds
+    for idx, layer in enumerate(params["layers"]):
+        x = x + _self_attention(
+            layer["attn"], cfg, rms_norm(layer["ln1"], x, cfg.rms_norm_eps),
+            cos, sin, idx, cache, key_padding)
+        x = x + swiglu_mlp(layer["mlp"],
+                           rms_norm(layer["ln2"], x, cfg.rms_norm_eps))
+    if cache is not None:
+        cache.cursor += embeds.shape[1]
+    return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
+
+
+class GenerationResult(NamedTuple):
+    tokens: torch.Tensor    # [B, max_new] int32; EOS after a row's end
+    lengths: torch.Tensor   # [B] generated tokens before the first EOS
+
+
+def greedy_decode(step_logits, first: torch.Tensor, max_new: int,
+                  eos: int) -> GenerationResult:
+    """The dense path's decode loop: from ``first [B]`` (the prefill's
+    tokens), ``step_logits(step, previous tokens [B])`` gives each step's
+    fp32 logits [B, V], until every row emitted EOS or ``max_new`` tokens
+    stand (one host read of a flag per step). A done row takes EOS; the
+    columns after the last step stay 0, as in the JAX loop."""
+    tokens = torch.zeros((first.shape[0], max_new), dtype=torch.int32,
+                         device=first.device)
+    tokens[:, 0] = first
+    done = first == eos
+    for step in range(1, max_new):
+        if bool(done.all()):
+            break
+        nxt = torch.argmax(step_logits(step, tokens[:, step - 1]),
+                           dim=-1).to(torch.int32)
+        nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+        tokens[:, step] = nxt
+        done = done | (nxt == eos)
+    lengths = torch.cumprod((tokens != eos).to(torch.int32), dim=1).sum(dim=1)
+    return GenerationResult(tokens=tokens, lengths=lengths)
 
 
 def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Qwen2.5-VL model glue: M-RoPE indexing and the image splice.
+"""Qwen2.5-VL model: M-RoPE indexing, the image splice, dense greedy
+decode.
 
-Port of ``rope_index_for_prompt`` and ``VLModel.prompt_embeds`` from
-``handwritten_ocr_tpu/models/qwen25vl/model.py``. Decoding runs in the
-continuous batcher (``engine/serving.py``).
+Port of ``handwritten_ocr_tpu/models/qwen25vl/model.py``. Serving decodes
+in the continuous batcher (``engine/serving.py``); ``VLModel.generate``
+is the dense path (one contiguous cache per call) and ``forward_logits``
+the full-sequence parity entry point.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import torch
 
 from handwritten_ocr_tpu_torch.config import SERVE_VISION_CHUNK
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+from handwritten_ocr_tpu_torch.models.qwen25vl.language import (
+    GenerationResult, KVCache, greedy_decode, lm_logits, text_forward)
 from handwritten_ocr_tpu_torch.models.qwen25vl.vision import vision_encode
 
 
@@ -65,7 +69,8 @@ def rope_index_for_prompt(ids: np.ndarray, config: VLConfig,
 
 
 class VLModel:
-    """Parameters + config of a Qwen2.5-VL model in the port's layout."""
+    """Parameters + config of a Qwen2.5-VL model in the port's layout;
+    dense greedy decode on the parameters' device."""
 
     def __init__(self, params: dict, config: VLConfig):
         self.params = params
@@ -97,3 +102,72 @@ class VLModel:
                       grid) -> torch.Tensor:
         """Vision encode + splice: the paged prefill's input [B, T, D]."""
         return self.splice_embeds(input_ids, self.vision_embeds(patches, grid))
+
+    def _positions(self, input_ids: np.ndarray, grid) -> tuple[torch.Tensor, int]:
+        """[3, B, T] M-RoPE ids of rows that share row 0's layout, and the
+        decode-step rope delta."""
+        grids = [tuple(int(g) for g in grid)] if grid is not None else []
+        row, delta = rope_index_for_prompt(input_ids[0], self.config, grids)
+        positions = np.array(np.broadcast_to(row[:, None, :],
+                                             (3, *input_ids.shape)))
+        device = self.params["text"]["embed"]["w"].device
+        return torch.as_tensor(positions, device=device), delta
+
+    def _embeds(self, input_ids: torch.Tensor, patches, grid) -> torch.Tensor:
+        if patches is None:
+            return self.params["text"]["embed"]["w"][input_ids]
+        return self.prompt_embeds(input_ids, patches, grid)
+
+    def _prefill(self, input_ids: torch.Tensor, patches, grid, max_new: int,
+                 position_ids: torch.Tensor):
+        """Vision encode + splice, then the prompt pass into a fresh cache
+        of prompt + ``max_new`` rows; returns (first token [B], cache)."""
+        text, cfg = self.params["text"], self.config.text
+        embeds = self._embeds(input_ids, patches, grid)
+        batch, prompt_len = input_ids.shape
+        cache = KVCache.zeros(cfg.num_hidden_layers, batch,
+                              prompt_len + max_new, cfg.num_key_value_heads,
+                              cfg.head_dim, dtype=embeds.dtype,
+                              device=embeds.device)
+        hidden, cache = text_forward(text, cfg, embeds, position_ids, cache)
+        logits = lm_logits(text, cfg, hidden[:, -1:])
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+
+    def _decode(self, max_new: int, first: torch.Tensor, cache: KVCache,
+                rope_delta: int) -> GenerationResult:
+        """Greedy steps at position cursor + rope_delta (all three M-RoPE
+        planes)."""
+        text, cfg = self.params["text"], self.config.text
+
+        def step_logits(step, prev):
+            embeds = text["embed"]["w"][prev.long()][:, None]
+            position_ids = torch.full((3, prev.shape[0], 1),
+                                      cache.cursor + rope_delta,
+                                      device=prev.device)
+            hidden, _ = text_forward(text, cfg, embeds, position_ids, cache)
+            return lm_logits(text, cfg, hidden)[:, -1]
+
+        return greedy_decode(step_logits, first, max_new,
+                             self.config.eos_token_id)
+
+    def generate(self, input_ids, patches: torch.Tensor | None, grid,
+                 max_new_tokens: int) -> GenerationResult:
+        """Greedy decode over a contiguous cache. Every row shares row 0's
+        prompt layout (the strategies of one page)."""
+        input_ids = np.asarray(input_ids, dtype=np.int64)
+        position_ids, delta = self._positions(input_ids, grid)
+        ids = torch.as_tensor(input_ids, device=position_ids.device)
+        first, cache = self._prefill(ids, patches, grid, int(max_new_tokens),
+                                     position_ids)
+        return self._decode(int(max_new_tokens), first, cache, delta)
+
+    def forward_logits(self, input_ids, patches: torch.Tensor | None = None,
+                       grid=None) -> torch.Tensor:
+        """Full-sequence fp32 logits [B, T, V] without a cache."""
+        input_ids = np.asarray(input_ids, dtype=np.int64)
+        position_ids, _ = self._positions(input_ids, grid)
+        ids = torch.as_tensor(input_ids, device=position_ids.device)
+        hidden, _ = text_forward(self.params["text"], self.config.text,
+                                 self._embeds(ids, patches, grid),
+                                 position_ids)
+        return lm_logits(self.params["text"], self.config.text, hidden)

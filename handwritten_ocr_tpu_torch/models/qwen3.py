@@ -1,13 +1,14 @@
 """Qwen3 text decoder: the reasoning engine's architecture.
 
-Port of ``Qwen3Config`` and the ``Qwen3Model`` holder of
-``handwritten_ocr_tpu/models/qwen3.py``. Qwen3 is a Qwen2-style GQA
-decoder with an RMSNorm over the head dim on Q and K before the rotary
-embedding (``q_norm``/``k_norm``), no attention biases, an explicit
-``head_dim`` (qwen3:32b: 64 heads x 128 = 8192, not the hidden 5120) and
-1D RoPE. It decodes through the paged stack of ``models/paged.py``
-(whose QK-norm branch turns on with the ``q_norm`` params) in the
-continuous batcher; the dense ``generate`` path is not ported.
+Port of ``handwritten_ocr_tpu/models/qwen3.py``. Qwen3 is a Qwen2-style
+GQA decoder with an RMSNorm over the head dim on Q and K before the
+rotary embedding (``q_norm``/``k_norm``), no attention biases, an
+explicit ``head_dim`` (qwen3:32b: 64 heads x 128 = 8192, not the hidden
+5120) and 1D RoPE. It serves through the paged stack of
+``models/paged.py`` in the continuous batcher; :class:`Qwen3Model` also
+decodes greedily over a contiguous cache (``generate``, left-padded
+batches; ``generate_json``, JSON-prefix-guarded), the dense path, and
+gives full-sequence logits (``forward_logits``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,12 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
+
+import numpy as np
+import torch
+
+from handwritten_ocr_tpu_torch.models.qwen25vl.language import (
+    GenerationResult, KVCache, greedy_decode, lm_logits, text_forward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +63,163 @@ class Qwen3Config:
 
 class Qwen3Model:
     """Parameters (a text tree: embed / layers / final_norm / lm_head, in
-    the port's layout) and their config."""
+    the port's layout) and their config; greedy decode over a contiguous
+    KV cache on the parameters' device."""
 
     def __init__(self, params: dict, config: Qwen3Config):
         self.params = params
         self.config = config
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"]["w"].device
+
+    def _ids(self, input_ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(input_ids, dtype=np.int64),
+                               device=self.device)
+
+    def _prompt_logits(self, input_ids: torch.Tensor, max_new: int,
+                       key_padding: torch.Tensor | None = None):
+        """Prompt pass into a fresh cache of prompt + ``max_new`` rows;
+        returns (fp32 logits [B, V] of the last prompt token, cache, each
+        row's last position). Left-padded rows (``key_padding`` False on
+        the padding) take positions from 0 on their first real token."""
+        cfg = self.config
+        batch, prompt_len = input_ids.shape
+        embeds = self.params["embed"]["w"][input_ids]
+        position_ids = torch.arange(prompt_len, device=self.device)[None] \
+            .expand(batch, prompt_len)
+        if key_padding is not None:
+            offsets = torch.argmax(key_padding.to(torch.int32), dim=1)[:, None]
+            position_ids = torch.clamp(position_ids - offsets, min=0)
+        cache = KVCache.zeros(cfg.num_hidden_layers, batch,
+                              prompt_len + max_new, cfg.num_key_value_heads,
+                              cfg.head_dim, dtype=embeds.dtype,
+                              device=self.device)
+        hidden, cache = text_forward(
+            self.params, cfg, embeds, position_ids, cache,
+            key_padding=_pad_to_cache(key_padding, prompt_len + max_new))
+        logits = lm_logits(self.params, cfg, hidden[:, -1:])[:, -1]
+        return logits, cache, position_ids[:, -1]
+
+    def _step_logits(self, tokens: torch.Tensor, cache: KVCache,
+                     positions: torch.Tensor,
+                     key_padding: torch.Tensor | None = None) -> torch.Tensor:
+        """One decode step of ``tokens [B]`` at ``positions [B]`` over the
+        cache (advanced in place); fp32 logits [B, V]."""
+        embeds = self.params["embed"]["w"][tokens.long()][:, None]
+        hidden, _ = text_forward(self.params, self.config, embeds,
+                                 positions[:, None], cache,
+                                 key_padding=key_padding)
+        return lm_logits(self.params, self.config, hidden)[:, -1]
+
+    def _prefill(self, input_ids: torch.Tensor, max_new: int,
+                 key_padding: torch.Tensor | None):
+        """Returns (first token [B], cache, each row's last position)."""
+        logits, cache, last_pos = self._prompt_logits(input_ids, max_new,
+                                                      key_padding)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache, last_pos
+
+    def _decode(self, max_new: int, first: torch.Tensor, cache: KVCache,
+                last_pos: torch.Tensor,
+                key_padding: torch.Tensor | None) -> GenerationResult:
+        """Greedy steps at each row's last position + step."""
+        padding = _pad_to_cache(key_padding, cache.k.shape[2])
+        return greedy_decode(
+            lambda step, prev: self._step_logits(prev, cache, last_pos + step,
+                                                 padding),
+            first, max_new, self.config.eos_token_id)
+
+    def _prefill_topk(self, input_ids: torch.Tensor, max_new: int, k: int):
+        """Prefill returning the next token's top-k ids [B, k] and the
+        cache (B = 1)."""
+        logits, cache, _ = self._prompt_logits(input_ids, max_new)
+        return _topk(logits, k), cache
+
+    def _step_topk(self, token: torch.Tensor, cache: KVCache, k: int,
+                   position: torch.Tensor):
+        """One decode step returning the top-k ids [B, k] (B = 1)."""
+        return _topk(self._step_logits(token, cache, position), k), cache
+
+    def generate_json(self, input_ids, max_new_tokens: int, tokenizer,
+                      top_k: int = 64) -> str:
+        """JSON-constrained greedy decode (B = 1): each step takes the
+        device's top-k and commits the best candidate whose decoded text
+        is still a viable JSON prefix (``utils/json_guard.py``); decoding
+        stops once the document is complete. Returns the text, possibly
+        an incomplete document when no candidate fits (the caller's parse
+        ladder salvages it)."""
+        from handwritten_ocr_tpu_torch.utils.json_guard import (
+            is_complete, is_viable_prefix)
+        ids = self._ids(input_ids)
+        if ids.shape[0] != 1:
+            raise ValueError("constrained decode takes one row")
+        eos = self.config.eos_token_id
+        idx, cache = self._prefill_topk(ids, int(max_new_tokens), top_k)
+        prompt_len = ids.shape[1]
+        generated: list[int] = []
+        text = ""
+        for step in range(max_new_tokens):
+            chosen = None
+            for token in idx[0].tolist():
+                if token == eos:
+                    if is_complete(text):
+                        return text
+                    continue
+                candidate_text = tokenizer.decode(generated + [token])
+                if is_viable_prefix(candidate_text.rstrip("\ufffd")):
+                    chosen = token
+                    text = candidate_text
+                    break
+            if chosen is None:
+                break               # no viable continuation
+            generated.append(chosen)
+            if "\ufffd" not in text and is_complete(text):
+                return text
+            idx, cache = self._step_topk(
+                torch.tensor([chosen], device=self.device), cache, top_k,
+                torch.full((1,), prompt_len + step, device=self.device))
+        return text
+
+    def generate(self, input_ids, max_new_tokens: int,
+                 pad_mask=None) -> GenerationResult:
+        """Greedy decode of ``input_ids [B, T]``; ``pad_mask`` True on the
+        real tokens of left-padded rows."""
+        ids = self._ids(input_ids)
+        padding = (None if pad_mask is None else
+                   torch.as_tensor(np.asarray(pad_mask, dtype=bool),
+                                   device=self.device))
+        first, cache, last_pos = self._prefill(ids, int(max_new_tokens),
+                                               padding)
+        return self._decode(int(max_new_tokens), first, cache, last_pos,
+                            padding)
+
+    def forward_logits(self, input_ids) -> torch.Tensor:
+        """Full-sequence fp32 logits [B, T, V] without a cache."""
+        ids = self._ids(input_ids)
+        batch, seq = ids.shape
+        position_ids = torch.arange(seq, device=self.device)[None] \
+            .expand(batch, seq)
+        hidden, _ = text_forward(self.params, self.config,
+                                 self.params["embed"]["w"][ids],
+                                 position_ids)
+        return lm_logits(self.params, self.config, hidden)
+
+
+def _topk(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k ids in ``jax.lax.top_k``'s order (value-descending,
+    index-ascending on ties)."""
+    from handwritten_ocr_tpu_torch.engine.serving import topk_ids
+    return topk_ids(logits, k)
+
+
+def _pad_to_cache(key_padding: torch.Tensor | None,
+                  cache_len: int) -> torch.Tensor | None:
+    """A prompt-length padding mask extended to the cache length (the new
+    rows are real)."""
+    if key_padding is None:
+        return None
+    batch, prompt_len = key_padding.shape
+    extra = torch.ones((batch, cache_len - prompt_len), dtype=torch.bool,
+                       device=key_padding.device)
+    return torch.cat([key_padding, extra], dim=1)

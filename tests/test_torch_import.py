@@ -47,7 +47,8 @@ def test_port_has_the_slice_modules():
                  "ops.denoise", "ops.lines", "parallel.budget", "models.png",
                  "utils.safetensors", "models.tokenizer",
                  "models.checkpoint", "engine.dryrun", "engine.prefetch",
-                 "evaluation", "cli.eval_final", "cli.transcribe"):
+                 "evaluation", "cli.eval_final", "cli.transcribe",
+                 "utils.json_guard"):
         assert f"handwritten_ocr_tpu_torch.{name}" in modules
 
 

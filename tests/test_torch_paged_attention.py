@@ -217,19 +217,23 @@ def assert_close_to_plain(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [7, 8])
-@pytest.mark.parametrize("t,start,n_valid", [
+@pytest.mark.parametrize("t,start,n_valid,bs", [
     # inside a page; ending on a split boundary (128 cols); dead; many splits
-    (1, [37, 255, 0, 1000, 127], [1, 1, 0, 1, 1]),
-    (5, [37, 251, 0, 995, 128], [5, 5, 0, 5, 3]),
+    (1, [37, 255, 0, 1000, 127], [1, 1, 0, 1, 1], 16),
+    (5, [37, 251, 0, 995, 128], [5, 5, 0, 5, 3], 16),
+    # a speculative verify round (draft_k 16): 17 query tokens (an int8
+    # append holds at most a block), appends that cross a page boundary,
+    # two of them also a split boundary (128 and 1024 cols)
+    (17, [20, 30, 0, 1020, 127], [17, 12, 0, 9, 17], 32),
 ])
-def test_int8_tensor_core_body_on_cuda(group, t, start, n_valid):
+def test_int8_tensor_core_body_on_cuda(group, t, start, n_valid, bs):
     """The int8-KV body with bf16 q at the engines' group sizes: valid rows
     within tolerance, dead slots zero, pools and scale pools bit-equal to
     the plain append, one launch per call, and two calls bit-equal (the
     split merge's fixed order and the counters' reset)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    a = make_decode(group + t, t, group, start, n_valid)
+    a = make_decode(group + t, t, group, start, n_valid, bs=bs)
     dev = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
     for k in ("q", "k_new", "v_new"):
         dev[k] = dev[k].bfloat16()

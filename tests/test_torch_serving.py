@@ -4,8 +4,9 @@ More requests than slots, mixed prompt lengths and budgets, one request
 whose budget ends inside a chunk: slot admission, block alloc and free,
 retirement at chunk boundaries and prefill bucketing all run. On the same
 fp32 weights the greedy token streams are equal. On a card, decode
-through the paged kernel must give the CPU's tokens (JAX is imported
-inside the JAX tests, so that case also runs where JAX is not installed).
+through the paged kernel must give the CPU's tokens, and so must
+speculative verify rounds and the dense path (JAX is imported inside the
+JAX tests, so those cases also run where JAX is not installed).
 """
 
 import numpy as np
@@ -152,3 +153,73 @@ def test_int8_qwen3_decode_matches_cpu_on_cuda(kv_quant):
     assert after[0] > before[0]
     assert (after[1] > before[1]) == kv_quant
     assert (after[2] > before[2]) == (not kv_quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [True, False])
+def test_speculative_decode_matches_cpu_on_cuda(kv_quant):
+    """Verify rounds on the card (the paged kernels at draft_k + 1 = 17
+    query tokens, fp32 activations) with drafts read from the CPU's plain
+    greedy streams: every draft is accepted and the tokens are the CPU's,
+    over int8 and over fp KV pools."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    from handwritten_ocr_tpu_torch.ops.paged_decode_attention import (
+        paged_append_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Qwen3Config(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, head_dim=128, eos_token_id=EOS)
+    params = init_qwen3(cfg, dtype=torch.float32, device="cpu", seed=3)
+    kw = dict(BATCHER, block_size=128, max_context=512, dtype=torch.float32,
+              kv_quant=kv_quant, draft_k=16)
+    reqs = requests(GenRequest)
+    want = ContinuousBatcher(PagedProgram(params, cfg), device="cpu",
+                             **kw).run(reqs)
+    before = (paged_append_attention.int8_launches
+              + paged_append_attention.launches)
+    batcher = ContinuousBatcher(PagedProgram(_to(params, "cuda"), cfg),
+                                device="cuda", **kw)
+    got = batcher.run([GenRequest(
+        prompt_ids=r.prompt_ids, max_new=r.max_new, speculate=True,
+        draft_oracle=np.asarray(w, np.int32)) for r, w in zip(reqs, want)])
+    assert got == want
+    assert batcher.spec_stats["rounds"] > 0
+    assert batcher.spec_stats["accepted"] == batcher.spec_stats["drafted"]
+    assert (paged_append_attention.int8_launches
+            + paged_append_attention.launches) > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padded", [False, True], ids=["flash", "left_padded"])
+def test_dense_generate_matches_cpu_on_cuda(padded):
+    """The dense path on the card (flash prefill, or the masked plain
+    prefill of left-padded rows; the int8 matmul in the decode steps)
+    emits the CPU's greedy tokens on the same narrow int8 Qwen3 (fp32
+    activations)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+    from handwritten_ocr_tpu_torch.ops.int8_matmul import int8_matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Qwen3Config(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, head_dim=128, eos_token_id=EOS)
+    params = init_qwen3(cfg, dtype=torch.float32, device="cpu", seed=4,
+                        quantize="int8")
+    rng = np.random.default_rng(4)
+    ids = rng.integers(10, 1000, (3, 21)).astype(np.int32)
+    mask = np.ones(ids.shape, bool)
+    if padded:
+        mask[0, :9] = mask[2, :4] = False
+    pad_mask = mask if padded else None
+    want = Qwen3Model(params, cfg).generate(ids, 12, pad_mask=pad_mask)
+    before = int8_matmul.launches
+    got = Qwen3Model(_to(params, "cuda"), cfg).generate(ids, 12,
+                                                        pad_mask=pad_mask)
+    assert got.tokens.tolist() == want.tokens.tolist()
+    assert got.lengths.tolist() == want.lengths.tolist()
+    assert int8_matmul.launches > before
