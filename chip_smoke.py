@@ -100,7 +100,22 @@ Phases, each printing one JSON line:
      paged attention at every read batch other than 8; then int8 paged
      attention at 17 query tokens (a verify round, appends across a page
      boundary) at 64:8 and 28:4 heads, flash at the dense prefills and
-     the int8 matmul at one row.
+     the int8 matmul at one row;
+ 13. train (after both serving models are dropped; less than 1 GiB may
+     be resident): olmOCR-2-7B (``VLConfig()``, full width and depth) in
+     bf16; the plan (params, grads, mu, nu) against the card; one
+     448x448 PNG page with a 200-character ground truth through
+     ``discover_examples`` / ``batches_by_grid``; three
+     ``make_train_step(cfg, grid)`` steps (default ``adamw(1e-5)``), each
+     counted from 0: flash 32 and window 28 launches, every gradient
+     finite and not all zero, peak memory below the card; wall, forward,
+     backward and update ms, tokens per second, the share of elements
+     the first step changed; a fourth step under the profiler (the
+     reference backward passes' share of the backward); then
+     train_grad_check: gradients through the kernels against gradients
+     through their plain versions at full width and depth 2+2, in fp32
+     and in bf16; and, last, flash and window at the train shapes with
+     their backward's time beside SDPA's backward.
 
 Phases 6-9 and 11 decode through ``DenseTokenizer``: every id decodes to one
 character, so random weights write texts of their budget's length (with
@@ -110,8 +125,9 @@ quotes, digits and braces among them) as a real tokenizer would, where
 Every failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
 ``{"ok": true, "device": {...}}``; the kernels line (each kernel's
-launches on its own path and on the guided, pipeline and cli paths) and
-the card's name and power limit come before it.
+launches on its own path and on the guided, pipeline, cli, speculative,
+dense and train paths) and the card's name and power limit come before
+it.
 
 ``HOCR_SPEC`` is set only inside the speculative phase; every other
 phase runs with it unset, and every engine but the dense phase's serves
@@ -268,15 +284,36 @@ def _compare(name: str, got, want) -> dict:
                 rel_rms_tolerance=REL_RMS_TOL)
 
 
+def _backward_ms(fn, inputs, library=None) -> dict:
+    """Device time of the backward alone, of ``fn(*inputs)`` (the kernel
+    wrapper under autograd: its Function's backward, autograd through the
+    reference form) and of ``library(*inputs)`` (SDPA's own backward), for
+    a seeded cotangent; CUDA events around ``torch.autograd.grad`` over a
+    retained graph."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def one(f):
+        xs = [x.detach().requires_grad_() for x in inputs]
+        out = f(*xs)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+        return time_ms(lambda: torch.autograd.grad(out, xs, g,
+                                                   retain_graph=True),
+                       iters=5)
+
+    return dict(backward_ms=one(fn),
+                library_backward_ms=None if library is None else one(library))
+
+
 def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
                 hkv: int, hd: int, gen, *, causal: bool = False,
-                valid=None) -> dict:
+                valid=None, backward: bool = False) -> dict:
     """Flash attention at q ``[batch, t, hq, hd]``, k/v ``[batch, t, hkv,
     hd]`` (bf16) against its plain version: ``valid`` ``[t]`` masks the
     vision tower's dead slots, ``causal`` is the prefill. The plain
     version holds several fp32 copies of the scores, so it runs a few
     batch rows at a time (at most 2 GiB of scores per call); its output
-    and ``plain_ms`` cover the whole batch."""
+    and ``plain_ms`` cover the whole batch. ``backward``: also the
+    training backward's time (``_backward_ms``)."""
     import torch.nn.functional as F
 
     from handwritten_ocr_tpu_torch.ops.flash_attention import (
@@ -329,17 +366,22 @@ def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q_t, k_t, v_t, scale=scale, **sdpa)),
         bound_ms=bound, bound_by=by)
+    if backward:
+        row |= _backward_ms(
+            lambda *x: flash_attention(*x, valid, **kw), (q, k, v),
+            lambda *x: F.scaled_dot_product_attention(
+                *(y.transpose(1, 2) for y in x), scale=scale, **sdpa))
     del q, k, v, q_t, k_t, v_t
     torch.cuda.empty_cache()
     return row
 
 
 def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
-                 head_dim: int, gen) -> dict:
+                 head_dim: int, gen, backward: bool = False) -> dict:
     """Window attention at qkv ``[batch, P, 3 * heads * head_dim]`` (bf16,
     the vision tower's window layers, rope on load) against its plain
     version; the library yardstick is SDPA per window over q/k that are
-    not roped."""
+    not roped. ``backward``: also the training backward's time."""
     import torch.nn.functional as F
 
     from handwritten_ocr_tpu_torch.ops.window_attention import (
@@ -379,6 +421,17 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qw[0], qw[1], qw[2], attn_mask=win_mask, scale=scale)),
         bound_ms=bound, bound_by=by)
+    if backward:
+        def sdpa_windows(x):
+            xw = x.reshape(batch, n_win, wl, 3, num_heads, head_dim)
+            xw = xw.permute(3, 0, 1, 4, 2, 5).reshape(
+                3, batch * n_win, num_heads, wl, head_dim)
+            return F.scaled_dot_product_attention(
+                xw[0], xw[1], xw[2], attn_mask=win_mask, scale=scale)
+
+        row |= _backward_ms(
+            lambda x: window_attention(x, cos, sin, valid, **kw), (qkv,),
+            sdpa_windows)
     del qkv, qw
     torch.cuda.empty_cache()
     return row
@@ -2585,6 +2638,429 @@ def phase_kernels_decode_modes(cfg, qcfg, prompt_len: int, q_prompt_len: int,
     return rows
 
 
+# ── training (the fine-tuning step) ───────────────────────────────────
+
+TRAIN_STEPS = 3
+TRAIN_PAGE = 448          # pixels a side: 1024 patches, 256 image tokens
+TRAIN_TARGET_CHARS = 200
+# Gradient check, kernels against plain versions, per leaf: fp32 largest
+# error within TRAIN_FP32_GRAD_TOL of the leaf's max|grad| (fp32 sums in
+# another order through four layers); bf16 RMS error within
+# TRAIN_BF16_RMS_TOL of the leaf's RMS (the two forwards round to bf16 at
+# other points, and the plain backward rounds dP to bf16 where the
+# reference keeps fp32); the losses within TRAIN_LOSS_RTOL.
+TRAIN_FP32_GRAD_TOL = 1e-3
+TRAIN_BF16_RMS_TOL = 5e-2
+TRAIN_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """Names of a tree's leaves in ``train.optim.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for key in sorted(tree)
+                for n in _leaf_names(tree[key], f"{prefix}/{key}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def train_pages(root) -> None:
+    """One TRAIN_PAGE-square synthetic page, written as PNG by the port's
+    writer, and its ground truth: TRAIN_TARGET_CHARS characters of
+    lower-case words from a seeded generator."""
+    from handwritten_ocr_tpu_torch.models.png import write_png
+    rng = np.random.default_rng(SEED + 8)
+    write_png(root / "page.png", synthetic_pages(1, TRAIN_PAGE, TRAIN_PAGE)[0])
+    words = []
+    while len(" ".join(words)) < TRAIN_TARGET_CHARS:
+        words.append("".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"),
+                                        rng.integers(2, 9))))
+    text = " ".join(words)[:TRAIN_TARGET_CHARS].rstrip()
+    text += "x" * (TRAIN_TARGET_CHARS - len(text))
+    (root / "page.md").write_text(f"## Ground Truth\n{text}\n",
+                                  encoding="utf-8")
+
+
+def _train_batch(cfg, root):
+    from handwritten_ocr_tpu_torch.models.processor import ByteTokenizer
+    from handwritten_ocr_tpu_torch.train.data import (batches_by_grid,
+                                                      discover_examples)
+    examples = discover_examples(root)
+    batches = list(batches_by_grid(examples, ByteTokenizer(), cfg,
+                                   batch_size=1))
+    if len(examples) != 1 or len(batches) != 1:
+        raise AssertionError(f"{len(examples)} examples, {len(batches)} "
+                             "batches from one page")
+    batch, grid = batches[0]
+    side = TRAIN_PAGE // 14
+    if tuple(grid) != (1, side, side) or not batch.input_ids.is_cuda:
+        raise AssertionError(f"grid {grid}, batch on "
+                             f"{batch.input_ids.device}")
+    return batch, tuple(grid)
+
+
+class _StepClock:
+    """CUDA events at a train step's phases, through ``next_token_loss``
+    and the default optimizer's ``update`` wrapped in place (the step
+    calls both through its module's names): forward = the loss call;
+    backward = from its end to the update's entry; the update runs after
+    a check that every gradient is finite and not all zero. Each phase
+    also opens a ``record_function`` range for the profiler."""
+
+    def __init__(self, leaf_names: list[str]):
+        self.names = leaf_names
+        self.events = {}
+        self.grad_report = None
+
+    def _event(self, name: str):
+        self.events[name] = torch.cuda.Event(enable_timing=True)
+        self.events[name].record()
+
+    def loss(self, fn):
+        def timed(*args, **kwargs):
+            self._event("forward_start")
+            with torch.profiler.record_function("train_forward"):
+                loss = fn(*args, **kwargs)
+            self._event("forward_end")
+            return loss
+        return timed
+
+    def optimizer(self, make):
+        def wrapped(*args, **kwargs):
+            init, update = make(*args, **kwargs)
+
+            def timed(grads, state, params):
+                self._event("check_start")
+                with torch.profiler.record_function("train_grad_check"):
+                    self.grad_report = self.check(grads)
+                self._event("update_start")
+                with torch.profiler.record_function("train_optimizer"):
+                    state = update(grads, state, params)
+                self._event("update_end")
+                return state
+            return init, timed
+        return wrapped
+
+    def check(self, grads) -> dict:
+        ok = torch.stack([torch.isfinite(g).all() & (g != 0).any()
+                          for g in grads])
+        bad = [self.names[i] for i in torch.nonzero(~ok).flatten().tolist()]
+        if bad:
+            raise AssertionError(f"{len(bad)} gradient leaves are not finite "
+                                 f"or all zero: {bad[:8]}")
+        qkv = [i for i, n in enumerate(self.names)
+               if n.endswith(("/qkv/w", "/q/w", "/k/w", "/v/w"))]
+        peaks = torch.stack([grads[i].abs().max() for i in qkv]).float()
+        return dict(leaves=len(grads), qkv_leaves=len(qkv),
+                    qkv_min_max_abs=float(peaks.min()))
+
+    def ms(self) -> dict:
+        e = self.events
+        return dict(
+            forward_ms=e["forward_start"].elapsed_time(e["forward_end"]),
+            backward_ms=e["forward_end"].elapsed_time(e["check_start"]),
+            grad_check_ms=e["check_start"].elapsed_time(e["update_start"]),
+            optimizer_ms=e["update_start"].elapsed_time(e["update_end"]))
+
+
+def _changed_share(params, before) -> float:
+    """Share of parameter elements that differ from ``before`` (host
+    copies), one tensor at a time on the card."""
+    changed = total = 0
+    for p, old in zip(params, before):
+        changed += int((p != old.to(p.device, non_blocking=False)).sum())
+        total += p.numel()
+    return changed / total
+
+
+TRAIN_RANGES = ("train_forward", "train_grad_check", "train_optimizer",
+                "flash_attention_backward", "window_attention_backward")
+
+
+def _profile_train_step(run) -> dict:
+    """One train step under ``torch.profiler``, read from its raw events:
+    the device time of every kernel, memcpy and memset (the ranges' own
+    device-side annotation spans left out), and of the kernels launched
+    inside each ``record_function`` range (its host-side event's
+    ``device_time_total``: the forward, the grad check, the update and the
+    two kernels' backward ranges, autograd through the reference forms).
+    The backward is the step less the forward, the grad check and the
+    update; ``reference_backward_share`` is the two backward ranges' share
+    of it."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = sum(e.device_time_total for e in events
+                 if e.device_type == cuda and e.name not in TRAIN_RANGES) / 1e3
+    ranges = {name: 0.0 for name in TRAIN_RANGES}
+    counts = Counter()
+    for e in events:
+        if e.device_type == cpu and e.name in ranges:
+            ranges[e.name] += e.device_time_total / 1e3
+            counts[e.name] += 1
+    if not device:
+        return dict(traced=False, wall_ms=wall)
+    backward = device - sum(ranges[k] for k in (
+        "train_forward", "train_grad_check", "train_optimizer"))
+    reference = (ranges["flash_attention_backward"]
+                 + ranges["window_attention_backward"])
+    return dict(traced=True, wall_ms=wall, step_device_ms=device,
+                busy_share=device / wall,
+                range_device_ms=ranges, range_calls=dict(counts),
+                backward_device_ms=backward,
+                reference_backward_share=reference / backward)
+
+
+def phase_train(cfg, card: str) -> dict:
+    """Fine-tuning: olmOCR-2-7B (``VLConfig()``, published widths, full
+    depth) in bf16 on the card, one 448x448 page with a 200-character
+    ground truth through ``discover_examples`` / ``batches_by_grid``
+    (byte tokenizer, B = 1), then TRAIN_STEPS calls of the
+    ``make_train_step(cfg, grid)`` step (default ``adamw(1e-5)``) and one
+    more under the profiler. Before: the plan (params, grads, mu, nu
+    bytes) against the card. Per step, counts set to 0 before and read
+    after: flash 32 and window 28 launches (4 vision global + 28 text
+    causal layers; 28 window layers; the backward launches none), every
+    gradient finite and not all zero, peak memory below the card. Also
+    the share of parameter elements the first step changed."""
+    import tempfile
+    from pathlib import Path
+
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    from handwritten_ocr_tpu_torch.parallel.budget import tree_bytes
+    from handwritten_ocr_tpu_torch.train import step as train_step_mod
+    from handwritten_ocr_tpu_torch.train.optim import tree_leaves
+
+    resident = torch.cuda.memory_allocated()
+    if resident >= 2 ** 30:
+        raise AssertionError(f"{resident / 2 ** 30:.2f} GiB resident before "
+                             "the train phase")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    params = init_vl(cfg, dtype=torch.bfloat16, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    names = _leaf_names(params)
+    n_params = _count_params(params)
+    n_bytes = tree_bytes(params)
+    plan = dict(params=n_bytes, grads=n_bytes, mu=n_bytes, nu=n_bytes)
+    planned = sum(plan.values())
+    emit(phase="train_plan", n_params=n_params, bytes=plan,
+         planned_bytes=planned, card_bytes=card_bytes,
+         fits=planned <= card_bytes, init_s=init_s, card=card)
+    if planned > card_bytes:
+        raise AssertionError(f"training state {planned} B > card "
+                             f"{card_bytes} B")
+
+    with tempfile.TemporaryDirectory() as work:
+        root = Path(work)
+        train_pages(root)
+        batch, grid = _train_batch(cfg, root)
+    tokens = batch.input_ids.numel()
+    target = int(batch.loss_mask.sum())
+    clock = _StepClock(names)
+    with _patched(train_step_mod, "next_token_loss", clock.loss), \
+            _patched(train_step_mod, "adamw", clock.optimizer):
+        init, train_step = train_step_mod.make_train_step(cfg, grid)
+        opt_state = init(params)
+        torch.cuda.synchronize()
+        steps, losses = [], []
+        before = None
+        for i in range(TRAIN_STEPS):
+            if i == 0:
+                before = [x.detach().to("cpu", copy=True) for x in leaves]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            params, opt_state, loss = train_step(params, opt_state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+            loss = float(loss)
+            peak = torch.cuda.max_memory_allocated()
+            if not math.isfinite(loss):
+                raise AssertionError(f"train step {i + 1}: loss {loss}")
+            if (launches["flash_attention"], launches["window_attention"]) \
+                    != (32, 28):
+                raise AssertionError(f"train step {i + 1}: launches {launches}")
+            require_launches("train", launches, ("flash_attention",
+                                                 "window_attention"))
+            if peak >= card_bytes:
+                raise AssertionError(f"train step {i + 1}: peak {peak} B")
+            wall_ms = start.elapsed_time(end)
+            record = dict(phase="train_step", step=i + 1, loss=loss,
+                          wall_ms=wall_ms, host_ms=host_ms, **clock.ms(),
+                          peak_gib=peak / 2 ** 30,
+                          target_tokens_per_s=target / wall_ms * 1e3,
+                          tokens_per_s=tokens / wall_ms * 1e3,
+                          grads=clock.grad_report, launches=launches)
+            if i == 0:
+                record["changed_share"] = _changed_share(leaves, before)
+                del before
+            emit(**record)
+            steps.append(record)
+            losses.append(loss)
+        traced_run = {}
+
+        def traced_step():
+            traced_run["out"] = train_step(params, opt_state, batch)
+
+        traced = _profile_train_step(traced_step)
+        params, opt_state, _ = traced_run.pop("out")
+    if opt_state.count != TRAIN_STEPS + 1:
+        raise AssertionError(f"optimizer count {opt_state.count}")
+    record = dict(phase="train", card=card, config="VLConfig() bf16",
+                  grid=list(grid), tokens=tokens, target_tokens=target,
+                  params=n_params, losses=losses, steps=TRAIN_STEPS,
+                  changed_share=steps[0]["changed_share"],
+                  peak_gib=max(r["peak_gib"] for r in steps),
+                  launches=steps[-1]["launches"], traced_step=traced)
+    emit(**record)
+    del params, opt_state, leaves, batch, init, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def _grads(params, cfg, batch, grid):
+    from handwritten_ocr_tpu_torch.train.optim import tree_leaves
+    from handwritten_ocr_tpu_torch.train.step import next_token_loss
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss = next_token_loss(params, cfg, batch, grid)
+    grads = torch.autograd.grad(loss, leaves)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    return float(loss), grads
+
+
+def phase_train_grad_check(cfg, card: str) -> dict:
+    """Gradients through the kernels against gradients through their plain
+    versions, at full width and reduced depth (vision 2 blocks: one
+    window, one global; text 2 layers), on the train phase's page: once
+    in fp32 (the kernels' fp32 bodies; fp32 matmuls in full fp32) and
+    once in bf16. ``flash_attention`` / ``window_attention`` are swapped
+    for their plain versions in the model modules for the second pass,
+    so its backward is autograd through the plain versions."""
+    import tempfile
+    from pathlib import Path
+
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl import language, vision
+    from handwritten_ocr_tpu_torch.ops.flash_attention import (
+        flash_attention_plain)
+    from handwritten_ocr_tpu_torch.ops.window_attention import (
+        window_attention_plain)
+
+    small = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, depth=2,
+                                        fullatt_block_indexes=(1,)),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=2))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as work:
+        root = Path(work)
+        train_pages(root)
+        batch, grid = _train_batch(small, root)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = init_vl(small, dtype=dtype, device="cuda", seed=SEED)
+        names = _leaf_names(params)
+        reset_launches()
+        loss_k, grads_k = _grads(params, small, batch, grid)
+        launches = read_launches()
+        if (launches["flash_attention"], launches["window_attention"]) != (3, 1):
+            raise AssertionError(f"grad check launches {launches}")
+        with _patched(vision, "flash_attention",
+                      lambda _: flash_attention_plain), \
+                _patched(vision, "window_attention",
+                         lambda _: window_attention_plain), \
+                _patched(language, "flash_attention",
+                         lambda _: flash_attention_plain):
+            reset_launches()
+            loss_p, grads_p = _grads(params, small, batch, grid)
+            if any(read_launches().values()):
+                raise AssertionError("the plain pass launched a kernel")
+        worst = (None, -1.0)
+        for name, a, b in zip(names, grads_k, grads_p):
+            a, b = a.float(), b.float()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: non-finite kernel gradient")
+            peak = float(b.abs().max())
+            if dtype == torch.float32:
+                ratio = float((a - b).abs().max()) / peak
+                bound = TRAIN_FP32_GRAD_TOL
+            else:
+                ratio = float((a - b).pow(2).mean().sqrt()
+                              / b.pow(2).mean().sqrt())
+                bound = TRAIN_BF16_RMS_TOL
+            if not ratio <= bound:                  # also catches NaN
+                raise AssertionError(f"{name} ({dtype}): kernel vs plain "
+                                     f"gradient {ratio} > {bound}")
+            if ratio > worst[1]:
+                worst = (name, ratio)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        if not loss_rel <= TRAIN_LOSS_RTOL[dtype]:
+            raise AssertionError(f"{dtype} loss {loss_k} vs {loss_p}")
+        key = "fp32" if dtype == torch.float32 else "bf16"
+        out[key] = dict(loss_kernels=loss_k, loss_plain=loss_p,
+                        loss_rel_err=loss_rel, leaves=len(names),
+                        worst_leaf=worst[0], worst=worst[1],
+                        bound=(TRAIN_FP32_GRAD_TOL if key == "fp32"
+                               else TRAIN_BF16_RMS_TOL),
+                        measure=("max|err| / max|plain|" if key == "fp32"
+                                 else "RMS(err) / RMS(plain)"),
+                        launches=launches)
+        del params, grads_k, grads_p
+        torch.cuda.empty_cache()
+    record = dict(phase="train_grad_check", card=card,
+                  config="VLConfig() widths, vision 2 blocks, text 2 layers",
+                  tokens=batch.input_ids.numel(), **out)
+    emit(**record)
+    return record
+
+
+def phase_kernels_train(cfg, tokens: int) -> list[dict]:
+    """Flash and window at the train step's shapes (one 448x448 page:
+    1024 vision slots, all live; ``tokens`` text tokens), with the
+    backward's time (autograd through the reference forms) beside SDPA's
+    backward."""
+    from handwritten_ocr_tpu_torch.models.qwen25vl.vision import plan_grid
+    side = TRAIN_PAGE // 14
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    vis, txt = cfg.vision, cfg.text
+    plan = plan_grid(vis, (1, side, side))
+    valid = torch.as_tensor(plan.valid, device="cuda")
+    rows = [
+        _flash_case("train_vision_global", "train", 1, len(plan.valid),
+                    vis.num_heads, vis.num_heads, vis.head_dim, gen,
+                    valid=valid, backward=True),
+        _window_case("train_vision_window", "train", 1, plan, vis.num_heads,
+                     vis.head_dim, gen, backward=True),
+        _flash_case("train_text_causal", "train", 1, tokens,
+                    txt.num_attention_heads, txt.num_key_value_heads,
+                    txt.head_dim, gen, causal=True, backward=True)]
+    rows = [with_ratio(r) for r in rows]
+    for r in rows:
+        emit(phase="kernel", **r)
+    return rows
+
+
 def main() -> int:
     from handwritten_ocr_tpu_torch.config import OCR_PROMPT
     from handwritten_ocr_tpu_torch.models.processor import (ByteTokenizer,
@@ -2630,6 +3106,9 @@ def main() -> int:
     del reasoner, ocr
     gc.collect()                # both models go before the last phases
     torch.cuda.empty_cache()
+    train = phase_train(cfg, info["smi"])
+    paths["train"] = train["launches"]
+    phase_train_grad_check(cfg, info["smi"])
     phase_loaders(info["smi"])
     reference = phase_reference(info["smi"])
     # The fp-KV paged branch runs on no default path any more (both
@@ -2639,6 +3118,7 @@ def main() -> int:
         "guided": guided_seen, "pipeline": cli["seen"]})
     rows += phase_kernels_decode_modes(cfg, Qwen3Config(), prompt_len, q_prompt_len,
                                  dense["json_prompt_tokens"])
+    rows += phase_kernels_train(cfg, train["tokens"])
     kernels = []
     for r in rows:
         kernels.append({key: r[key] for key in (
@@ -2648,10 +3128,12 @@ def main() -> int:
                                        "rel_rms_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "library_ratio")}
-            | {key: r.get(key) for key in ("graph_ms", "library_graph_ms")}
+            | {key: r.get(key) for key in ("graph_ms", "library_graph_ms",
+                                           "backward_ms",
+                                           "library_backward_ms")}
             | {f"{path}_launches": paths[path][r["counter"]]
                for path in ("guided", "pipeline", "cli", "speculative",
-                            "dense")})
+                            "dense", "train")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

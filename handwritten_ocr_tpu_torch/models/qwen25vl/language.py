@@ -184,7 +184,8 @@ def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tens
 
     The product accumulates in fp32 and is not rounded to the hidden
     dtype, so the greedy argmax sees fp32 logits. A plain matrix product
-    outside any kernel, as the JAX package leaves it to XLA.
+    outside any kernel, as the JAX package leaves it to XLA; differentiable
+    in bf16 on the card through :class:`_Fp32Product`.
 
     An int8 head (``models/quant.py``) at b·t ≤ 32 rows goes to the int8
     kernel with fp32 output (the head is the largest single weight read of
@@ -206,10 +207,31 @@ def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tens
     return _fp32_product(flat, w).reshape(b, t, -1)
 
 
+class _Fp32Product(torch.autograd.Function):
+    """``flat @ w^T`` of reduced-precision operands with fp32 output, as
+    XLA's dot with ``preferred_element_type=f32``: the forward accumulates
+    in fp32 and does not round; the backward takes the fp32 cotangent
+    rounded to the operands' dtype and returns gradients in that dtype
+    (products accumulated in fp32 by cuBLAS)."""
+
+    @staticmethod
+    def forward(ctx, flat, w):
+        ctx.save_for_backward(flat, w)
+        return torch.mm(flat, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat, w = ctx.saved_tensors
+        grad = grad.to(flat.dtype)
+        d_flat = grad @ w if ctx.needs_input_grad[0] else None
+        d_w = grad.t() @ flat if ctx.needs_input_grad[1] else None
+        return d_flat, d_w
+
+
 def _fp32_product(flat: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``flat [M, D] @ w [V, D]^T``, summed and returned in fp32."""
     if flat.dtype == torch.float32:
         return flat @ w.float().t()
     if flat.is_cuda:
-        return torch.mm(flat, w.t(), out_dtype=torch.float32)
+        return _Fp32Product.apply(flat, w)
     return flat.float() @ w.float().t()   # reduced precision on the CPU

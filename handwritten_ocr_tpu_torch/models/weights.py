@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from handwritten_ocr_tpu_torch.models.quant import quantize_tree
+from handwritten_ocr_tpu_torch.train.optim import AdamWState
 
 # Subtrees whose leaves carry a leading layer axis in the JAX layout.
 _STACKED = ("blocks", "layers")
@@ -97,6 +98,26 @@ def from_jax_params(tree: dict, device: str | torch.device = "cpu",
         return _convert(node, name, device, dtype)
 
     return walk(tree, "")
+
+
+def from_jax_opt_state(state, device: str | torch.device = "cpu"):
+    """The port's AdamW state (``train/optim.py:AdamWState``) from an optax
+    ``adamw`` state of numpy arrays, so a run resumes where JAX left off.
+
+    ``state`` is optax's tuple ``(ScaleByAdamState(count, mu, nu), ...)``:
+    the adam state, then the states of the weight decay and the learning
+    rate, which are empty, or hold a schedule's count, which must equal
+    the adam count. mu and nu come out laid out as :func:`from_jax_params`
+    lays out the parameters, in their own dtype.
+    """
+    (count, mu, nu), *rest = state
+    count = int(np.asarray(count))
+    for extra in rest:
+        if len(extra) and int(np.asarray(extra[0])) != count:
+            raise ValueError(f"schedule count {extra[0]} != adam count "
+                             f"{count}")
+    return AdamWState(count=count, mu=from_jax_params(mu, device),
+                      nu=from_jax_params(nu, device))
 
 
 # ── HF snapshots ──────────────────────────────────────────────────────

@@ -3,6 +3,10 @@
 Port of ``handwritten_ocr_tpu/ops/flash_attention.py``. CUDA tensors go to
 the hand-written kernel ``csrc/flash_attention.cu``; CPU tensors to
 :func:`flash_attention_plain`, which does the same arithmetic in PyTorch.
+
+Differentiable as the JAX custom VJP is: under autograd the forward is the
+kernel (the plain version on the CPU) and the backward is autograd through
+:func:`flash_attention_reference`, recomputed from the saved q, k and v.
 """
 
 from __future__ import annotations
@@ -55,6 +59,20 @@ def _normalize_mask(kv_mask: torch.Tensor | None, b: int, s: int,
     return torch.nn.functional.pad(mask, (0, -s % pad_to)).contiguous()
 
 
+def _allowed(kv_mask, b: int, t: int, s: int, causal: bool,
+             device) -> torch.Tensor:
+    """Bool ``[1|B, 1, 1, T|1, S]``: the keys each query row may attend."""
+    mask = _normalize_mask(kv_mask, b, s, device)
+    allowed = torch.ones((1, s), dtype=torch.bool, device=device) \
+        if mask is None else mask.bool()
+    allowed = allowed.reshape(-1, 1, 1, 1, s)
+    if causal:
+        rows = torch.arange(t, device=device)[:, None]
+        cols = torch.arange(s, device=device)[None, :]
+        allowed = allowed & (cols <= rows)
+    return allowed
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_mask: torch.Tensor | None = None, *,
                           causal: bool = False,
@@ -69,14 +87,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = d ** -0.5
     qf = q.float().reshape(b, t, hkv, group, d)
     scores = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
-    mask = _normalize_mask(kv_mask, b, s, q.device)
-    allowed = torch.ones((1, s), dtype=torch.bool, device=q.device) \
-        if mask is None else mask.bool()
-    allowed = allowed.reshape(-1, 1, 1, 1, s)
-    if causal:
-        rows = torch.arange(t, device=q.device)[:, None]
-        cols = torch.arange(s, device=q.device)[None, :]
-        allowed = allowed & (cols <= rows)
+    allowed = _allowed(kv_mask, b, t, s, causal, q.device)
     scores = scores.masked_fill(~allowed, float("-inf"))
     m = scores.amax(dim=-1, keepdim=True)
     m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
@@ -85,6 +96,55 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pv = torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype).float(), v.float())
     out = pv / denom.permute(0, 3, 1, 2, 4)
     return out.reshape(b, t, hq, d).to(q.dtype)
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              kv_mask: torch.Tensor | None = None, *,
+                              causal: bool = False,
+                              scale: float | None = None) -> torch.Tensor:
+    """Copy of the JAX package's ``_reference_attention``, the function
+    whose gradient the backward takes: as :func:`flash_attention_plain`,
+    but P is normalised in fp32 and not rounded to v's dtype. Masked keys
+    get no weight and an all-masked row returns 0."""
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    qf = q.float().reshape(b, t, hkv, hq // hkv, d)
+    scores = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
+    allowed = _allowed(kv_mask, b, t, s, causal, q.device)
+    scores = scores.masked_fill(~allowed, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    safe_m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    p = torch.exp(scores - safe_m).masked_fill(~allowed, 0.0)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhgts,bshd->bthgd", p / denom, v.float())
+    return out.reshape(b, t, hq, d).to(q.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (plain version on the CPU). Backward: autograd
+    through :func:`flash_attention_reference` from the saved q, k, v and
+    mask, as ``_flash_diff_bwd`` in JAX; the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.causal, ctx.scale = causal, scale
+        return _flash_forward(q, k, v, kv_mask, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, kv_mask = ctx.saved_tensors
+        with torch.enable_grad(), \
+                torch.profiler.record_function("flash_attention_backward"):
+            inputs = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = flash_attention_reference(*inputs, kv_mask,
+                                            causal=ctx.causal,
+                                            scale=ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, inputs, grad)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,6 +169,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reach device memory, and a key mask is applied as bits. Causal key tiles
     above the diagonal are skipped and causal q tiles come heaviest first
     across all heads. fp32 inputs run a plain FMA body.
+
+    With grad mode on and q, k or v requiring grad it runs as an
+    ``autograd.Function`` (forward as above, backward through
+    :func:`flash_attention_reference`); otherwise, as in serving, it calls
+    the kernel directly.
     """
     b, t, hq, d = q.shape
     check(k.dim() == 4 and v.shape == k.shape and k.shape[0] == b
@@ -118,9 +183,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(q.dtype == k.dtype == v.dtype, "q, k and v must share a dtype")
     if scale is None:
         scale = d ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_mask, causal, scale)
+    return _flash_forward(q, k, v, kv_mask, causal, scale)
+
+
+def _flash_forward(q, k, v, kv_mask, causal: bool, scale: float):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if not use_kernel(q, k, v):
         return flash_attention_plain(q, k, v, kv_mask, causal=causal,
                                      scale=scale)
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
     check_kernel_shapes(q.shape, k.shape, q.dtype, causal=causal)
     check(all(x.is_contiguous() for x in (q, k, v)),
           "q, k and v must be contiguous")

@@ -4,6 +4,10 @@ uniform windows, on packed qkv, with rope applied inside.
 Port of ``handwritten_ocr_tpu/ops/window_attention.py``. CUDA tensors go
 to the hand-written kernel ``csrc/window_attention.cu``; CPU tensors to
 :func:`window_attention_plain`.
+
+Differentiable as the JAX custom VJP is: under autograd the forward is the
+kernel (the plain version on the CPU) and the backward is autograd through
+:func:`window_attention_reference`; the gradient flows to qkv only.
 """
 
 from __future__ import annotations
@@ -83,6 +87,68 @@ def window_attention_plain(qkv: torch.Tensor, cos: torch.Tensor,
     return out.reshape(b, p_len, d).to(dtype)
 
 
+def window_attention_reference(qkv: torch.Tensor, cos: torch.Tensor,
+                               sin: torch.Tensor, valid: torch.Tensor, *,
+                               num_heads: int, window_len: int,
+                               scale: float) -> torch.Tensor:
+    """Copy of the JAX package's ``_window_reference``, the function whose
+    gradient the backward takes: rope in the qkv dtype (the plain version
+    ropes in fp32 and rounds once), fp32 scores with dead keys at -inf,
+    guarded softmax, P normalised and rounded to the qkv dtype, fp32 P.V."""
+    b, p_len, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // num_heads
+    n_win = p_len // window_len
+    dtype = qkv.dtype
+    q, k, v = qkv.split(d, dim=-1)
+    cos_b = cos.to(dtype)[None, :, None, :]
+    sin_b = sin.to(dtype)[None, :, None, :]
+
+    def rope(x):
+        x = x.reshape(b, p_len, num_heads, hd)
+        rot = torch.cat([-x[..., hd // 2:], x[..., :hd // 2]], dim=-1)
+        return x * cos_b + rot * sin_b
+
+    def windows(x):
+        return x.reshape(b, n_win, window_len, num_heads, hd)
+
+    qw, kw = windows(rope(q)), windows(rope(k))
+    vw = windows(v)
+    scores = torch.einsum("bwthd,bwshd->bwhts", qw.float(), kw.float()) * scale
+    key_ok = (valid != 0).reshape(1, n_win, 1, 1, window_len)
+    scores = scores.masked_fill(~key_ok, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    p = torch.exp(scores - m).masked_fill(~key_ok, 0.0)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bwhts,bwshd->bwthd", (p / denom).to(dtype).float(),
+                       vw.float())
+    return out.reshape(b, p_len, d).to(dtype)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Forward: the kernel (plain version on the CPU). Backward: autograd
+    through :func:`window_attention_reference` from the saved qkv, as
+    ``_window_diff_bwd`` in JAX; cos, sin and valid get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, valid, num_heads, window_len, scale):
+        ctx.save_for_backward(qkv, cos, sin, valid)
+        ctx.args = dict(num_heads=num_heads, window_len=window_len,
+                        scale=scale)
+        return _window_forward(qkv, cos, sin, valid, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, cos, sin, valid = ctx.saved_tensors
+        with torch.enable_grad(), \
+                torch.profiler.record_function("window_attention_backward"):
+            x = qkv.detach().requires_grad_()
+            out = window_attention_reference(x, cos, sin, valid, **ctx.args)
+            (dqkv,) = torch.autograd.grad(out, (x,), grad)
+        return dqkv, None, None, None, None, None, None
+
+
 def window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                      valid: torch.Tensor, *, num_heads: int, window_len: int,
                      scale: float) -> torch.Tensor:
@@ -99,6 +165,11 @@ def window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     ropes q and k in registers, runs both products on the tensor cores
     (``mma.sync`` bf16 → fp32) with the scores in registers, and writes
     whole head rows.
+
+    With grad mode on and qkv requiring grad it runs as an
+    ``autograd.Function`` (forward as above, backward through
+    :func:`window_attention_reference`); otherwise, as in serving, it
+    calls the kernel directly.
     """
     b, p_len, three_d = qkv.shape
     d = three_d // 3
@@ -109,10 +180,23 @@ def window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     check(cos.shape == (p_len, hd) and sin.shape == (p_len, hd),
           f"cos/sin must be [{p_len}, {hd}]")
     check(valid.shape == (p_len,), f"valid must be [{p_len}]")
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _WindowAttention.apply(qkv, cos, sin, valid, num_heads,
+                                      window_len, scale)
+    return _window_forward(qkv, cos, sin, valid, num_heads=num_heads,
+                           window_len=window_len, scale=scale)
+
+
+def _window_forward(qkv, cos, sin, valid, *, num_heads: int,
+                    window_len: int, scale: float) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if not use_kernel(qkv, cos, sin, valid):
         return window_attention_plain(qkv, cos, sin, valid,
                                       num_heads=num_heads,
                                       window_len=window_len, scale=scale)
+    b, p_len, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // num_heads
     check_kernel_shapes(qkv.shape, qkv.dtype, num_heads=num_heads,
                         window_len=window_len)
     check(qkv.is_contiguous(), "qkv must be contiguous")

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no JAX, no JAX package, no Triton at import,
-and none of PIL, pydantic, safetensors, transformers, tokenizers or regex,
-which the card's machine lacks.
+"""The PyTorch port stands alone: no JAX, no optax, no JAX package, no Triton
+at import, and none of PIL, pydantic, safetensors, transformers, tokenizers
+or regex, which the card's machine lacks.
 
 Also checks that the port's entry points refuse to fall back to the CPU
 when no card is present and no device was asked for.
@@ -48,12 +48,13 @@ def test_port_has_the_slice_modules():
                  "utils.safetensors", "models.tokenizer",
                  "models.checkpoint", "engine.dryrun", "engine.prefetch",
                  "evaluation", "cli.eval_final", "cli.transcribe",
-                 "utils.json_guard"):
+                 "utils.json_guard", "train", "train.step", "train.data",
+                 "train.optim"):
         assert f"handwritten_ocr_tpu_torch.{name}" in modules
 
 
 def test_importing_every_module_loads_no_jax_and_no_triton():
-    """Nor pydantic, PIL, safetensors, transformers, tokenizers or regex:
+    """Nor optax, pydantic, PIL, safetensors, transformers, tokenizers or regex:
     the card's machine has none of them (PIL is imported only inside the
     function that loads a non-PNG image file). ``__main__`` runs the CLI,
     so it is left out of the import loop."""
@@ -62,8 +63,8 @@ def test_importing_every_module_loads_no_jax_and_no_triton():
         f"names = {_port_modules()!r}\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "roots = ('jax', 'triton', 'handwritten_ocr_tpu', 'pydantic', 'PIL',\n"
-        "         'safetensors', 'transformers', 'tokenizers', 'regex')\n"
+        "roots = ('jax', 'optax', 'triton', 'handwritten_ocr_tpu', 'pydantic',\n"
+        "         'PIL', 'safetensors', 'transformers', 'tokenizers', 'regex')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "print(json.dumps(bad))\n")
     result = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -77,7 +78,8 @@ def test_importing_every_module_loads_no_jax_and_no_triton():
     + ["chip_smoke.py"]))
 def test_source_names_no_jax(path):
     text = (ROOT / path).read_text()
-    for needle in ("import jax", "from jax", "handwritten_ocr_tpu.",
+    for needle in ("import jax", "from jax", "import optax", "from optax",
+                   "handwritten_ocr_tpu.",
                    "import handwritten_ocr_tpu\n", "import safetensors",
                    "from safetensors", "import transformers",
                    "from transformers", "import tokenizers",
