@@ -13,11 +13,12 @@ Phases, each printing one JSON line:
      (library_ratio), and the least time the card could take (bound):
      flash, window and paged
      attention (fp KV and int8 KV) at the read's shapes; flash prefill,
-     int8 paged attention and the int8 matmul at the reasoner's; the paged
-     and int8 cases also with their device time alone (graph_ms, from a
-     CUDA graph of launches over cold pages or weights), and the int8
-     cases with the device time of their torch.mm yardstick
-     (library_graph_ms);
+     paged attention (int8 KV and fp KV) and the int8 matmul at the
+     reasoner's; the paged and int8 cases also with their device time
+     alone (graph_ms, from a CUDA graph of launches over cold pages or
+     weights), the int8 cases with the device time of their torch.mm
+     yardstick and the paged cases with that of SDPA over K/V already
+     gathered contiguous (library_graph_ms);
   4. the OCR read: Qwen2.5-VL at the olmOCR-2-7B widths and depth, bf16,
      random weights from a seed; four synthetic 924x672 pages through
      ``TorchPreprocessor`` with the two initial strategies into
@@ -76,6 +77,13 @@ Phases, each printing one JSON line:
      s, peak memory and launches per call (flash, window and the int8
      matmul must launch), finite ``forward_logits``, and the first token
      where each row leaves the paged fp-KV path's;
+  9c. fp_kv: the same reads and turns through paged engines built with
+     ``HOCR_KV_INT8=0`` (bf16 pools, the paged kernel's tensor-core fp-KV
+     body): the first call's tokens against the dense path's, then a
+     timed call counted from 0 (the bf16 body must launch, the fp32 body
+     and the int8 branch must not), wall, prefill, decode and ms per
+     decode step, two traced calls, beside the int8 path's figures from
+     phases 4 and 5;
  10. loaders: narrow VL and Qwen3 snapshots in HF layout (config.json,
      sharded safetensors + index, a hand-written byte-level
      tokenizer.json) written with the port's writer and loaded through
@@ -86,7 +94,7 @@ Phases, each printing one JSON line:
  11. reference checks: narrow models in fp32 on the card (kernels) and on
      the CPU (plain versions) must give the same tokens: the VL read and a
      Qwen3 with int8 weights, each with the int8 and the fp KV cache (the
-     fp-KV read's launch counts are those of the fp-KV paged branch); the
+     fp-KV read runs the paged kernel's fp32 body); the
      same int8 Qwen3 through ``run_guided`` for the three agent schemas
      (the same committed tokens and objects); and sharpen, denoise and
      remove_lines on one ruled page (sharpen bit-equal, denoise within 3
@@ -97,10 +105,10 @@ Phases, each printing one JSON line:
      it, taken from those runs: flash prefill at each agent's largest
      prefill group, int8 paged attention at its longest prompt plus the
      budget, and vision flash, window, the VL prefill and the read's
-     paged attention at every read batch other than 8; then int8 paged
-     attention at 17 query tokens (a verify round, appends across a page
-     boundary) at 64:8 and 28:4 heads, flash at the dense prefills and
-     the int8 matmul at one row;
+     paged attention at every read batch other than 8; then paged
+     attention over int8 and over bf16 pools at 17 query tokens (a verify
+     round, appends across a page boundary) at 64:8 and 28:4 heads, flash
+     at the dense prefills and the int8 matmul at one row;
  13. train (after both serving models are dropped; less than 1 GiB may
      be resident): olmOCR-2-7B (``VLConfig()``, full width and depth) in
      bf16; the plan (params, grads, mu, nu) against the card; one
@@ -126,11 +134,12 @@ Every failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
 ``{"ok": true, "device": {...}}``; the kernels line (each kernel's
 launches on its own path and on the guided, pipeline, cli, speculative,
-dense and train paths) and the card's name and power limit come before
-it.
+dense, fp-KV read and chat, and train paths) and the card's name and
+power limit come before it.
 
-``HOCR_SPEC`` is set only inside the speculative phase; every other
-phase runs with it unset, and every engine but the dense phase's serves
+``HOCR_SPEC`` is set only inside the speculative phase and
+``HOCR_KV_INT8=0`` only while phase 9c builds its engines; every other
+phase runs with both unset, and every engine but the dense phase's serves
 paged.
 """
 
@@ -504,6 +513,8 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
     if not bool((got[~real] == 0).all()):
         raise AssertionError(f"{name} {case}: dead slots or rows not zero")
     del refs, want, got
+    library = _sdpa_yardstick(q, k_pool, v_pool, tables, start, n_valid,
+                              live, layers, *scales)
     ctx = int(start[:live].sum())
     new = int(n_valid.sum())                 # real new rows
     # bytes of one token's K (or V) row of one layer, with its scales
@@ -528,21 +539,76 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
 
     row_out = dict(
         name=name, case=case, route="cuda", path=path,
+        body="int8" if kv_quant else "bf16",
         counter=("paged_append_attention_int8" if kv_quant
                  else "paged_append_attention"),
         source="handwritten_ocr_tpu_torch/csrc/paged_decode_attention.cu",
         replaces="handwritten_ocr_tpu/ops/paged_decode_attention.py:64",
         shape=[slots, t, hq, hd], live_slots=live, context=context,
         starts=start[:live].tolist(), new_rows=n_valid[:live].tolist(),
-        pool=list(k_pool.shape), dtype="int8 KV, bf16 q" if kv_quant else "bf16",
+        pool=list(k_pool.shape),
+        dtype="int8 KV, bf16 q" if kv_quant else "bf16 KV, bf16 q",
         **cmp, ms=time_ms(step(paged_append_attention), iters=56),
         graph_ms=graph_ms([step(paged_append_attention)]),
         plain_ms=time_ms(step(paged_append_attention_plain), iters=10),
-        library=None, library_ms=None, library_graph_ms=None,
-        bound_ms=bound, bound_by=by)
+        **library, bound_ms=bound, bound_by=by)
     del k_pool, v_pool, scales, pools, q, k_new, v_new
     torch.cuda.empty_cache()
     return row_out
+
+
+def _sdpa_yardstick(q, k_pool, v_pool, tables, start, n_valid, live: int,
+                    layers: int, *scales) -> dict:
+    """One ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call
+    over the live slots' K and V already gathered into contiguous bf16
+    ``[live, Hkv, C, D]`` (C: the longest slot's cols after the append; a
+    boolean mask gives each query token its own cols when T > 1), int8
+    pools dequantised first: the library's time for the attention alone,
+    without the gather or the append. Cycles over copies from successive
+    layers (>= 64 MB together), so every call finds its K and V cold, as
+    the kernel's timing does."""
+    import torch.nn.functional as F
+    s, t, hq, hd = q.shape
+    hkv, bs = k_pool.shape[3], k_pool.shape[2]
+    width = tables.shape[1] * bs
+    ends = (start[:live] + n_valid[:live]).long()
+    cols = int(ends.max())
+    idx = tables[:live].long()
+
+    def gather(pool, scale_pool, layer):
+        x = pool[layer][idx].reshape(live, width, hkv, hd)[:, :cols]
+        if scale_pool is not None:      # [L, N, Hkv, BS] -> [live, C, Hkv]
+            sc = scale_pool[layer][idx].permute(0, 1, 3, 2).reshape(
+                live, width, hkv)[:, :cols]
+            x = x.float() * sc[..., None]
+        return x.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+
+    per_copy = 2 * live * hkv * cols * hd * 2
+    copies = min(layers, max(2, -(-64 * 2 ** 20 // per_copy)))
+    k_scale, v_scale = scales if scales else (None, None)
+    kv = [(gather(k_pool, k_scale, layer), gather(v_pool, v_scale, layer))
+          for layer in range(copies)]
+    qs = q[:live].permute(0, 2, 1, 3).contiguous()           # [live, hq, t, hd]
+    tok = torch.arange(t, device=q.device)
+    col = torch.arange(cols, device=q.device)
+    mask = None
+    if t > 1 or bool((ends != cols).any()):
+        mask = (col[None, None, :] <= start[:live, None, None].long()
+                + tok[None, :, None])[:, None]                # [live, 1, t, C]
+    cycle = iter(range(10 ** 9))
+
+    def call():
+        k, v = kv[next(cycle) % copies]
+        return F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
+                                              scale=hd ** -0.5,
+                                              enable_gqa=True)
+
+    record = dict(
+        library="SDPA, enable_gqa, K/V pre-gathered contiguous bf16 "
+                "[live, Hkv, C, D] (gather and append not timed)",
+        library_ms=time_ms(call, iters=56), library_graph_ms=graph_ms([call]))
+    del kv
+    return record
 
 
 def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
@@ -603,8 +669,8 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
 
 
 def phase_kernels_reasoning(qcfg, prompt_len: int) -> list[dict]:
-    """The reasoner's kernel cases: flash prefill, int8 paged attention,
-    the int8 matmul at the decode shapes (24 rows: every decode step runs
+    """The reasoner's kernel cases: flash prefill, paged attention over
+    int8 and over bf16 pools, the int8 matmul at the decode shapes (24 rows: every decode step runs
     all 24 slots' rows through the projections; 8: the live turns)."""
     from handwritten_ocr_tpu_torch import config as cfg_mod
     bf16 = torch.bfloat16
@@ -615,10 +681,12 @@ def phase_kernels_reasoning(qcfg, prompt_len: int) -> list[dict]:
     bucket = -(-prompt_len // cfg_mod.SERVE_PREFILL_BUCKET) * cfg_mod.SERVE_PREFILL_BUCKET
     rows = [_flash_case("qwen3_prefill_causal", "reasoning", batch, bucket,
                         hq, hkv, hd, gen, causal=True)]
-    rows.append(_paged_case(
-        "paged_append_attention", "qwen3_decode_int8", cfg_mod.SERVE_SLOTS,
-        batch, prompt_len + 64, qcfg.num_hidden_layers, hq, hkv, hd, True,
-        gen, "reasoning"))
+    for kv_quant, case, path in ((True, "qwen3_decode_int8", "reasoning"),
+                                 (False, "qwen3_decode", "fp_kv_chat")):
+        rows.append(_paged_case(
+            "paged_append_attention", case, cfg_mod.SERVE_SLOTS, batch,
+            prompt_len + 64, qcfg.num_hidden_layers, hq, hkv, hd, kv_quant,
+            gen, path))
     d, ffn, vocab = qcfg.hidden_size, qcfg.intermediate_size, qcfg.vocab_size
     slots = cfg_mod.SERVE_SLOTS
     for case, m, d_in, d_out, out_dtype in (
@@ -660,9 +728,10 @@ def phase_kernels(cfg, prompt_len: int) -> list[dict]:
                     gen, causal=True)]
 
     # -- paged append + attention: one decode step, 8 live of 24 slots,
-    # over int8 pools (the read's default) and over bf16 pools
+    # over int8 pools (the read's default) and over bf16 pools (the read
+    # under HOCR_KV_INT8=0)
     for kv_quant, case, path in ((True, "decode_step_int8", "ocr_read"),
-                                 (False, "decode_step", "reference_fp_kv")):
+                                 (False, "decode_step", "fp_kv_read")):
         rows.append(_paged_case(
             "paged_append_attention", case, cfg_mod.SERVE_SLOTS, batch,
             prompt_len + 64, txt.num_hidden_layers, hq, hkv, thd, kv_quant,
@@ -757,6 +826,8 @@ def _counters():
             ("paged_append_attention", paged_append_attention, "launches"),
             ("paged_append_attention_int8", paged_append_attention,
              "int8_launches"),
+            ("paged_append_attention_fp32", paged_append_attention,
+             "fp32_launches"),
             ("int8_matmul", int8_matmul, "launches"))
 
 
@@ -778,10 +849,12 @@ def require_launches(path: str, launches: dict, names) -> None:
 def check_pools(cache, what: str) -> None:
     """Finite pools: the fp pools themselves, or the scale pools of an
     int8 cache (an int8 value is always finite); block 0 is the trash
-    sink."""
+    sink. One layer at a time: a full-width bf16 pool is most of the
+    card's free memory."""
     pools = ((cache.k_scale, cache.v_scale) if cache.quantized
              else (cache.k, cache.v))
-    if not all(bool(torch.isfinite(p[:, 1:].float()).all()) for p in pools):
+    if not all(bool(torch.isfinite(p[layer, 1:]).all())
+               for p in pools for layer in range(p.shape[0])):
         raise AssertionError(f"non-finite values in the {what} KV pools")
     if cache.quantized and not bool((cache.k_scale[:, 1:] > 0).any()):
         raise AssertionError(f"the {what} scale pools were never written")
@@ -850,7 +923,7 @@ def phase_main_path(cfg, prompt_len: int, max_new_tokens: int = 128) -> dict:
         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches=launches)
     emit(**record)
-    phase_trace("ocr_read", lambda budget: backend.read_batch(
+    record["trace"] = phase_trace("ocr_read", lambda budget: backend.read_batch(
         images, OCR_PROMPT, budget))
     del backend, params, batcher, cache
     torch.cuda.empty_cache()
@@ -1034,7 +1107,7 @@ def phase_reasoning(qcfg, turns: list[Turn], max_new_tokens: int = 128) -> dict:
         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
         scale_pools_finite=True, launches=launches)
     emit(**record)
-    phase_trace("reasoning", lambda budget: backend.chat_batch(
+    record["trace"] = phase_trace("reasoning", lambda budget: backend.chat_batch(
         turns, temperature=0.1, max_tokens=budget))
     del backend, params, batcher, cache
     torch.cuda.empty_cache()
@@ -2125,7 +2198,7 @@ def phase_reference(card: str) -> dict:
             record[f"{key}_tokens"] = sum(len(t.split()) for t in texts["cpu"])
             launches[key] = result["launches"]
     require_launches("fp-KV read", launches["vl_fp_kv"],
-                     ("paged_append_attention",))
+                     ("paged_append_attention", "paged_append_attention_fp32"))
     require_launches("int8 Qwen3 reference", launches["qwen3_int8_kv"],
                      ("paged_append_attention_int8", "int8_matmul"))
     guided = _reference_guided()
@@ -2152,17 +2225,18 @@ TIE_GAP = 0.5
 
 
 @contextlib.contextmanager
-def _spec_env(on: bool):
-    """``HOCR_SPEC`` set to 1 (or unset) for the block."""
-    old = os.environ.pop("HOCR_SPEC", None)
-    if on:
-        os.environ["HOCR_SPEC"] = "1"
+def _env(name: str, value: str | None):
+    """Environment variable ``name`` set to ``value`` (None: unset) for
+    the block."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("HOCR_SPEC", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["HOCR_SPEC"] = old
+            os.environ[name] = old
 
 
 @contextlib.contextmanager
@@ -2297,7 +2371,7 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
         Qwen3Model(reasoner.model.params,
                    dataclasses.replace(reasoner.model.config, eos_token_id=-1)),
         spelling_tokenizer(), kv_quant=True)
-    with _spec_env(False):
+    with _env("HOCR_SPEC", None):
         backend.chat_batch(turns, temperature=0.1, max_tokens=8)  # pools
     batcher = backend._batcher
     encoded = [backend._encode(t.system, t.user) for t in turns]
@@ -2343,7 +2417,7 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
             return logits
         return observed
 
-    with _spec_env(False), _patched(serving, "lm_logits", observe_plain):
+    with _env("HOCR_SPEC", None), _patched(serving, "lm_logits", observe_plain):
         plain, plain_s = run(False)
     # The plain decode step's top-2 logits and ids of token j of turn r
     # (j >= 1; token 0 comes from the prefill): [r][j - 1, 2].
@@ -2430,7 +2504,7 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
                              f"query tokens: {dict(t_counts)}")
 
     _reset_stats(batcher)
-    with _spec_env(True):
+    with _env("HOCR_SPEC", "1"):
         t0 = time.perf_counter()
         texts = backend.chat_batch(turns, temperature=0.1,
                                    max_tokens=max_new_tokens)
@@ -2449,7 +2523,7 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
 
     editor = guided_requests(turns)["editor"]
     schema = editor[0].schema
-    with _spec_env(True):
+    with _env("HOCR_SPEC", "1"):
         reasoner.chat_batch(editor[:1], temperature=0.1, max_tokens=8,
                             json_schema=schema)                  # pools
         gbatcher = reasoner._batcher
@@ -2496,7 +2570,7 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
     return record
 
 
-def phase_dense(ocr, reasoner, turns: list[Turn], card: str,
+def phase_dense(ocr, reasoner, turns: list[Turn], card: str, int8: dict,
                 max_new_tokens: int = 128, json_tokens: int = 256) -> dict:
     """The dense (contiguous-cache) path of both engines at full width, on
     the resident models once their KV pools are dropped:
@@ -2507,9 +2581,10 @@ def phase_dense(ocr, reasoner, turns: list[Turn], card: str,
     through ``generate_json`` (256 tokens, the published EOS). Per call:
     wall s, peak memory and launches; flash, window and the int8 matmul
     must launch. Both models' ``forward_logits`` must be finite. Then the
-    same reads and turns through the paged engines over fp KV (the closer
-    yardstick: dense KV is bf16): the first differing token per row is
-    reported, not required to be absent."""
+    same reads and turns through the paged engines over fp KV
+    (``phase_fp_kv``; the closer yardstick: dense KV is bf16): the first
+    differing token per row is reported, not required to be absent.
+    ``int8``: the read and reasoning phases' records, for phase_fp_kv."""
     from handwritten_ocr_tpu_torch.config import (OCR_PROMPT,
                                                   PREPROCESSING_STRATEGIES)
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
@@ -2568,22 +2643,8 @@ def phase_dense(ocr, reasoner, turns: list[Turn], card: str,
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"non-finite {name} forward_logits")
     del logits, vl_logits
-    paged = {"read_batch": TorchOCRBackend(ocr.model, tokenizer,
-                                           kv_quant=False),
-             "chat_batch": TorchReasoningBackend(free, tokenizer,
-                                                 kv_quant=False)}
-    agreement = {}
-    for name, engine in paged.items():
-        want = [[int(x) for x in t.split()]
-                for t in engines[name][1](engine)]
-        got = [[int(x) for x in t.split()] for t in outputs[name]]
-        agreement[name] = dict(
-            first_difference=[_first_difference(a, b)
-                              for a, b in zip(want, got)],
-            tokens=[len(t) for t in got])
-        engine._batcher = None
-        gc.collect()
-        torch.cuda.empty_cache()
+    fp_kv = phase_fp_kv(ocr.model, free, tokenizer, images, turns, outputs,
+                        int8, card, max_new_tokens)
     record = dict(phase="dense", card=card,
                   models=["olmOCR-2-7B (VLConfig()), bf16",
                           "qwen3:32b (Qwen3Config()), int8 weights"],
@@ -2593,17 +2654,119 @@ def phase_dense(ocr, reasoner, turns: list[Turn], card: str,
                       critic.system, critic.user)),
                   max_new_tokens=max_new_tokens, json_tokens=json_tokens,
                   calls=calls, json_text=outputs["chat_json"][0][:160],
-                  agreement_with_paged_fp_kv=agreement, launches=launches)
+                  agreement_with_paged_fp_kv=fp_kv["agreement_with_dense"],
+                  launches=launches)
+    emit(**record)
+    return record | {"fp_kv": fp_kv}
+
+
+def phase_fp_kv(vl_model, llm_model, tokenizer, images, turns: list[Turn],
+                dense_out: dict, int8: dict, card: str,
+                max_new_tokens: int = 128) -> dict:
+    """The fp-KV paged path at full width on the dense phase's resident
+    models: ``TorchOCRBackend`` and ``TorchReasoningBackend`` built with
+    ``HOCR_KV_INT8=0`` and no ``kv_quant`` (bf16 pools, the paged kernel's
+    tensor-core fp-KV body), over the read phase's 8 reads (``VLConfig()``
+    bf16) and the 8 editor turns (qwen3:32b int8 weights), 128 tokens.
+    Per engine: a first call, whose tokens are held against the dense
+    path's (the first differing token per row); the timed call, with every
+    launch count set to 0 before it and read after it (the bf16 body must
+    launch, the fp32 body and the int8 branch must not); wall, prefill and
+    decode s and ms per decode step; then two traced calls
+    (``phase_trace``). Beside each, the int8 path's figures from this
+    run's read and reasoning phases (``int8``)."""
+    from handwritten_ocr_tpu_torch.config import OCR_PROMPT
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchReasoningBackend)
+    with _env("HOCR_KV_INT8", "0"):
+        engines = {"read_batch": TorchOCRBackend(vl_model, tokenizer),
+                   "chat_batch": TorchReasoningBackend(llm_model, tokenizer)}
+    run = {"read_batch": lambda e, n: e.read_batch(images, OCR_PROMPT, n),
+           "chat_batch": lambda e, n: e.chat_batch(turns, temperature=0.1,
+                                                   max_tokens=n)}
+    rows = {"read_batch": len(images), "chat_batch": len(turns)}
+    calls, agreement = {}, {}
+    for name, engine in engines.items():
+        if engine.kv_quant:
+            raise AssertionError(f"{name}: HOCR_KV_INT8=0 left the KV int8")
+        first = run[name](engine, max_new_tokens)
+        want = [[int(x) for x in t.split()] for t in first]
+        got = [[int(x) for x in t.split()] for t in dense_out[name]]
+        agreement[name] = dict(
+            first_difference=[_first_difference(a, b)
+                              for a, b in zip(want, got)],
+            tokens=[len(t) for t in got])
+        batcher = engine._batcher
+        batcher.stats.update(prefill_s=0.0, decode_s=0.0, decode_tokens=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        texts = run[name](engine, max_new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        require_launches(f"fp-KV {name}", launches, ("paged_append_attention",))
+        if launches["paged_append_attention_fp32"] or \
+                launches["paged_append_attention_int8"]:
+            raise AssertionError(f"fp-KV {name}: a body other than the bf16 "
+                                 f"one launched: {launches}")
+        if len(texts) != rows[name] or engine._batcher is not batcher:
+            raise AssertionError(f"fp-KV {name}: {len(texts)} texts, or the "
+                                 "timed call rebuilt the batcher")
+        cache = batcher.cache
+        if cache.quantized or cache.k.dtype != torch.bfloat16:
+            raise AssertionError(f"fp-KV {name} decoded over {cache.k.dtype}")
+        check_pools(cache, f"fp-KV {name}")
+        stats = dict(batcher.stats)
+        trace = phase_trace(f"fp_kv_{name}",
+                            lambda budget: run[name](engine, budget))
+        calls[name] = dict(
+            wall_s=wall, prefill_s=stats["prefill_s"],
+            decode_s=stats["decode_s"], decode_tokens=stats["decode_tokens"],
+            decode_step_ms=stats["decode_s"]
+            / (stats["decode_tokens"] / rows[name]) * 1e3,
+            traced_step_device_ms=trace["decode_step_device_ms"],
+            traced_step_wall_ms=trace["decode_step_wall_ms"],
+            pool_blocks=batcher.n_blocks,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=launches)
+        engine._batcher = None
+        del batcher, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    read, chat = int8["read"], int8["chat"]
+    same_run_int8 = {
+        "read_batch": dict(
+            wall_s=read["read_s"] - read["preprocess_s"],
+            prefill_s=read["prefill_s"], decode_s=read["decode_s"],
+            decode_step_ms=read["decode_s"]
+            / (read["decode_tokens"] / read["reads"]) * 1e3,
+            traced_step_device_ms=read["trace"]["decode_step_device_ms"],
+            traced_step_wall_ms=read["trace"]["decode_step_wall_ms"],
+            launches=read["launches"]),
+        "chat_batch": dict(
+            wall_s=chat["call_s"], prefill_s=chat["prefill_s"],
+            decode_s=chat["decode_s"], decode_step_ms=chat["decode_step_ms"],
+            traced_step_device_ms=chat["trace"]["decode_step_device_ms"],
+            traced_step_wall_ms=chat["trace"]["decode_step_wall_ms"],
+            launches=chat["launches"])}
+    record = dict(phase="fp_kv", card=card, env="HOCR_KV_INT8=0",
+                  kv_cache="bf16, paged", max_new_tokens=max_new_tokens,
+                  models=["olmOCR-2-7B (VLConfig()), bf16",
+                          "qwen3:32b (Qwen3Config()), int8 weights"],
+                  calls=calls, int8_same_run=same_run_int8,
+                  agreement_with_dense=agreement)
     emit(**record)
     return record
 
 
 def phase_kernels_decode_modes(cfg, qcfg, prompt_len: int, q_prompt_len: int,
                          json_prompt_len: int) -> list[dict]:
-    """The kernels at the speculative and dense paths' shapes: int8 paged
-    attention at 17 query tokens (a verify round, draft_k 16) with 8 of 24
-    slots live and every append crossing a page boundary, at 64:8 and
-    28:4 heads; flash at the dense VL prefill (unpadded prompt, causal)
+    """The kernels at the speculative and dense paths' shapes: paged
+    attention over int8 and over bf16 pools at 17 query tokens (a verify
+    round, draft_k 16) with 8 of 24 slots live and every append crossing a
+    page boundary, at 64:8 and 28:4 heads; flash at the dense VL prefill (unpadded prompt, causal)
     and at ``generate_json``'s one-row Qwen3 prefill; the int8 matmul at
     one row (``generate_json``'s steps). Runs when no model is
     resident."""
@@ -2619,6 +2782,14 @@ def phase_kernels_decode_modes(cfg, qcfg, prompt_len: int, q_prompt_len: int,
                     prompt_len + 64, txt.num_hidden_layers,
                     txt.num_attention_heads, txt.num_key_value_heads,
                     txt.head_dim, True, gen, "speculative", t=17),
+        _paged_case("paged_append_attention", "qwen3_verify_t17", slots, 8,
+                    q_prompt_len + 64, qcfg.num_hidden_layers,
+                    qcfg.num_attention_heads, qcfg.num_key_value_heads,
+                    qcfg.head_dim, False, gen, "fp_kv_chat", t=17),
+        _paged_case("paged_append_attention", "vl_verify_t17", slots, 8,
+                    prompt_len + 64, txt.num_hidden_layers,
+                    txt.num_attention_heads, txt.num_key_value_heads,
+                    txt.head_dim, False, gen, "fp_kv_read", t=17),
         _flash_case("dense_vl_prefill_causal", "dense", 8, prompt_len,
                     txt.num_attention_heads, txt.num_key_value_heads,
                     txt.head_dim, gen, causal=True),
@@ -3070,7 +3241,8 @@ def main() -> int:
     from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
 
     info = phase_device()
-    for name in ("HOCR_SPEC", "HOCR_VL_SERVING", "HOCR_LLM_SERVING"):
+    for name in ("HOCR_SPEC", "HOCR_VL_SERVING", "HOCR_LLM_SERVING",
+                 "HOCR_KV_INT8"):
         os.environ.pop(name, None)        # every engine's defaults
     t_start = time.perf_counter()
     phase_build()
@@ -3086,8 +3258,10 @@ def main() -> int:
         t.system, t.user))) for t in turns)
     rows = phase_kernels(cfg, prompt_len)
     rows += phase_kernels_reasoning(qcfg, q_prompt_len)
-    paths = {"ocr_read": phase_main_path(cfg, prompt_len)["launches"]}
-    paths["reasoning"] = phase_reasoning(qcfg, turns)["launches"]
+    int8 = {"read": phase_main_path(cfg, prompt_len),
+            "chat": phase_reasoning(qcfg, turns)}
+    paths = {"ocr_read": int8["read"]["launches"],
+             "reasoning": int8["chat"]["launches"]}
     # The guided and pipeline phases decode with the published EOS id.
     reasoner, paths["guided"], guided_seen = phase_guided(
         Qwen3Config(), turns, info["smi"])
@@ -3101,8 +3275,10 @@ def main() -> int:
     # counted from 0
     paths["pipeline"] = {name: cli["run_many"]["launches"][name]
                          + run["launches"][name] for name in run["launches"]}
-    dense = phase_dense(ocr, reasoner, turns, info["smi"])
+    dense = phase_dense(ocr, reasoner, turns, info["smi"], int8)
     paths["dense"] = dense["launches"]
+    paths["fp_kv_read"] = dense["fp_kv"]["calls"]["read_batch"]["launches"]
+    paths["fp_kv_chat"] = dense["fp_kv"]["calls"]["chat_batch"]["launches"]
     del reasoner, ocr
     gc.collect()                # both models go before the last phases
     torch.cuda.empty_cache()
@@ -3110,10 +3286,7 @@ def main() -> int:
     paths["train"] = train["launches"]
     phase_train_grad_check(cfg, info["smi"])
     phase_loaders(info["smi"])
-    reference = phase_reference(info["smi"])
-    # The fp-KV paged branch runs on no default path any more (both
-    # engines default to int8 KV): its count is the fp-KV reference read's.
-    paths["reference_fp_kv"] = reference["launches"]["vl_fp_kv"]
+    phase_reference(info["smi"])
     rows += phase_kernels_paths(cfg, Qwen3Config(), prompt_len, {
         "guided": guided_seen, "pipeline": cli["seen"]})
     rows += phase_kernels_decode_modes(cfg, Qwen3Config(), prompt_len, q_prompt_len,
@@ -3123,6 +3296,7 @@ def main() -> int:
     for r in rows:
         kernels.append({key: r[key] for key in (
             "name", "case", "route", "source", "replaces", "path")}
+            | {"body": r.get("body")}
             | {"launches": paths[r["path"]][r["counter"]]}
             | {key: r[key] for key in ("max_abs_err", "tolerance",
                                        "rel_rms_err", "ms", "plain_ms",
@@ -3133,7 +3307,7 @@ def main() -> int:
                                            "library_backward_ms")}
             | {f"{path}_launches": paths[path][r["counter"]]
                for path in ("guided", "pipeline", "cli", "speculative",
-                            "dense", "train")})
+                            "dense", "fp_kv_read", "fp_kv_chat", "train")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

@@ -18,27 +18,30 @@
 // THE POOLS ARE UPDATED IN PLACE (the TPU kernel returns them aliased).
 //
 // Bound: bytes. A decode step reads each live slot's cached K and V once
-// (int8: 2 x 128 bytes + 8 bytes of scales per token and kv-head) and does
-// ~4 flops per byte. A decode step has few live slots x Hkv kv-heads, too
-// few blocks to fill 132 SMs if each walked a whole context, so both
-// bodies split the context (flash-decoding) over blocks of `split_cols`
-// cols. In both, the block (row tile 0, split 0) appends the head's new
-// rows to the pool, and every block reads the cached cols < start from the
-// pool pages and the new cols start .. start+n_valid-1 from the call's own
+// (bf16: 2 x 256 bytes per token and kv-head, 1 KB per token per layer at
+// 28:4 heads; int8: 2 x 128 bytes + 8 bytes of scales) and does ~4 flops
+// per byte. A decode step has few live slots x Hkv kv-heads, too few
+// blocks to fill 132 SMs if each walked a whole context, so every body
+// splits the context (flash-decoding) over blocks of `split_cols` cols. In
+// all of them, the block (row tile 0, split 0) appends the head's new rows
+// to the pool, and every block reads the cached cols < start from the pool
+// pages and the new cols start .. start+n_valid-1 from the call's own
 // rows, so no block reads a pool row another block is writing.
 //
-// Two bodies:
+// Three bodies:
+// - bf16 q over bf16 pools (fp KV, HOCR_KV_INT8=0): paged_bf16_mma_kernel,
+//   on the tensor cores, one launch (described above it).
 // - int8 pools with bf16 q (both engines' default): paged_int8_mma_kernel,
 //   on the tensor cores, one launch (described above it).
-// - fp pools, and fp32 q: paged_kernel, fp32 FMAs out of shared memory,
-//   grid (slot, kv-head, row tile of 16 of the G*T query rows x split);
-//   each block writes its partial (m, l, unnormalised acc) and a second
-//   kernel combines the splits of each row. Key tiles of 64 cols stream
-//   through shared memory: the tile's row addresses are looked up once
-//   (one table read per col), then every thread issues all its 16-byte
-//   loads of the tile before using any. 128 threads, each owning one query
-//   row x 8 strided cols of the scores and D/8 output cols; q is scaled
-//   before the dot.
+// - fp32 q, over fp32 or int8 pools (the card's reference runs):
+//   paged_kernel, fp32 FMAs out of shared memory, grid (slot, kv-head, row
+//   tile of 16 of the G*T query rows x split); each block writes its
+//   partial (m, l, unnormalised acc) and a second kernel combines the
+//   splits of each row. Key tiles of 64 cols stream through shared
+//   memory: the tile's row addresses are looked up once (one table read
+//   per col), then every thread issues all its 16-byte loads of the tile
+//   before using any. 128 threads, each owning one query row x 8 strided
+//   cols of the scores and D/8 output cols; q is scaled before the dot.
 //
 // int8 pools (P = int8_t). Append: per (slot, token, head) amax = max|k|
 // over D in fp32, scale = max(amax, 1e-6) / 127 by a true division, q =
@@ -75,7 +78,7 @@ struct PagedArgs {
   void* out;
   float* part_acc;   // [S, Hkv, G*T, n_split, D] unnormalised P.V
   float* part_ml;    // [S, Hkv, G*T, n_split, 2] running max, denominator
-  int* counters;     // int8 tensor-core body: [S, Hkv, row tiles], 0 between launches
+  int* counters;     // tensor-core bodies: [S, Hkv, row tiles], 0 between launches
   int slots, t_len, hq, hkv, width, bs, n_blocks, layer, split_cols, n_split;
   float scale;
 };
@@ -392,6 +395,119 @@ __global__ void __launch_bounds__(D) combine_kernel(const PagedArgs a) {
       from_f<T>(sum / fmaxf(l, 1e-30f));
 }
 
+// ---- shared by the two tensor-core bodies (bf16 q, D = 128) --------------
+
+constexpr int HD = 128;   // the text models' head width
+
+// Output row r of (slot s, kv-head h): group member r / T, token r % T.
+__device__ __forceinline__ __nv_bfloat16* out_row_ptr(const PagedArgs& a, int s, int h,
+                                                      int r) {
+  return static_cast<__nv_bfloat16*>(a.out) +
+         ((size_t)(s * a.t_len + r % a.t_len) * a.hq + h * (a.hq / a.hkv) + r / a.t_len) * HD;
+}
+
+// A slot with n_valid == 0: split 0 zeroes the block's output rows.
+__device__ void zero_dead_rows(const PagedArgs& a, int s, int h, int rt, int split) {
+  if (split != 0) return;
+  const int rows = (a.hq / a.hkv) * a.t_len;
+  for (int idx = threadIdx.x; idx < RT * HD; idx += NT) {
+    const int r = rt * RT + idx / HD;
+    if (r < rows) out_row_ptr(a, s, h, r)[idx % HD] = __float2bfloat16(0.f);
+  }
+}
+
+// The block's four warps have left their (m, l) and unnormalised O rows in
+// shared memory at `ring` (s_o [4][RT][HD] fp32, then s_ml [4][RT][2]).
+// One thread per d merges the warps in order; with one split the block
+// writes its output rows, with several each writes its partials, and the
+// last block to arrive merges the splits in split order and resets the
+// arrival counter for the next launch.
+__device__ void finish_tile(const PagedArgs& a, uint8_t* ring, int s, int h, int rt,
+                            int row_tiles, int split, int n_act) {
+  static_assert(HD == NT, "one thread per output d");
+  __shared__ int s_last;
+  const float* s_o = reinterpret_cast<const float*>(ring);
+  const float* s_ml = s_o + 4 * RT * HD;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rows = (a.hq / a.hkv) * a.t_len;
+  const int d = tid;
+  const int cidx = (s * a.hkv + h) * row_tiles + rt;
+  for (int r = 0; r < RT; ++r) {
+    const int r_glob = rt * RT + r;
+    if (r_glob >= rows) break;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, s_ml[(w * RT + r) * 2]);
+    float ll = 0.f, acc = 0.f;
+    if (mm != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float mw = s_ml[(w * RT + r) * 2];
+        if (mw == -INFINITY) continue;
+        const float f = expf(mw - mm);
+        ll += s_ml[(w * RT + r) * 2 + 1] * f;
+        acc += s_o[(w * RT + r) * HD + d] * f;
+      }
+    }
+    if (n_act == 1) {
+      out_row_ptr(a, s, h, r_glob)[d] = __float2bfloat16(acc / fmaxf(ll, 1e-30f));
+    } else {
+      const size_t part = ((size_t)cidx * RT + r) * a.n_split + split;
+      a.part_acc[part * HD + d] = acc;
+      if (d == 0) {
+        a.part_ml[2 * part] = mm;
+        a.part_ml[2 * part + 1] = ll;
+      }
+    }
+  }
+  if (n_act == 1) return;
+  __threadfence();     // this split's partials are visible before it arrives
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(a.counters + cidx, 1) == n_act - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();     // every split's partials are visible to the last block
+  // Each row's split weights exp(m_i - max m) and denominator, one thread
+  // per row, into the (free) ring; then 32 threads per row sum the
+  // partials in split order, four d each by 16-byte loads.
+  const int rows_here = min(RT, rows - rt * RT);
+  float* s_wt = reinterpret_cast<float*>(ring);     // [RT][n_act]
+  float* s_den = s_wt + RT * n_act;                  // [RT]
+  if (tid < rows_here) {
+    const size_t base = ((size_t)cidx * RT + tid) * a.n_split;
+    float mm = -INFINITY;
+    for (int i = 0; i < n_act; ++i) mm = fmaxf(mm, __ldcg(a.part_ml + 2 * (base + i)));
+    float ll = 0.f;
+    for (int i = 0; i < n_act; ++i) {   // in split order: deterministic
+      const float mi = __ldcg(a.part_ml + 2 * (base + i));
+      const float w = (mi == -INFINITY) ? 0.f : expf(mi - mm);
+      s_wt[tid * n_act + i] = w;
+      ll += __ldcg(a.part_ml + 2 * (base + i) + 1) * w;
+    }
+    s_den[tid] = fmaxf(ll, 1e-30f);
+  }
+  __syncthreads();
+  const float4* acc4 = reinterpret_cast<const float4*>(a.part_acc);
+  for (int r = warp; r < rows_here; r += NT / 32) {
+    const size_t base = ((size_t)cidx * RT + r) * a.n_split;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int i = 0; i < n_act; ++i) {   // in split order: deterministic
+      const float w = s_wt[r * n_act + i];
+      const float4 v = __ldcg(acc4 + (base + i) * (HD / 4) + lane);
+      acc.x += v.x * w;
+      acc.y += v.y * w;
+      acc.z += v.z * w;
+      acc.w += v.w * w;
+    }
+    const float den = s_den[r];
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out_row_ptr(a, s, h, rt * RT + r) + 4 * lane);
+    dst[0] = __floats2bfloat162_rn(acc.x / den, acc.y / den);
+    dst[1] = __floats2bfloat162_rn(acc.z / den, acc.w / den);
+  }
+  if (tid == 0) a.counters[cidx] = 0;   // ready for the next launch
+}
+
 // ---- int8 pools, bf16 q: the tensor-core body ----------------------------
 //
 // One block per (slot, kv-head, row tile of 16 query rows, context split):
@@ -485,9 +601,7 @@ paged_int8_mma_kernel(const PagedArgs a) {
   static_assert(D == 128, "the text models' head width");
   extern __shared__ __align__(128) uint8_t smem8[];
   __shared__ float s_red[2 * NT / 32];
-  __shared__ int s_last;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
   const int s = blockIdx.x, h = blockIdx.y;
   const int row_tiles = gridDim.z / a.n_split;
   const int rt = blockIdx.z % row_tiles, split = blockIdx.z / row_tiles;
@@ -495,20 +609,12 @@ paged_int8_mma_kernel(const PagedArgs a) {
   const int g = lane / 4, t = lane % 4;
   const int t_len = a.t_len, group = a.hq / a.hkv, rows = group * t_len;
   const int st = a.start[s], nv = a.n_valid[s], limit = st + nv;
-  // out row of query row r (head group member r / T, token r % T)
-  auto out_row = [&](int r) {
-    return out + ((size_t)(s * t_len + r % t_len) * a.hq + h * group + r / t_len) * D;
-  };
 
   if (nv == 0) {   // a dead slot: zero output, no append, no page read
-    if (split == 0)
-      for (int idx = tid; idx < RT * D; idx += NT) {
-        const int r = rt * RT + idx / D;
-        if (r < rows) out_row(r)[idx % D] = __float2bfloat16(0.f);
-      }
+    zero_dead_rows(a, s, h, rt, split);
     return;
   }
-  const int n_act = (limit + a.split_cols - 1) / a.split_cols;   // splits with cols
+  const int n_act = min(a.n_split, (limit + a.split_cols - 1) / a.split_cols);   // splits with cols
   if (split >= n_act) return;
   const int c_begin = split * a.split_cols;
   const int c_end = min(limit, c_begin + a.split_cols);
@@ -711,85 +817,262 @@ paged_int8_mma_kernel(const PagedArgs a) {
     }
   }
   __syncthreads();
+  finish_tile(a, smem8, s, h, rt, row_tiles, split, n_act);
+}
 
-  // One thread per d: merge the warps in order; one split writes the
-  // output, several write their partials and the last to arrive merges.
-  const int d = tid;
-  const int cidx = (s * a.hkv + h) * row_tiles + rt;
-  for (int r = 0; r < RT; ++r) {
-    const int r_glob = rt * RT + r;
-    if (r_glob >= rows) break;
-    float mm = -INFINITY;
+// ---- bf16 pools, bf16 q: the tensor-core body (fp KV) -------------------
+//
+// Replaces the TPU kernel's fp-KV branch at bf16. Bound by bytes: 1 KB per
+// cached token per layer at 28:4 heads (2 KB at 64:8), read once; the
+// products are ~4 flops per byte, far below the tensor cores' rate.
+//
+// One block per (slot, kv-head, row tile of 16 query rows, context split),
+// the grid of the int8 body: at a decode step (T = 1) the group's G <= 8
+// rows fit one tile, so K and V are read once per split. bf16 K/V tiles of
+// 64 cols (16 KB each) stream through a 3-stage ring of shared memory
+// (96 KB: two blocks fit an SM), filled by 16-byte cp.async from the pages
+// through the slot's table, this call's new cols straight from k_new /
+// v_new, while the tile before computes. A col's 16-byte chunk j sits at
+// chunk j ^ (col & 7), so the eight rows an ldmatrix phase reads fall in
+// eight distinct bank groups. Warp w takes cols 16w .. 16w+15 of every tile
+// and keeps its own online softmax; the four warps merge at the end, then
+// the splits merge in the same launch (the last block to arrive, in split
+// order, through a self-resetting arrival counter).
+//   S = Q.K^T: mma.sync m16n8k16, the bf16 q rows as A (registers, loaded
+//   once), K as B by ldmatrix from the ring (no widening); fp32 scores
+//   times the softmax scale, then the causal mask per row's token.
+//   O += P.V: P in fp32 split into bf16 hi + lo parts, two products, so P
+//   keeps ~16 bits as the fp32 p of the TPU kernel does; V as B by
+//   ldmatrix.trans (a col pair per register).
+constexpr int STAGES16 = 3;
+constexpr int KV16_TILE_BYTES = KT * HD * 2;      // one bf16 K or V tile
+constexpr int STAGE16_BYTES = 2 * KV16_TILE_BYTES;
+constexpr size_t BF16_MMA_SMEM_BYTES = (size_t)STAGES16 * STAGE16_BYTES;
+static_assert(4 * RT * HD * sizeof(float) + 4 * RT * 2 * sizeof(float) <= BF16_MMA_SMEM_BYTES,
+              "the merge fits the ring");
+
+__device__ __forceinline__ int kv16_chunk(int c, int j) { return j ^ (c & 7); }
+
+// Cols k0 .. k0+63 of head h of slot s into one ring stage: cached cols
+// from their page, this call's cols from k_new / v_new, the rest zero.
+__device__ __forceinline__ void load_kv16_tile(const PagedArgs& a, uint8_t* stage, int k0,
+                                               int s, int h, int st, int limit,
+                                               const int* tab) {
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(stage);
+  __nv_bfloat16* sv = sk + KT * HD;
+  const __nv_bfloat16* k_pool = static_cast<const __nv_bfloat16*>(a.k_pool);
+  const __nv_bfloat16* v_pool = static_cast<const __nv_bfloat16*>(a.v_pool);
+  const __nv_bfloat16* k_new = static_cast<const __nv_bfloat16*>(a.k_new);
+  const __nv_bfloat16* v_new = static_cast<const __nv_bfloat16*>(a.v_new);
+  const int tid = threadIdx.x, bs = a.bs;
+  const size_t row_elems = (size_t)a.hkv * HD;
+  const size_t page_elems = (size_t)bs * row_elems;
+  const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, s_ml[(w * RT + r) * 2]);
-    float ll = 0.f, acc = 0.f;
-    if (mm != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const float mw = s_ml[(w * RT + r) * 2];
-        if (mw == -INFINITY) continue;
-        const float f = expf(mw - mm);
-        ll += s_ml[(w * RT + r) * 2 + 1] * f;
-        acc += s_o[(w * RT + r) * D + d] * f;
-      }
-    }
-    if (n_act == 1) {
-      out_row(r_glob)[d] = __float2bfloat16(acc / fmaxf(ll, 1e-30f));
+  for (int it = 0; it < KT * 16 / NT; ++it) {
+    const int idx = it * NT + tid, col = idx / 16, j = idx % 16, c = k0 + col;
+    __nv_bfloat16* dk = sk + col * HD + 8 * kv16_chunk(col, j);
+    __nv_bfloat16* dv = sv + col * HD + 8 * kv16_chunk(col, j);
+    if (c < st) {
+      const size_t off = layer_off + (size_t)__ldg(tab + c / bs) * page_elems +
+                         (size_t)(c % bs) * row_elems + (size_t)h * HD + 8 * j;
+      cp_async16(dk, k_pool + off);
+      cp_async16(dv, v_pool + off);
+    } else if (c < limit) {
+      const size_t src = ((size_t)(s * a.t_len + c - st) * a.hkv + h) * HD + 8 * j;
+      cp_async16(dk, k_new + src);
+      cp_async16(dv, v_new + src);
     } else {
-      const size_t part = ((size_t)cidx * RT + r) * a.n_split + split;
-      a.part_acc[part * D + d] = acc;
-      if (d == 0) {
-        a.part_ml[2 * part] = mm;
-        a.part_ml[2 * part + 1] = ll;
+      *reinterpret_cast<uint4*>(dk) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(dv) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+paged_bf16_mma_kernel(const PagedArgs a) {
+  extern __shared__ __align__(128) uint8_t smem16[];
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const int s = blockIdx.x, h = blockIdx.y;
+  const int row_tiles = gridDim.z / a.n_split;
+  const int rt = blockIdx.z % row_tiles, split = blockIdx.z / row_tiles;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int t_len = a.t_len, group = a.hq / a.hkv, rows = group * t_len;
+  const int st = a.start[s], nv = a.n_valid[s], limit = st + nv;
+
+  if (nv == 0) {   // a dead slot: zero output, no append, no page read
+    zero_dead_rows(a, s, h, rt, split);
+    return;
+  }
+  const int n_act = min(a.n_split, (limit + a.split_cols - 1) / a.split_cols);   // splits with cols
+  if (split >= n_act) return;
+  const int c_begin = split * a.split_cols;
+  const int c_end = min(limit, c_begin + a.split_cols);
+  if (rt == 0 && split == 0) append_rows<__nv_bfloat16, __nv_bfloat16, HD>(
+      a, s, h, nullptr, nullptr, nullptr, nullptr);
+
+  // Q as the A operand of k-step ks (d 16ks .. 16ks+15): rows g (lo) and
+  // g+8 (hi) at d 16ks+2t, +1 (a0, a1) and 16ks+8+2t, +1 (a2, a3).
+  uint32_t qa[8][4];
+  int row_max[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = rt * RT + g + 8 * hi;
+    const int tok = r % t_len;
+    row_ok[hi] = r < rows && tok < nv;
+    row_max[hi] = st + tok;
+    const uint32_t* qw = reinterpret_cast<const uint32_t*>(
+        q + ((size_t)(s * t_len + tok) * a.hq + h * group + r / t_len) * HD);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      qa[ks][hi] = row_ok[hi] ? __ldg(qw + 8 * ks + t) : 0u;
+      qa[ks][2 + hi] = row_ok[hi] ? __ldg(qw + 8 * ks + 4 + t) : 0u;
+    }
+  }
+
+  float o[16][4];   // O n-tile n: [0..1] row g, d 8n+2t, +1; [2..3] row g+8
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const int* tab = a.tables + (size_t)s * a.width;
+  const int n_tiles = (c_end - c_begin + KT - 1) / KT;
+  uint8_t* ring = smem16;
+
+#pragma unroll
+  for (int i = 0; i < STAGES16 - 1; ++i) {
+    if (i < n_tiles)
+      load_kv16_tile(a, ring + i * STAGE16_BYTES, c_begin + i * KT, s, h, st, limit, tab);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<STAGES16 - 2>();
+    __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES16 is free
+    const int nxt = i + STAGES16 - 1;
+    if (nxt < n_tiles)
+      load_kv16_tile(a, ring + (nxt % STAGES16) * STAGE16_BYTES, c_begin + nxt * KT, s, h, st,
+                     limit, tab);
+    cp_async_commit();
+
+    const __nv_bfloat16* sk =
+        reinterpret_cast<const __nv_bfloat16*>(ring + (i % STAGES16) * STAGE16_BYTES);
+    const __nv_bfloat16* sv = sk + KT * HD;
+    const int k0 = c_begin + i * KT;
+
+    // S for the warp's 16 cols: sc[nt][0..1] row g, cols 8nt+2t, +1; [2..3] row g+8.
+    // ldmatrix x4: lane l addresses row (col) l % 8 of matrix l / 8, which is
+    // d chunk 4kp + l / 8: registers b0, b1 of k-steps 2kp and 2kp+1.
+    float sc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+      const int col = 16 * warp + 8 * nt + (lane & 7);
+#pragma unroll
+      for (int kp = 0; kp < 4; ++kp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, sk + col * HD + 8 * kv16_chunk(col, 4 * kp + (lane >> 3)));
+        mma_bf16(sc[nt], qa[2 * kp], b[0], b[1]);
+        mma_bf16(sc[nt], qa[2 * kp + 1], b[2], b[3]);
       }
     }
-  }
-  if (n_act == 1) return;
-  __threadfence();     // this split's partials are visible before it arrives
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(a.counters + cidx, 1) == n_act - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();     // every split's partials are visible to the last block
-  // Each row's split weights exp(m_i - max m) and denominator, one thread
-  // per row, into the (free) ring; then 32 threads per row sum the
-  // partials in split order, four d each by 16-byte loads.
-  const int rows_here = min(RT, rows - rt * RT);
-  float* s_wt = reinterpret_cast<float*>(smem8);    // [RT][n_act]
-  float* s_den = s_wt + RT * n_act;                  // [RT]
-  if (tid < rows_here) {
-    const size_t base = ((size_t)cidx * RT + tid) * a.n_split;
-    float mm = -INFINITY;
-    for (int i = 0; i < n_act; ++i) mm = fmaxf(mm, __ldcg(a.part_ml + 2 * (base + i)));
-    float ll = 0.f;
-    for (int i = 0; i < n_act; ++i) {   // in split order: deterministic
-      const float mi = __ldcg(a.part_ml + 2 * (base + i));
-      const float w = (mi == -INFINITY) ? 0.f : expf(mi - mm);
-      s_wt[tid * n_act + i] = w;
-      ll += __ldcg(a.part_ml + 2 * (base + i) + 1) * w;
+
+    // online softmax per row over the warp's cols
+    float corr[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = k0 + 16 * warp + 8 * nt + 2 * t + e;
+          const bool ok = row_ok[hi] && c < limit && c <= row_max[hi];
+          float& v = sc[nt][2 * hi + e];
+          v = ok ? v * a.scale : -INFINITY;
+          mx = fmaxf(mx, v);
+        }
+      mx = group_max<4>(mx);
+      const float m_new = fmaxf(m_run[hi], mx);
+      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = sc[nt][2 * hi + e];
+          v = expf(v - safe);   // the probability, 0 where masked
+          sum += v;
+        }
+      sum = group_sum<4>(sum);
+      corr[hi] = (m_run[hi] == -INFINITY) ? 0.f : expf(m_run[hi] - safe);
+      l_run[hi] = corr[hi] * l_run[hi] + sum;
+      m_run[hi] = m_new;
     }
-    s_den[tid] = fmaxf(ll, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+    // P as the A operand (k = the warp's cols 2t, 2t+1 | 2t+8, 2t+9), hi + lo
+    uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int nt = r / 2, e0 = 2 * (r % 2);   // a0: nt0 row g; a1: nt0 row g+8; ...
+      const float x0 = sc[nt][e0], x1 = sc[nt][e0 + 1];
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
+      const float2 back = __bfloat1622float2(hi2);
+      a_hi[r] = *reinterpret_cast<const uint32_t*>(&hi2);
+      a_lo[r] = pack_bf16(x0 - back.x, x1 - back.y);
+    }
+    // V by ldmatrix.trans: lane l addresses col 16w + l % 8 + 8((l / 8) % 2)
+    // at d chunk 2dp + l / 16: b0, b1 of n-tiles 2dp and 2dp+1.
+    const int vcol = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int dp = 0; dp < 8; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, sv + vcol * HD + 8 * kv16_chunk(vcol, 2 * dp + (lane >> 4)));
+      mma_bf16(o[2 * dp], a_hi, b[0], b[1]);
+      mma_bf16(o[2 * dp], a_lo, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], a_hi, b[2], b[3]);
+      mma_bf16(o[2 * dp + 1], a_lo, b[2], b[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: reuse it for the warps' merge
+
+  // The warps' (m, l, O) into shared memory: rows g and g+8, d 8n+2t, +1.
+  float* s_o = reinterpret_cast<float*>(smem16);    // [warp][RT][HD]
+  float* s_ml = s_o + 4 * RT * HD;                   // [warp][RT][2]
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = g + 8 * hi;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      *reinterpret_cast<float2*>(s_o + (warp * RT + r) * HD + 8 * n + 2 * t) =
+          make_float2(o[n][2 * hi], o[n][2 * hi + 1]);
+    if (t == 0) {
+      s_ml[(warp * RT + r) * 2] = m_run[hi];
+      s_ml[(warp * RT + r) * 2 + 1] = l_run[hi];
+    }
   }
   __syncthreads();
-  const float4* acc4 = reinterpret_cast<const float4*>(a.part_acc);
-  for (int r = warp; r < rows_here; r += NT / 32) {
-    const size_t base = ((size_t)cidx * RT + r) * a.n_split;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int i = 0; i < n_act; ++i) {   // in split order: deterministic
-      const float w = s_wt[r * n_act + i];
-      const float4 v = __ldcg(acc4 + (base + i) * (D / 4) + lane);
-      acc.x += v.x * w;
-      acc.y += v.y * w;
-      acc.z += v.z * w;
-      acc.w += v.w * w;
-    }
-    const float den = s_den[r];
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out_row(rt * RT + r) + 4 * lane);
-    dst[0] = __floats2bfloat162_rn(acc.x / den, acc.y / den);
-    dst[1] = __floats2bfloat162_rn(acc.z / den, acc.w / den);
-  }
-  if (tid == 0) a.counters[cidx] = 0;   // ready for the next launch
+  finish_tile(a, smem16, s, h, rt, row_tiles, split, n_act);
+}
+
+cudaError_t launch_bf16_mma(const PagedArgs& a, cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem_once(paged_bf16_mma_kernel, BF16_MMA_SMEM_BYTES, configured);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = ((a.hq / a.hkv) * a.t_len + RT - 1) / RT;
+  const dim3 grid(a.slots, a.hkv, row_tiles * a.n_split);
+  paged_bf16_mma_kernel<<<grid, NT, BF16_MMA_SMEM_BYTES, stream>>>(a);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_int8_mma(const PagedArgs& a, cudaStream_t stream) {
@@ -818,15 +1101,16 @@ cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, bool quant, const PagedArgs& a, cudaStream_t stream) {
-  if (d != 128) return cudaErrorInvalidValue;  // the text models' width
-  if (quant && std::is_same<T, __nv_bfloat16>::value) {
+// bf16 q: the tensor-core bodies (int8 or bf16 pools); fp32 q: the fp32
+// body over int8 or fp32 pools.
+cudaError_t dispatch(int dtype, int d, bool quant, const PagedArgs& a, cudaStream_t stream) {
+  if (d != HD) return cudaErrorInvalidValue;  // the text models' width
+  if (dtype == kBFloat16) {
     if (a.counters == nullptr) return cudaErrorInvalidValue;
-    return launch_int8_mma(a, stream);
+    return quant ? launch_int8_mma(a, stream) : launch_bf16_mma(a, stream);
   }
-  if (quant) return launch<T, int8_t, 128>(a, stream);
-  return launch<T, T, 128>(a, stream);
+  if (dtype != kFloat32) return cudaErrorInvalidValue;
+  return quant ? launch<float, int8_t, HD>(a, stream) : launch<float, float, HD>(a, stream);
 }
 
 }  // namespace
@@ -836,9 +1120,9 @@ cudaError_t dispatch_d(int d, bool quant, const PagedArgs& a, cudaStream_t strea
 // 27. part_acc and part_ml are fp32 scratch of S*Hkv*ceil(G*T/16)*16*
 // n_split*D and *2 elements, n_split = ceil(W*BS / split_cols);
 // split_cols is a multiple of 64. k_scale / v_scale non-null: the pools
-// are int8 and T <= 64; with bf16 q that takes the tensor-core body (one
-// launch), which needs `counters`: S*Hkv*ceil(G*T/16) int32 that are 0
-// (it leaves them 0). dtype: q's, 0 = float32, 1 = bfloat16.
+// are int8 and T <= 64. bf16 q takes a tensor-core body (one launch, over
+// int8 or bf16 pools), which needs `counters`: S*Hkv*ceil(G*T/16) int32
+// that are 0 (it leaves them 0). dtype: q's, 0 = float32, 1 = bfloat16.
 struct PagedCall {
   const void* q;
   const void* k_new;
@@ -893,12 +1177,9 @@ HOCR_EXPORT int hocr_paged_append_attention(const PagedCall* call) {
   a.layer = c.layer;
   a.split_cols = c.split_cols;
   a.n_split = (c.width * c.bs + c.split_cols - 1) / c.split_cols;
-  if (quant && c.dtype == kBFloat16 &&
-      (size_t)RT * (a.n_split + 1) * sizeof(float) > (size_t)STAGES8 * STAGE8_BYTES)
+  const size_t ring = quant ? (size_t)STAGES8 * STAGE8_BYTES : BF16_MMA_SMEM_BYTES;
+  if (c.dtype == kBFloat16 && (size_t)RT * (a.n_split + 1) * sizeof(float) > ring)
     return cudaErrorInvalidValue;   // the split merge's weights must fit the ring
   a.scale = c.scale;
-  cudaStream_t stm = static_cast<cudaStream_t>(c.stream);
-  if (c.dtype == kBFloat16) return dispatch_d<__nv_bfloat16>(c.d, quant, a, stm);
-  if (c.dtype == kFloat32) return dispatch_d<float>(c.d, quant, a, stm);
-  return cudaErrorInvalidValue;
+  return dispatch(c.dtype, c.d, quant, a, static_cast<cudaStream_t>(c.stream));
 }

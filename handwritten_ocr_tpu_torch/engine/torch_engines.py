@@ -26,8 +26,11 @@ context only delays admission: requests queue until blocks retire.
 
 Every entry point runs on the first CUDA card unless the caller passes
 ``device``; without a card and without a device they raise. Both backends
-decode over an int8 KV cache unless the caller passes ``kv_quant=False``
-(``config.SERVE_KV_INT8``, the same default on every device).
+decode over an int8 KV cache (``config.SERVE_KV_INT8``, the same default
+on every device) unless the caller passes ``kv_quant=False`` or, passing
+no ``kv_quant``, sets ``HOCR_KV_INT8`` to ``0``, ``off`` or ``false``
+(read at construction, as the JAX engines do): then the KV pools are
+bf16 and decode attention runs the paged kernel's fp-KV body.
 """
 
 from __future__ import annotations
@@ -63,6 +66,18 @@ def _spec_enabled() -> bool:
     as in the JAX package; an explicit allowlist, so a set-but-empty
     variable stays off."""
     return os.environ.get("HOCR_SPEC", "0") in ("1", "on", "true")
+
+
+def _kv_quant(kv_quant: bool | None) -> bool:
+    """The KV cache's form: an explicit ``kv_quant`` wins; else
+    ``HOCR_KV_INT8`` in ``("0", "off", "false")`` gives full-precision KV
+    (the JAX engines' allowlist, without their device rule); else
+    ``config.SERVE_KV_INT8``."""
+    if kv_quant is not None:
+        return kv_quant
+    if os.environ.get("HOCR_KV_INT8", "") in ("0", "off", "false"):
+        return False
+    return cfg_mod.SERVE_KV_INT8
 
 
 def _full_fp32_on_the_card() -> None:
@@ -238,14 +253,15 @@ class TorchOCRBackend:
     ``stats`` accumulates host-clock seconds of the vision tower (with a
     device sync at its end; paged reads), and the batcher's prefill and
     decode seconds. ``pool_bytes``: the KV pool's byte budget (None: plan
-    alone, see :func:`_pool_blocks`).
+    alone, see :func:`_pool_blocks`). ``kv_quant``: int8 KV (None:
+    ``HOCR_KV_INT8``, else ``config.SERVE_KV_INT8``; see :func:`_kv_quant`).
     """
 
     def __init__(self, model, tokenizer: TextTokenizer,
                  device: str | torch.device | None = None,
                  min_pixels: int = cfg_mod.OCR_MIN_PIXELS,
                  max_pixels: int = cfg_mod.OCR_MAX_PIXELS,
-                 kv_quant: bool = cfg_mod.SERVE_KV_INT8,
+                 kv_quant: bool | None = None,
                  pool_bytes: int | None = None, serving: str | None = None):
         self.device = resolve_device(device)
         _full_fp32_on_the_card()
@@ -253,7 +269,7 @@ class TorchOCRBackend:
         self.tokenizer = tokenizer
         self.min_pixels = min_pixels
         self.max_pixels = max_pixels
-        self.kv_quant = kv_quant
+        self.kv_quant = _kv_quant(kv_quant)
         self.pool_bytes = pool_bytes
         self.serving = serving or os.environ.get("HOCR_VL_SERVING", "paged")
         self._batcher = None
@@ -404,14 +420,15 @@ class TorchReasoningBackend:
     cache allocated per call.
 
     ``model`` is a :class:`~handwritten_ocr_tpu_torch.models.qwen3.
-    Qwen3Model`` (bf16 or int8 weights).
+    Qwen3Model`` (bf16 or int8 weights). ``kv_quant`` and ``pool_bytes``
+    as for :class:`TorchOCRBackend`.
     """
 
     def __init__(self, model, tokenizer: TextTokenizer,
                  enable_thinking: bool = cfg_mod.LLM_ENABLE_THINKING,
                  stream: bool = False,
                  device: str | torch.device | None = None,
-                 kv_quant: bool = cfg_mod.SERVE_KV_INT8,
+                 kv_quant: bool | None = None,
                  pool_bytes: int | None = None, serving: str | None = None):
         self.device = resolve_device(device)
         _full_fp32_on_the_card()
@@ -420,7 +437,7 @@ class TorchReasoningBackend:
         self.enable_thinking = enable_thinking
         # Live token streaming to stdout for single-request paged calls.
         self.stream = stream
-        self.kv_quant = kv_quant
+        self.kv_quant = _kv_quant(kv_quant)
         self.pool_bytes = pool_bytes
         self.serving = serving or os.environ.get("HOCR_LLM_SERVING", "paged")
         self._batcher = None

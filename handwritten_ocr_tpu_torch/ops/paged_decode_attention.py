@@ -22,16 +22,24 @@ from handwritten_ocr_tpu_torch.ops.dispatch import check, use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128,)        # the text models' head width
-_ROW_TILE = 16             # query rows per block of both bodies
-_KEY_TILE = 64             # context cols per tile of both bodies
+_ROW_TILE = 16             # query rows per block of every body
+_KEY_TILE = 64             # context cols per tile of every body
 # Context cols per block of the split over the context (a multiple of the
-# key tile). The fp body: 256, at a 1k-token decode 4 blocks per live
-# (slot, kv-head). The int8 tensor-core body streams faster per block, so
-# it splits finer: about 12 blocks per SM over the grid, which measured
-# best on the H100 at both engines' decode shapes (128 cols at 24 slots x
-# 4 kv-heads, 256 at 24 x 8, over 2048-col tables).
+# key tile). The fp32 body: 256, at a 1k-token decode 4 blocks per live
+# (slot, kv-head). The tensor-core bodies stream faster per block, so they
+# split finer: about _BLOCKS_PER_SM[body] blocks per SM over the grid,
+# which measured best on the H100 at both engines' decode shapes (8 of 24
+# slots live over 2048-col tables). int8: 12 (128 cols at 24 x 4
+# kv-heads, 256 at 24 x 8). bf16: 8 (192 cols at 24 x 4, 384 at 24 x 8);
+# its 96 KB ring lets two blocks share an SM, and 12 put the 64:8 step's
+# live blocks past one wave of them.
 _SPLIT_COLS = 256
-_MMA_BLOCKS_PER_SM = 12
+_BLOCKS_PER_SM = {"int8": 12, "bf16": 8}
+# Bytes of each tensor-core body's ring of K/V stages in shared memory,
+# which the last split of a row tile reuses for the merge weights: 16 x
+# (n_split + 1) fp32 must fit.
+_RING_BYTES = {"int8": 3 * (2 * _KEY_TILE * 128 + 2 * _KEY_TILE * 4),
+               "bf16": 3 * 2 * _KEY_TILE * 128 * 2}
 # New tokens per call the int8 kernel quantises in shared memory
 # (decode-shaped calls have T <= 64).
 _MAX_NEW_INT8 = 64
@@ -45,8 +53,8 @@ class Plan(NamedTuple):
     """One launch of the kernel: the context split into ``n_split`` ranges
     of ``split_cols`` cols, ``row_tiles`` tiles of 16 query rows per
     kv-head, the grid, and the workspace it takes: ``partials`` rows of
-    fp32 partials (D + 2 floats each) and int32 ``counters`` (the int8
-    tensor-core body's)."""
+    fp32 partials (D + 2 floats each) and int32 ``counters`` (the
+    tensor-core bodies')."""
     split_cols: int
     n_split: int
     row_tiles: int
@@ -55,20 +63,32 @@ class Plan(NamedTuple):
     counters: int
 
 
+def body(q_dtype: torch.dtype, quant: bool) -> str:
+    """The kernel body a call runs: ``"bf16"`` (bf16 q over bf16 pools,
+    tensor cores), ``"int8"`` (bf16 q over int8 pools, tensor cores) or
+    ``"fp32"`` (fp32 q over either, fp32 FMAs and a merge kernel)."""
+    if q_dtype == torch.float32:
+        return "fp32"
+    return "int8" if quant else "bf16"
+
+
 @functools.lru_cache(maxsize=None)
 def plan(slots: int, t: int, hq: int, hkv: int, width_cols: int,
-         mma: bool, sms: int) -> Plan:
-    """The launch for q ``[slots, t, hq, 128]`` over tables of
-    ``width_cols`` = W*BS cols on a card of ``sms`` SMs; ``mma``: the int8
-    tensor-core body, whose splits aim at ``_MMA_BLOCKS_PER_SM`` blocks per
-    SM over the whole grid (live or not: the host does not know which
-    slots are live). Needs no card."""
+         kind: str, sms: int) -> Plan:
+    """The launch of body ``kind`` (:func:`body`) for q ``[slots, t, hq,
+    128]`` over tables of ``width_cols`` = W*BS cols on a card of ``sms``
+    SMs. A tensor-core body's splits aim at ``_BLOCKS_PER_SM[kind]`` blocks
+    per SM over the whole grid (live or not: the host does not know which
+    slots are live), as long as its merge weights fit its ring. Needs no
+    card."""
     row_tiles = -(-(hq // hkv) * t // _ROW_TILE)
     tiles = -(-width_cols // _KEY_TILE)
+    mma = kind != "fp32"
     if mma:
-        want = max(1, round(_MMA_BLOCKS_PER_SM * sms
+        want = max(1, round(_BLOCKS_PER_SM[kind] * sms
                             / (slots * hkv * row_tiles)))
-        split_cols = _KEY_TILE * -(-tiles // min(tiles, want))
+        want = min(tiles, want, _RING_BYTES[kind] // (4 * _ROW_TILE) - 1)
+        split_cols = _KEY_TILE * -(-tiles // want)
     else:
         split_cols = _SPLIT_COLS
     n_split = -(-width_cols // split_cols)
@@ -254,17 +274,19 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     SMs, appends the new rows in the same launch, and takes the new cols
     from ``k_new``/``v_new`` (int8: quantised in each block's shared memory
     exactly as the append quantises them) rather than from the pool rows
-    another block is writing. Over int8 pools with bf16 q (both engines'
-    default) one block holds all G·T query rows of a kv-head (one
-    ``mma.sync`` tile at a decode step), keeps K and V int8 in a 3-stage
-    ``cp.async`` ring of shared memory, runs both products on the tensor
-    cores (P as bf16 hi + lo parts) and merges the splits in the same
-    launch, in split order, through a self-resetting arrival counter in a
-    per-device workspace. fp pools and fp32 q take an fp32 body whose
+    another block is writing. With bf16 q (both engines) one block holds
+    all G·T query rows of a kv-head (one ``mma.sync`` tile at a decode
+    step), streams K and V through a 3-stage ``cp.async`` ring of shared
+    memory (bf16 pools: bf16 tiles read by ``ldmatrix``; int8 pools: int8
+    tiles widened in registers), runs both products on the tensor cores (P
+    as bf16 hi + lo parts) and merges the splits in the same launch, in
+    split order, through a self-resetting arrival counter in a per-device
+    workspace. fp32 q (the card's reference runs) takes an fp32 body whose
     splits a second small kernel merges.
 
     ``launches`` counts launches over fp pools, ``int8_launches`` over
-    int8 pools.
+    int8 pools, and ``fp32_launches`` those of the fp32 body (either
+    pools): a bf16 fp-KV launch moves ``launches`` alone.
     """
     tensors = (q, k_new, v_new, k_pool, v_pool, tables, start, n_valid,
                k_scale_pool, v_scale_pool)
@@ -292,8 +314,8 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     tables32, start32, valid32 = _int32(tables), _int32(start), _int32(n_valid)
     out = torch.empty_like(q)
     width = tables32.shape[1]
-    launch = plan(s, t, hq, hkv, width * bs,
-                  quant and q.dtype == torch.bfloat16,
+    kind = body(q.dtype, quant)
+    launch = plan(s, t, hq, hkv, width * bs, kind,
                   build.sm_count(q.device.index))
     device = q.device
     part_acc = _WORKSPACE.take(device, torch.float32,
@@ -316,8 +338,11 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
         paged_append_attention.int8_launches += 1
     else:
         paged_append_attention.launches += 1
+    if kind == "fp32":
+        paged_append_attention.fp32_launches += 1
     return out
 
 
 paged_append_attention.launches = 0
 paged_append_attention.int8_launches = 0
+paged_append_attention.fp32_launches = 0

@@ -164,13 +164,11 @@ def test_eval_final_equals_the_jax_evaluator(workspace, tmp_path, capsys):
     assert len(json.loads(outputs["port"][1])) == 3
 
 
-def test_real_engines_artifacts_equal_the_jax_cli(engines, tmp_path,  # noqa: F811
-                                                  monkeypatch):
-    """One PNG page through tiny real engines on the same weights, single
-    and lockstep (two copies of the page) modes; 6 OCR and 40 agent
-    tokens."""
+def _real_engines_cli(path, sides, tmp_path, monkeypatch):
+    """One PNG page through the JAX engines and the port's (``sides``),
+    single and lockstep (two copies of the page) modes; 6 OCR and 40
+    agent tokens: the two CLIs' artifacts must be equal."""
     from handwritten_ocr_tpu.graph.driver import OCRPipeline as JaxPipeline
-    path, sides = engines
     # The JAX pipelines read the budgets from the config module at call
     # time, the port's from state["config"], which its RunConfig fills.
     monkeypatch.setattr(jax_config, "OCR_MAX_NEW_TOKENS", 6)
@@ -194,6 +192,36 @@ def test_real_engines_artifacts_equal_the_jax_cli(engines, tmp_path,  # noqa: F8
                               tmp_path, pipelines)
         assert got == want
         assert any(json.loads(got[n]) for n in got if n.endswith("_trace.json"))
+
+
+def test_real_engines_artifacts_equal_the_jax_cli(engines, tmp_path,  # noqa: F811
+                                                  monkeypatch):
+    """One PNG page through tiny real engines on the same weights (the
+    port's with ``kv_quant=False``)."""
+    path, sides = engines
+    _real_engines_cli(path, sides, tmp_path, monkeypatch)
+
+
+def test_real_engines_over_fp_kv_from_the_env_equal_the_jax_cli(
+        engines, tmp_path, monkeypatch):  # noqa: F811
+    """The same with the port's engines built under ``HOCR_KV_INT8=0`` and
+    no ``kv_quant``, as the CLI's own pipeline builds them: they decode
+    over full-precision KV, as the JAX engines do on the CPU."""
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchReasoningBackend)
+    path, sides = engines
+    ocr, llm, prep = sides["port"]
+    monkeypatch.setenv("HOCR_KV_INT8", "0")
+    port = (TorchOCRBackend(ocr.model, ocr.tokenizer, device="cpu",
+                            min_pixels=ocr.min_pixels,
+                            max_pixels=ocr.max_pixels),
+            TorchReasoningBackend(llm.model, llm.tokenizer, device="cpu"),
+            prep)
+    assert port[0].kv_quant is False and port[1].kv_quant is False
+    _real_engines_cli(path, {"jax": sides["jax"], "port": port}, tmp_path,
+                      monkeypatch)
+    assert not port[0]._batcher.cache.quantized
+    assert not port[1]._batcher.cache.quantized
 
 
 def test_profile_writes_a_torch_profiler_trace(workspace, tmp_path, capsys):

@@ -65,29 +65,62 @@ def test_int8_plan_fp32_x_takes_one_split():
     assert p.split == 1 and p.k_per_split == 5120 and p.partial == 0
 
 
+def check_paged_plan(p, s, t, hq, hkv, width_cols, kind):
+    """The splits cover the table, the grid and workspace match them, and
+    a tensor-core body's merge weights fit its ring."""
+    assert p.split_cols % 64 == 0
+    assert p.n_split * p.split_cols >= width_cols
+    assert (p.n_split - 1) * p.split_cols < width_cols
+    rows = (hq // hkv) * t
+    assert (p.row_tiles - 1) * 16 < rows <= p.row_tiles * 16
+    assert p.grid == (s, hkv, p.row_tiles * p.n_split)
+    assert p.partials == s * hkv * p.row_tiles * 16 * p.n_split
+    mma = kind != "fp32"
+    assert p.counters == (s * hkv * p.row_tiles if mma else 0)
+    if mma:
+        assert 16 * (p.n_split + 1) * 4 <= paged_mod._RING_BYTES[kind]
+
+
 @pytest.mark.parametrize("s", [1, 8, 24, 32])
 @pytest.mark.parametrize("model,hq,hkv", [("qwen3:32b", 64, 8),
                                           ("7b", 28, 4)])
 @pytest.mark.parametrize("t", [1, 5])
 @pytest.mark.parametrize("width_cols", [128, 1280, 2048])
 def test_paged_plan_covers_the_table(model, hq, hkv, t, s, width_cols):
-    for mma in (True, False):
-        p = paged_mod.plan(s, t, hq, hkv, width_cols, mma, H100_SMS)
-        assert p.split_cols % 64 == 0
-        assert p.n_split * p.split_cols >= width_cols
-        assert (p.n_split - 1) * p.split_cols < width_cols
-        rows = (hq // hkv) * t
-        assert (p.row_tiles - 1) * 16 < rows <= p.row_tiles * 16
-        assert p.grid == (s, hkv, p.row_tiles * p.n_split)
-        assert p.partials == s * hkv * p.row_tiles * 16 * p.n_split
-        assert p.counters == (s * hkv * p.row_tiles if mma else 0)
+    for kind in ("int8", "bf16", "fp32"):
+        p = paged_mod.plan(s, t, hq, hkv, width_cols, kind, H100_SMS)
+        check_paged_plan(p, s, t, hq, hkv, width_cols, kind)
+
+
+@pytest.mark.parametrize("model,hq,hkv", [("qwen3:32b", 64, 8),
+                                          ("7b", 28, 4)])
+@pytest.mark.parametrize("t", [1, 17])
+@pytest.mark.parametrize("width_cols", [512, 1024, 1280, 2048, 4096])
+def test_bf16_paged_plan_covers_the_table(model, hq, hkv, t, width_cols):
+    """The fp-KV tensor-core body at the engines' decode and verify
+    shapes (24 slots, 1 to 24 of them given): the plan covers the table,
+    fills the card and stays within the workspace."""
+    for s in (1, 8, 24):
+        p = paged_mod.plan(s, t, hq, hkv, width_cols, "bf16", H100_SMS)
+        check_paged_plan(p, s, t, hq, hkv, width_cols, "bf16")
+        tiles = -(-width_cols // 64)
+        assert p.n_split == tiles or \
+            s * hkv * p.row_tiles * p.n_split >= H100_SMS
+
+
+def test_paged_body_follows_q_and_the_pools():
+    assert paged_mod.body(torch.bfloat16, quant=False) == "bf16"
+    assert paged_mod.body(torch.bfloat16, quant=True) == "int8"
+    assert paged_mod.body(torch.float32, quant=False) == "fp32"
+    assert paged_mod.body(torch.float32, quant=True) == "fp32"
 
 
 def test_paged_plan_one_row_tile_at_decode():
     # a decode step's G query rows of a kv-head fit one tile: K and V are
     # read once per split
-    assert paged_mod.plan(24, 1, 64, 8, 2048, True, H100_SMS).row_tiles == 1
-    assert paged_mod.plan(24, 1, 28, 4, 2048, True, H100_SMS).row_tiles == 1
+    for kind in ("int8", "bf16"):
+        assert paged_mod.plan(24, 1, 64, 8, 2048, kind, H100_SMS).row_tiles == 1
+        assert paged_mod.plan(24, 1, 28, 4, 2048, kind, H100_SMS).row_tiles == 1
 
 
 def test_workspace_grows_and_is_reused():

@@ -178,10 +178,12 @@ def test_int8_kernel_matches_plain_on_cuda(dtype, t):
         assert torch.equal(dev[k], plain[k]), k
 
 
-def make_decode(seed, t, group, start, n_valid, hkv=2, bs=16, width=80):
-    """int8 pools of 2 layers and ``width`` pages of ``bs`` per slot (each
-    slot its own shuffled blocks; block 0 unused), bf16 q and new rows:
-    the shape of an engine's decode step over the int8 KV cache."""
+def make_decode(seed, t, group, start, n_valid, hkv=2, bs=16, width=80,
+                quant=True):
+    """int8 pools (``quant``; else full-precision pools, made bf16 by the
+    caller) of 2 layers and ``width`` pages of ``bs`` per slot (each slot
+    its own shuffled blocks; block 0 unused), bf16 q and new rows: the
+    shape of an engine's decode step over its KV cache."""
     rng = np.random.default_rng(seed)
     s = len(start)
     n_blocks = 1 + s * width
@@ -190,12 +192,17 @@ def make_decode(seed, t, group, start, n_valid, hkv=2, bs=16, width=80):
         q=rng.standard_normal((s, t, group * hkv, D)).astype(np.float32),
         k_new=rng.standard_normal((s, t, hkv, D)).astype(np.float32),
         v_new=rng.standard_normal((s, t, hkv, D)).astype(np.float32),
-        k_pool=rng.integers(-127, 128, shape).astype(np.int8),
-        v_pool=rng.integers(-127, 128, shape).astype(np.int8),
         tables=(1 + rng.permutation(s * width)).reshape(s, width)
         .astype(np.int32),
         start=np.asarray(start, np.int32),
-        n_valid=np.asarray(n_valid, np.int32),
+        n_valid=np.asarray(n_valid, np.int32))
+    if not quant:
+        a["k_pool"] = rng.standard_normal(shape).astype(np.float32)
+        a["v_pool"] = rng.standard_normal(shape).astype(np.float32)
+        return a
+    a.update(
+        k_pool=rng.integers(-127, 128, shape).astype(np.int8),
+        v_pool=rng.integers(-127, 128, shape).astype(np.int8),
         k_scale=rng.uniform(0.001, 0.02, (2, n_blocks, hkv, bs))
         .astype(np.float32),
         v_scale=rng.uniform(0.001, 0.02, (2, n_blocks, hkv, bs))
@@ -257,3 +264,88 @@ def test_int8_tensor_core_body_on_cuda(group, t, start, n_valid, bs):
         assert bool((got[s, nv:] == 0).all())
     for k in POOLS:
         assert torch.equal(dev[k], plain[k]), k
+
+
+def launch_counts():
+    f = paged_append_attention
+    return f.launches, f.fp32_launches, f.int8_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [7, 8])
+@pytest.mark.parametrize("t,start,n_valid,bs,width", [
+    # decode: inside a page, ending on a split boundary, dead, many
+    # splits, and the last col of the table (start + 1 = W * BS)
+    (1, [37, 255, 0, 1000, 1279], [1, 1, 0, 1, 1], 16, 80),
+    # two tokens, the second of the last slot at the table's cap
+    (2, [37, 251, 0, 995, 1278], [2, 2, 0, 1, 2], 16, 80),
+    # a speculative verify round (draft_k 16): 17 query tokens, appends
+    # across a page boundary (32 cols), one of them also across 1024
+    (17, [20, 30, 0, 1020, 127], [17, 12, 0, 9, 17], 32, 80),
+    # the engines' 128-col blocks: contexts that are not a multiple of 64,
+    # a start at a page boundary, the last append ending at the cap
+    (1, [100, 128, 0, 1400, 1535], [1, 1, 0, 1, 1], 128, 12),
+    (17, [100, 128, 0, 1400, 1519], [17, 3, 0, 9, 17], 128, 12),
+])
+def test_bf16_tensor_core_body_on_cuda(group, t, start, n_valid, bs, width):
+    """The fp-KV body with bf16 q over bf16 pools at the engines' group
+    sizes: valid rows within tolerance, dead slots and rows zero, pools
+    bit-equal to the plain append, one launch per call counted in
+    ``launches`` alone, and two calls bit-equal (the split merge's fixed
+    order and the counters' reset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = make_decode(group * 100 + t, t, group, start, n_valid, bs=bs,
+                    width=width, quant=False)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+    for k in ("q", "k_new", "v_new", "k_pool", "v_pool"):
+        dev[k] = dev[k].bfloat16()
+    plain = {k: v.clone() for k, v in dev.items()}
+    before = launch_counts()
+    got = paged_append_attention(*(dev[k] for k in NAMES), layer=LAYER,
+                                 scale=D ** -0.5)
+    again = paged_append_attention(*(dev[k] for k in NAMES), layer=LAYER,
+                                   scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert launch_counts() == (before[0] + 2, before[1], before[2])
+    assert torch.equal(got, again)
+    want = paged_append_attention_plain(*(plain[k] for k in NAMES),
+                                        layer=LAYER, scale=D ** -0.5)
+    live = [s for s, nv in enumerate(n_valid) if nv > 0]
+    rows = [(s, i) for s in live for i in range(n_valid[s])]
+    pick = (torch.tensor([r[0] for r in rows]), torch.tensor([r[1] for r in rows]))
+    assert_close_to_plain(got[pick], want[pick])
+    for s, nv in enumerate(n_valid):
+        assert bool((got[s, nv:] == 0).all())
+    assert torch.equal(dev["k_pool"], plain["k_pool"])
+    assert torch.equal(dev["v_pool"], plain["v_pool"])
+
+
+@pytest.mark.cuda
+def test_each_body_moves_its_own_counter_on_cuda():
+    """bf16 q over bf16 pools runs the tensor-core fp-KV body (``launches``
+    alone); fp32 q over fp32 pools runs the fp32 body (``launches`` and
+    ``fp32_launches``); neither moves ``int8_launches``, and bf16 q over
+    int8 pools moves only that."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = make_decode(3, 1, 7, [40, 0], [1, 1], quant=False)
+    for dtype, want in ((torch.bfloat16, (1, 0, 0)),
+                        (torch.float32, (1, 1, 0))):
+        dev = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+        for k in ("q", "k_new", "v_new", "k_pool", "v_pool"):
+            dev[k] = dev[k].to(dtype)
+        before = launch_counts()
+        paged_append_attention(*(dev[k] for k in NAMES), layer=LAYER,
+                               scale=D ** -0.5)
+        torch.cuda.synchronize()
+        assert tuple(x - y for x, y in zip(launch_counts(), before)) == want
+    q8 = make_decode(3, 1, 7, [40, 0], [1, 1])
+    dev = {k: torch.from_numpy(v).cuda() for k, v in q8.items()}
+    for k in ("q", "k_new", "v_new"):
+        dev[k] = dev[k].bfloat16()
+    before = launch_counts()
+    paged_append_attention(*(dev[k] for k in NAMES + POOLS[2:]), layer=LAYER,
+                           scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert tuple(x - y for x, y in zip(launch_counts(), before)) == (0, 0, 1)
