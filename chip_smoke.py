@@ -84,6 +84,26 @@ Phases, each printing one JSON line:
      and the int8 branch must not), wall, prefill, decode and ms per
      decode step, two traced calls, beside the int8 path's figures from
      phases 4 and 5;
+  9d. tp (after both resident models are dropped): two spawned ranks
+     join one process group through ``initialize_from_env``
+     (HOCR_DIST_*): a card each over NCCL where there are two cards,
+     else both on cuda:0 over gloo. Each rank draws the full models from
+     the single-card phases' seeds one matrix at a time and keeps its
+     tensor-parallel slices (``init_*(mesh=...)``), then serves through
+     ``shard(mesh)``: qwen3:32b at int8 (the reasoning cell's 8 turns)
+     and olmOCR-2-7B in bf16 (the read cell's 8 reads), 32 new tokens
+     each, pools for a 2048-token bound, counted from 0 (flash, window,
+     the int8 paged kernel and the int8 matmul must launch); the ranks'
+     ids must be equal, and each row's first token that differs from the
+     single-card phases' stream is reported (bf16 / int8 partial sums
+     round otherwise). call_s, ms a decode step, all-reduces a step and
+     the time of one at the step's shapes, each rank's peak memory. Then
+     the reference phase's narrow fp32 models with doubled head counts,
+     whole and sliced on the card: the tokens must be equal. A rank's
+     exception or silence (TP_TIMEOUT_S) fails the script;
+  9e. ring: ring attention over two cards (NCCL) at [1, 8192, 64/8, 128],
+     causal, against plain attention, where there are two cards; on one
+     card a line that says why it did not run;
  10. loaders: narrow VL and Qwen3 snapshots in HF layout (config.json,
      sharded safetensors + index, a hand-written byte-level
      tokenizer.json) written with the port's writer and loaded through
@@ -123,7 +143,11 @@ Phases, each printing one JSON line:
      train_grad_check: gradients through the kernels against gradients
      through their plain versions at full width and depth 2+2, in fp32
      and in bf16; and, last, flash and window at the train shapes with
-     their backward's time beside SDPA's backward.
+     their backward's time beside SDPA's backward and the backward's
+     bound;
+ 14. kernels_tp: each kernel at the shapes one rank of TP = 2 and of
+     TP = 4 gives it (heads and channels split; the int8 lm_head at
+     75968 and 37984 channels), against its plain version.
 
 Phases 6-9 and 11 decode through ``DenseTokenizer``: every id decodes to one
 character, so random weights write texts of their budget's length (with
@@ -134,7 +158,7 @@ Every failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
 ``{"ok": true, "device": {...}}``; the kernels line (each kernel's
 launches on its own path and on the guided, pipeline, cli, speculative,
-dense, fp-KV read and chat, and train paths) and the card's name and
+dense, fp-KV read and chat, train and tp paths) and the card's name and
 power limit come before it.
 
 ``HOCR_SPEC`` is set only inside the speculative phase and
@@ -313,6 +337,16 @@ def _backward_ms(fn, inputs, library=None) -> dict:
                 library_backward_ms=None if library is None else one(library))
 
 
+def _backward_bound(n_bytes: float, flops: float) -> dict:
+    """The least time of an attention backward from its forward's bytes
+    and operations: it reads q, k, v, the output and its cotangent and
+    writes dq, dk, dv (twice the forward's bytes), and runs five products
+    of the forward's size where the forward runs two (S = QK^T again,
+    dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q)."""
+    bound, by = bound_ms(2 * n_bytes, 2.5 * flops, BF16_FLOPS_PER_S)
+    return dict(backward_bound_ms=bound, backward_bound_by=by)
+
+
 def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
                 hkv: int, hd: int, gen, *, causal: bool = False,
                 valid=None, backward: bool = False) -> dict:
@@ -380,6 +414,7 @@ def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
             lambda *x: flash_attention(*x, valid, **kw), (q, k, v),
             lambda *x: F.scaled_dot_product_attention(
                 *(y.transpose(1, 2) for y in x), scale=scale, **sdpa))
+        row |= _backward_bound(n_bytes, flops)
     del q, k, v, q_t, k_t, v_t
     torch.cuda.empty_cache()
     return row
@@ -441,6 +476,7 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
         row |= _backward_ms(
             lambda x: window_attention(x, cos, sin, valid, **kw), (qkv,),
             sdpa_windows)
+        row |= _backward_bound(n_bytes, flops)
     del qkv, qw
     torch.cuda.empty_cache()
     return row
@@ -866,7 +902,6 @@ def phase_main_path(cfg, prompt_len: int, max_new_tokens: int = 128) -> dict:
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchOCRBackend, TorchPreprocessor)
     from handwritten_ocr_tpu_torch.models.init import init_vl
-    from handwritten_ocr_tpu_torch.models.processor import ByteTokenizer
     from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
 
     t0 = time.perf_counter()
@@ -874,7 +909,7 @@ def phase_main_path(cfg, prompt_len: int, max_new_tokens: int = 128) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = _count_params(params)
-    backend = TorchOCRBackend(VLModel(params, cfg), ByteTokenizer())
+    backend = TorchOCRBackend(VLModel(params, cfg), spelling_tokenizer())
     prep = TorchPreprocessor()
     pages = synthetic_pages(4)
     strategies = PREPROCESSING_STRATEGIES[:2]
@@ -923,6 +958,7 @@ def phase_main_path(cfg, prompt_len: int, max_new_tokens: int = 128) -> dict:
         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches=launches)
     emit(**record)
+    record["streams"] = [[int(t) for t in text.split()] for text in texts]
     record["trace"] = phase_trace("ocr_read", lambda budget: backend.read_batch(
         images, OCR_PROMPT, budget))
     del backend, params, batcher, cache
@@ -1044,7 +1080,6 @@ def phase_reasoning(qcfg, turns: list[Turn], max_new_tokens: int = 128) -> dict:
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchReasoningBackend)
     from handwritten_ocr_tpu_torch.models.init import init_qwen3
-    from handwritten_ocr_tpu_torch.models.processor import ByteTokenizer
     from handwritten_ocr_tpu_torch.models.quant import quantized_bytes
     from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
 
@@ -1057,8 +1092,8 @@ def phase_reasoning(qcfg, turns: list[Turn], max_new_tokens: int = 128) -> dict:
     init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_params = _count_params(params)
     weight_bytes = quantized_bytes(params)
-    backend = TorchReasoningBackend(Qwen3Model(params, qcfg), ByteTokenizer(),
-                                    kv_quant=True)
+    backend = TorchReasoningBackend(Qwen3Model(params, qcfg),
+                                    spelling_tokenizer(), kv_quant=True)
     kw = dict(temperature=0.1, max_tokens=max_new_tokens)
     backend.chat_batch(turns, **kw)          # warm-up: cuBLAS, pools
     batcher = backend._batcher
@@ -1107,6 +1142,7 @@ def phase_reasoning(qcfg, turns: list[Turn], max_new_tokens: int = 128) -> dict:
         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
         scale_pools_finite=True, launches=launches)
     emit(**record)
+    record["streams"] = [[int(t) for t in text.split()] for text in texts]
     record["trace"] = phase_trace("reasoning", lambda budget: backend.chat_batch(
         turns, temperature=0.1, max_tokens=budget))
     del backend, params, batcher, cache
@@ -2809,6 +2845,530 @@ def phase_kernels_decode_modes(cfg, qcfg, prompt_len: int, q_prompt_len: int,
     return rows
 
 
+# ── tp: both engines over two ranks (tensor parallelism) ────────────
+
+TP_WORLD = 2
+TP_NEW_TOKENS = 32
+TP_CONTEXT = 2048          # the tp pools' token bound
+TP_TIMEOUT_S = 900
+ONE_CARD_RING = ("one card; NCCL needs a card per rank and gloo sends no "
+                 "CUDA tensors")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(world: int, target, timeout: float, *args) -> list:
+    """``target(rank, world, port, *args)`` in ``world`` spawned
+    processes that join one group on a free localhost port; returns each
+    rank's result in rank order. A rank's exception, a non-zero exit or
+    no answer within ``timeout`` seconds raises; every process is
+    stopped either way."""
+    import queue
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, r, world, port, results, args))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.perf_counter() + timeout
+    out: dict = {}
+    try:
+        while len(out) < world:
+            try:
+                rank, ok, value = results.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"ranks {sorted(set(range(world)) - set(out))} gave no "
+                    f"result within {timeout} s") from None
+            if not ok:
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            out[rank] = value
+        for proc in procs:
+            proc.join(timeout=120)
+            if proc.exitcode != 0:
+                raise AssertionError(f"a rank exited with {proc.exitcode}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=30)
+    return [out[r] for r in range(world)]
+
+
+def _rank_main(target, rank: int, world: int, port: int, results,
+               args) -> None:
+    """One rank: joins the group through the port's
+    ``initialize_from_env`` (HOCR_DIST_*, which binds its card), runs
+    ``target`` and sends its result (or traceback) to the parent."""
+    import traceback
+
+    import torch.distributed as dist
+    try:
+        os.environ.update(HOCR_DIST_COORD=f"localhost:{port}",
+                          HOCR_DIST_NPROCS=str(world),
+                          HOCR_DIST_PROC_ID=str(rank))
+        for name in ("HOCR_SPEC", "HOCR_VL_SERVING", "HOCR_LLM_SERVING",
+                     "HOCR_KV_INT8"):
+            os.environ.pop(name, None)
+        from handwritten_ocr_tpu_torch.parallel.distributed import (
+            initialize_from_env)
+        if not initialize_from_env():
+            raise AssertionError("the rank joined no process group")
+        result = target(rank, world, *args)
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, True, result))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def _tp_pool_bytes(text_cfg, tp: int) -> int:
+    """The rank's int8 KV pool for SERVE_SLOTS sequences of TP_CONTEXT
+    tokens (its kv heads) and the trash block."""
+    from handwritten_ocr_tpu_torch import config as cfg_mod
+    from handwritten_ocr_tpu_torch.models.paged import PagedKVCache
+    block = cfg_mod.SERVE_BLOCK_SIZE
+    blocks = 1 + cfg_mod.SERVE_SLOTS * -(-TP_CONTEXT // block)
+    return blocks * PagedKVCache.block_bytes(
+        text_cfg.num_hidden_layers, block, text_cfg.num_key_value_heads // tp,
+        text_cfg.head_dim, kv_quant=True)
+
+
+def _tp_timed(backend, warm, call, counts: dict, what: str,
+              required) -> dict:
+    """A short warm-up call, then ``call`` with every launch and
+    collective count set to 0 before it and read after it: wall s, the
+    batcher's prefill and decode s, decode steps and ms a step, the
+    all-reduces of the call and of a decode step, peak memory, and each
+    row's greedy ids (the spelling tokenizer's texts)."""
+    warm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in counts:
+        counts[key] = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    texts = call()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_launches()
+    require_launches(f"tp {what}", launches, required)
+    check_pools(backend._batcher.cache, f"tp {what}")
+    stats = backend._batcher.stats
+    steps = counts["steps"]
+    return dict(
+        call_s=call_s, prefill_s=stats["prefill_s"],
+        decode_s=stats["decode_s"], decode_tokens=stats["decode_tokens"],
+        decode_steps=steps, decode_step_ms=stats["decode_s"] / steps * 1e3,
+        allreduces=counts["all"], allreduces_per_step=counts["decode"] / steps,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        pool_blocks=backend._batcher.n_blocks, launches=launches,
+        streams=[[int(t) for t in text.split()] for text in texts])
+
+
+def _tp_qwen3(mesh, counts: dict) -> dict:
+    """qwen3:32b at int8, full width and depth, drawn whole one matrix
+    at a time from the reasoning phase's seed, the rank keeping its
+    slices: the reasoning cell's 8 editor turns, TP_NEW_TOKENS tokens."""
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3
+    from handwritten_ocr_tpu_torch.models.quant import quantized_bytes
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+
+    qcfg = Qwen3Config(eos_token_id=-1)
+    tp = mesh.size(1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_qwen3(qcfg, dtype=torch.bfloat16, device="cuda", seed=SEED,
+                        quantize="int8", mesh=mesh)
+    torch.cuda.synchronize()
+    record = dict(model="qwen3:32b (Qwen3Config())", weights="int8",
+                  init_s=time.perf_counter() - t0,
+                  init_peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  weight_bytes=quantized_bytes(params))
+    backend = TorchReasoningBackend(
+        Qwen3Model(params, qcfg, mesh), spelling_tokenizer(), kv_quant=True,
+        pool_bytes=_tp_pool_bytes(qcfg, tp)).shard(mesh)
+    turns = editor_turns(8)
+    record |= _tp_timed(
+        backend,
+        lambda: backend.chat_batch([Turn("sys", "hello")], temperature=0.1,
+                                   max_tokens=2),
+        lambda: backend.chat_batch(turns, temperature=0.1,
+                                   max_tokens=TP_NEW_TOKENS),
+        counts, "qwen3 chat",
+        ("flash_attention", "paged_append_attention_int8", "int8_matmul"))
+    del backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def _tp_vl(mesh, counts: dict) -> dict:
+    """olmOCR-2-7B (``VLConfig()``) in bf16, drawn from the read phase's
+    seed, the rank keeping its slices: the read cell's 8 reads (4 pages x
+    2 strategies), TP_NEW_TOKENS tokens."""
+    from handwritten_ocr_tpu_torch.config import (OCR_PROMPT,
+                                                  PREPROCESSING_STRATEGIES)
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchPreprocessor)
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+    from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
+    from handwritten_ocr_tpu_torch.parallel.budget import tree_bytes
+
+    cfg = VLConfig()
+    tp = mesh.size(1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_vl(cfg, dtype=torch.bfloat16, device="cuda", seed=SEED,
+                     mesh=mesh)
+    torch.cuda.synchronize()
+    record = dict(model="olmOCR-2-7B (VLConfig())", weights="bf16",
+                  init_s=time.perf_counter() - t0,
+                  weight_bytes=tree_bytes(params))
+    backend = TorchOCRBackend(VLModel(params, cfg, mesh), spelling_tokenizer(),
+                              kv_quant=True,
+                              pool_bytes=_tp_pool_bytes(cfg.text, tp)
+                              ).shard(mesh)
+    prep = TorchPreprocessor()
+    images = [prep.apply(page, s) for page in synthetic_pages(4)
+              for s in PREPROCESSING_STRATEGIES[:2]]
+    record |= _tp_timed(
+        backend, lambda: backend.read_batch(images[:1], OCR_PROMPT, 2),
+        lambda: backend.read_batch(images, OCR_PROMPT, TP_NEW_TOKENS),
+        counts, "VL read",
+        ("flash_attention", "window_attention", "paged_append_attention_int8"))
+    del backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def _allreduce_ms(mesh) -> dict:
+    """Time of one all-reduce over the model group at the shapes a step
+    gives it (CUDA events can not see the host copies of gloo, so host
+    clock around synchronised loops): a decode step's [24, 1, D] bf16
+    rows at both models' widths, the top-k merge's [2, 24, 1] int64, and
+    a VL prefill group's [8, 1024, 3584] bf16 rows."""
+    import torch.distributed as dist
+    from handwritten_ocr_tpu_torch.parallel.mesh import model_group
+    group = model_group(mesh)
+
+    def ms(tensor, iters):
+        dist.all_reduce(tensor, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dist.all_reduce(tensor, group=group)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    bf16 = dict(dtype=torch.bfloat16, device="cuda")
+    return {"rows_24x5120_bf16": ms(torch.zeros((24, 1, 5120), **bf16), 50),
+            "rows_24x3584_bf16": ms(torch.zeros((24, 1, 3584), **bf16), 50),
+            "topk_keys_2x24x1_int64": ms(torch.zeros(
+                (2, 24, 1), dtype=torch.int64, device="cuda"), 50),
+            "prefill_8x1024x3584_bf16": ms(torch.zeros((8, 1024, 3584),
+                                                       **bf16), 5)}
+
+
+def _narrow_tp_configs():
+    """The reference phase's narrow models with their head counts doubled
+    (vision 4 x 80, text 4:2 x 128), so that two ranks each run the
+    reference phase's head shapes (2 x 80; 2:1 x 128)."""
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import (
+        TextConfig, VLConfig, VisionConfig)
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    vl = VLConfig(
+        vision=VisionConfig(depth=4, hidden_size=320, intermediate_size=640,
+                            num_heads=4, fullatt_block_indexes=(1, 3),
+                            out_hidden_size=512),
+        text=TextConfig(hidden_size=512, intermediate_size=1024,
+                        num_hidden_layers=2, num_attention_heads=4,
+                        num_key_value_heads=2))
+    qwen3 = Qwen3Config(vocab_size=152000, hidden_size=256,
+                        intermediate_size=512, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2,
+                        head_dim=128, eos_token_id=-1)
+    return vl, qwen3
+
+
+def _tp_reference(mesh) -> dict:
+    """The narrow fp32 models on the card, whole (one rank alone) and
+    sliced over the mesh, with the int8 and the fp KV cache: the greedy
+    ids of both (the parent holds them equal)."""
+    from handwritten_ocr_tpu_torch.config import PREPROCESSING_STRATEGIES
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3, init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
+
+    vl_cfg, q_cfg = _narrow_tp_configs()
+    prep = TorchPreprocessor(min_pixels=28 * 28)
+    images = [prep.apply(np.ascontiguousarray(p[:168, :224]), s)
+              for p in synthetic_pages(2)
+              for s in PREPROCESSING_STRATEGIES[:2]]
+    turns = [Turn("sys", "Correct: teh cat sat"), Turn(
+        EDITOR_SYSTEM, "Correct this transcription:\nwe had rain for days")]
+    out = {}
+    for kv_quant in (True, False):
+        kv = "int8_kv" if kv_quant else "fp_kv"
+        for name in ("vl", "qwen3"):
+            texts = []
+            for sliced in (None, mesh):
+                if name == "vl":
+                    params = init_vl(vl_cfg, dtype=torch.float32,
+                                     device="cuda", seed=SEED + 1,
+                                     mesh=sliced)
+                    texts.append(TorchOCRBackend(
+                        VLModel(params, vl_cfg, sliced), spelling_tokenizer(),
+                        kv_quant=kv_quant).read_batch(images,
+                                                      "Read the page.", 16))
+                else:
+                    params = init_qwen3(q_cfg, dtype=torch.float32,
+                                        device="cuda", seed=SEED + 4,
+                                        quantize="int8", mesh=sliced)
+                    texts.append(TorchReasoningBackend(
+                        Qwen3Model(params, q_cfg, sliced),
+                        spelling_tokenizer(), kv_quant=kv_quant
+                    ).chat_batch(turns, temperature=0.1, max_tokens=16))
+            out[f"{name}_{kv}"] = texts
+    return out
+
+
+def _tp_rank(rank: int, world: int) -> dict:
+    """One rank of the tp phase: its card and backend, then qwen3:32b,
+    olmOCR-2-7B, the collectives' times and the narrow references, with
+    the all-reduces it issues counted (all, and inside decode steps)."""
+    import torch.distributed as dist
+    from handwritten_ocr_tpu_torch.engine.serving import PagedProgram
+    from handwritten_ocr_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(model_parallel=world)
+    counts = {"all": 0, "decode": 0, "steps": 0}
+    inside = [False]
+    all_reduce = dist.all_reduce
+
+    def counting(tensor, *args, **kwargs):
+        counts["all"] += 1
+        counts["decode"] += inside[0]
+        return all_reduce(tensor, *args, **kwargs)
+
+    def in_decode(original):
+        def run(self, *args, **kwargs):
+            inside[0] = True
+            try:
+                return original(self, *args, **kwargs)
+            finally:
+                inside[0] = False
+        return run
+
+    def stepping(original):
+        def run(self, *args, **kwargs):
+            counts["steps"] += 1
+            return original(self, *args, **kwargs)
+        return run
+
+    record = dict(rank=rank, backend=dist.get_backend(),
+                  card=torch.cuda.current_device(),
+                  card_name=torch.cuda.get_device_name())
+    with _patched(dist, "all_reduce", lambda _: counting), \
+            _patched(PagedProgram, "decode_chunk", in_decode), \
+            _patched(PagedProgram, "_step", stepping):
+        record["qwen3"] = _tp_qwen3(mesh, counts)
+        record["vl"] = _tp_vl(mesh, counts)
+    record["allreduce_ms"] = _allreduce_ms(mesh)
+    record["reference"] = _tp_reference(mesh)
+    return record
+
+
+def phase_tp(card: str, single: dict) -> dict:
+    """Both engines over TP_WORLD ranks (``shard(mesh)``, TP over
+    "model"): a card per rank over NCCL where there are enough cards,
+    else every rank on cuda:0 over gloo. Prints each rank's line, then
+    the phase's: the backend, the ranks per card, each model's call_s,
+    decode ms a step and all-reduces a step with their ms, and each
+    row's first token that differs from the single-card stream of the
+    same seed (``single``: the read and reasoning phases' streams; bf16
+    and int8 products round otherwise in a rank's partial sums, so rows
+    may leave at near-ties). The ranks' ids must be equal, and the narrow
+    fp32 models' tokens equal to their single-card tokens."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(TP_WORLD, _tp_rank, TP_TIMEOUT_S)
+    phase_s = time.perf_counter() - t0
+    for r in ranks:
+        emit(phase="tp_rank", **{k: v for k, v in r.items() if k != "reference"}
+             | {m: {k: v for k, v in r[m].items() if k != "streams"}
+                for m in ("qwen3", "vl")})
+    record = dict(phase="tp", card=card, world=TP_WORLD,
+                  backend=ranks[0]["backend"],
+                  ranks_per_card=-(-TP_WORLD // torch.cuda.device_count()),
+                  phase_s=phase_s, parent_resident_gb=resident,
+                  new_tokens=TP_NEW_TOKENS, pool_context=TP_CONTEXT,
+                  peak_memory_gb=[{m: r[m]["peak_memory_gb"]
+                                   for m in ("qwen3", "vl")} for r in ranks],
+                  allreduce_ms=ranks[0]["allreduce_ms"])
+    for model, path in (("qwen3", "chat"), ("vl", "read")):
+        streams = [r[model]["streams"] for r in ranks]
+        if any(s != streams[0] for s in streams):
+            raise AssertionError(f"tp {model}: the ranks' ids differ")
+        want = [row[:TP_NEW_TOKENS] for row in single[path]]
+        got = streams[0]
+        if len(got) != len(want):
+            raise AssertionError(f"tp {model}: {len(got)} rows, want "
+                                 f"{len(want)}")
+        info = {k: ranks[0][model][k] for k in (
+            "call_s", "prefill_s", "decode_s", "decode_steps",
+            "decode_step_ms", "allreduces", "allreduces_per_step",
+            "init_s", "weight_bytes", "pool_blocks")}
+        info["first_difference"] = [_first_difference(g, w)
+                                    for g, w in zip(got, want)]
+        record[model] = info
+    equal = {}
+    for key, (whole, sliced) in ranks[0]["reference"].items():
+        for r in ranks[1:]:
+            if r["reference"][key] != [whole, sliced]:
+                raise AssertionError(f"tp reference {key}: ranks differ")
+        if whole != sliced:
+            raise AssertionError(f"tp reference {key}: TP tokens differ from "
+                                 f"the single-card tokens: {whole} {sliced}")
+        equal[key] = sum(len(t.split()) for t in whole)
+    record["reference_tokens_equal"] = equal
+    record["launches"] = {name: ranks[0]["qwen3"]["launches"][name]
+                          + ranks[0]["vl"]["launches"][name]
+                          for name in ranks[0]["vl"]["launches"]}
+    emit(**record)
+    return record
+
+
+def _ring_rank(rank: int, world: int) -> dict:
+    """``ring_attention`` over the data axis of a (world, 1) mesh at
+    [1, 8192, 64/8, 128] bf16, causal, against plain attention of the
+    rank's rows (fp32 scores, a few heads at a time)."""
+    from handwritten_ocr_tpu_torch.parallel.context_parallel import (
+        ring_attention)
+    from handwritten_ocr_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(model_parallel=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    b, s, hq, hkv, d = 1, 8192, 64, 8, 128
+    q = torch.randn((b, s, hq, d), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, s, hkv, d), generator=gen, device="cuda").bfloat16()
+    got = ring_attention(q, k, v, mesh=mesh, causal=True)
+    chunk = s // world
+    rows = slice(rank * chunk, (rank + 1) * chunk)
+    want = []
+    for h in range(0, hq, 8):
+        qh = q[:, rows, h:h + 8].float()
+        kh = k[:, :, h // 8:h // 8 + 1].float()
+        vh = v[:, :, h // 8:h // 8 + 1].float()
+        scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh.expand(-1, -1, 8, -1))
+        mask = (torch.arange(s, device="cuda")[None, :]
+                <= torch.arange(rank * chunk, (rank + 1) * chunk,
+                                device="cuda")[:, None])
+        scores = (scores * d ** -0.5).masked_fill(~mask, float("-inf"))
+        want.append(torch.einsum("bhqk,bkhd->bqhd", scores.softmax(-1),
+                                 vh.expand(-1, -1, 8, -1)))
+    cmp = _compare(f"ring_attention rank {rank}", got,
+                   torch.cat(want, dim=2).to(torch.bfloat16))
+    ms = time_ms(lambda: ring_attention(q, k, v, mesh=mesh, causal=True),
+                 iters=3, warmup=1)
+    return dict(rank=rank, ms=ms, **cmp)
+
+
+def phase_ring(card: str) -> dict:
+    """Ring attention over two cards (NCCL), or the line that says why
+    it did not run on one card."""
+    if torch.cuda.device_count() < 2:
+        record = dict(phase="ring", ran=False, why=ONE_CARD_RING)
+        emit(**record)
+        return record
+    ranks = _spawn_ranks(2, _ring_rank, 600)
+    record = dict(phase="ring", ran=True, card=card, world=2,
+                  shape=[1, 8192, 64, 8, 128], causal=True, ranks=ranks)
+    emit(**record)
+    return record
+
+
+def phase_kernels_tp(cfg, qcfg, prompt_len: int, q_prompt_len: int) -> list[dict]:
+    """Each kernel at the shapes one rank of TP = 2 and of TP = 4 gives
+    it: flash at the vision global layers, the VL prefill and the Qwen3
+    prefill, window at the rank's packed qkv, int8 paged attention at
+    both models' decode steps, and the int8 matmul at the rank's
+    qwen3:32b projections and lm_head (151936 / tp channels: 75968, an
+    odd count of 64-channel blocks, and 37984, not a multiple of 64).
+    Runs in the parent, with no group and no model resident."""
+    from handwritten_ocr_tpu_torch import config as cfg_mod
+    from handwritten_ocr_tpu_torch.models.qwen25vl.vision import plan_grid
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    vis, txt = cfg.vision, cfg.text
+    plan = plan_grid(vis, (1, 924 // 14, 672 // 14))
+    valid = torch.as_tensor(plan.valid, device="cuda")
+    unit, slots = cfg_mod.SERVE_PREFILL_BUCKET, cfg_mod.SERVE_SLOTS
+    vl_bucket = -(-prompt_len // unit) * unit
+    q_bucket = -(-q_prompt_len // unit) * unit
+    d, ffn, vocab = qcfg.hidden_size, qcfg.intermediate_size, qcfg.vocab_size
+    q_width = qcfg.num_attention_heads * qcfg.head_dim
+    kv_width = qcfg.num_key_value_heads * qcfg.head_dim
+    rows = []
+    for tp in (2, 4):
+        heads = vis.num_heads // tp
+        rows += [
+            _flash_case(f"vision_global_tp{tp}", "tp", 8, len(plan.valid),
+                        heads, heads, vis.head_dim, gen, valid=valid),
+            _window_case(f"vision_window_tp{tp}", "tp", 8, plan, heads,
+                         vis.head_dim, gen),
+            _flash_case(f"prefill_causal_tp{tp}", "tp", 8, vl_bucket,
+                        txt.num_attention_heads // tp,
+                        txt.num_key_value_heads // tp, txt.head_dim, gen,
+                        causal=True),
+            _flash_case(f"qwen3_prefill_causal_tp{tp}", "tp", 8, q_bucket,
+                        qcfg.num_attention_heads // tp,
+                        qcfg.num_key_value_heads // tp, qcfg.head_dim, gen,
+                        causal=True),
+            _paged_case("paged_append_attention", f"decode_step_int8_tp{tp}",
+                        slots, 8, prompt_len + 64, txt.num_hidden_layers,
+                        txt.num_attention_heads // tp,
+                        txt.num_key_value_heads // tp, txt.head_dim, True,
+                        gen, "tp"),
+            _paged_case("paged_append_attention",
+                        f"qwen3_decode_int8_tp{tp}", slots, 8,
+                        q_prompt_len + 64, qcfg.num_hidden_layers,
+                        qcfg.num_attention_heads // tp,
+                        qcfg.num_key_value_heads // tp, qcfg.head_dim, True,
+                        gen, "tp")]
+        for case, d_in, d_out, out_dtype in (
+                ("q", d, q_width // tp, torch.bfloat16),
+                ("k", d, kv_width // tp, torch.bfloat16),
+                ("gate", d, ffn // tp, torch.bfloat16),
+                ("o", q_width // tp, d, torch.bfloat16),
+                ("down", ffn // tp, d, torch.bfloat16),
+                ("lm_head", d, vocab // tp, torch.float32)):
+            rows.append(_int8_matmul_case(f"{case}_m24_tp{tp}", slots, d_in,
+                                          d_out, out_dtype, gen, "tp"))
+    rows = [with_ratio(r) for r in rows]
+    for r in rows:
+        emit(phase="kernel", **r)
+    return rows
+
+
 # ── training (the fine-tuning step) ───────────────────────────────────
 
 TRAIN_STEPS = 3
@@ -3282,6 +3842,10 @@ def main() -> int:
     del reasoner, ocr
     gc.collect()                # both models go before the last phases
     torch.cuda.empty_cache()
+    tp = phase_tp(info["smi"], {"read": int8["read"]["streams"],
+                                "chat": int8["chat"]["streams"]})
+    paths["tp"] = tp["launches"]
+    phase_ring(info["smi"])
     train = phase_train(cfg, info["smi"])
     paths["train"] = train["launches"]
     phase_train_grad_check(cfg, info["smi"])
@@ -3292,6 +3856,7 @@ def main() -> int:
     rows += phase_kernels_decode_modes(cfg, Qwen3Config(), prompt_len, q_prompt_len,
                                  dense["json_prompt_tokens"])
     rows += phase_kernels_train(cfg, train["tokens"])
+    rows += phase_kernels_tp(cfg, Qwen3Config(), prompt_len, q_prompt_len)
     kernels = []
     for r in rows:
         kernels.append({key: r[key] for key in (
@@ -3304,10 +3869,12 @@ def main() -> int:
                                        "library_ratio")}
             | {key: r.get(key) for key in ("graph_ms", "library_graph_ms",
                                            "backward_ms",
-                                           "library_backward_ms")}
+                                           "library_backward_ms",
+                                           "backward_bound_ms")}
             | {f"{path}_launches": paths[path][r["counter"]]
                for path in ("guided", "pipeline", "cli", "speculative",
-                            "dense", "fp_kv_read", "fp_kv_chat", "train")})
+                            "dense", "fp_kv_read", "fp_kv_chat", "train",
+                            "tp")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

@@ -198,6 +198,14 @@ def main(argv: list[str] | None = None, pipeline=None) -> None:
     args = build_arg_parser().parse_args(argv)
     input_path: Path = args.input.resolve()
 
+    # Multi-process batch runs: when HOCR_DIST_* describes a process
+    # group, join it before any backend builds (each process binds its
+    # card), and the batch loop below round-robins pages across the
+    # processes. Solo runs: no-op.
+    from handwritten_ocr_tpu_torch.parallel.distributed import (
+        initialize_from_env)
+    initialize_from_env()
+
     if not input_path.exists():
         print(f"Error: {input_path} does not exist", file=sys.stderr)
         sys.exit(1)
@@ -264,6 +272,17 @@ def _run(args, input_path: Path, output_dir: Path, pipeline) -> None:
     pending = [p for p in images
                if not (args.skip_existing
                        and (output_dir / f"{p.stem}_transcription.txt").exists())]
+
+    # Page-level data parallelism across processes: rank r takes every
+    # Nth page (deterministic, no coordination needed: each page's
+    # artifacts are its own files). Guarded on the env, as in the JAX CLI.
+    from handwritten_ocr_tpu_torch.parallel.distributed import distributed_env
+    if distributed_env() is not None:
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            rank, world = dist.get_rank(), dist.get_world_size()
+            pending = pending[rank::world]
+            print(f"[dist] process {rank}/{world}: {len(pending)} pages")
 
     if args.lockstep and len(pending) > 1:
         _run_lockstep(args, pending, output_dir, pipeline)

@@ -14,6 +14,14 @@ longest greedy-matching prefix accepted.
 Greedy argmax and the top-k run on fp32 logits on the device, and so do
 the EOS, budget and quote stops; the host reads one flag per step to end
 a chunk early, and the chunk's tokens (or the step's top-k) at its end.
+
+Under tensor parallelism (``PagedProgram(mesh=...)``) every rank of a
+model group runs the same program on its slices: its pools hold its kv
+heads, and its logits are its vocab shard, whose greedy ids and top-k
+come from ``models/layers.py:topk_ids``'s merge over the group, so every
+rank gets the same ids. The batcher's decisions (admission, EOS, budgets,
+guided spans, drafts) are made on the host from those ids alone, so the
+ranks take them alike and issue the same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import dataclasses
 import hashlib
 import os
 import pathlib
+import tempfile
 import time
 import weakref
 from collections import deque
@@ -30,8 +39,11 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from handwritten_ocr_tpu_torch.models.layers import (argmax_ids, embed,
+                                                     group_size, topk_ids)
 from handwritten_ocr_tpu_torch.models.paged import PagedKVCache, paged_forward
 from handwritten_ocr_tpu_torch.models.qwen25vl.language import lm_logits
+from handwritten_ocr_tpu_torch.parallel.mesh import model_group
 
 
 _STOP_MASKS: "weakref.WeakKeyDictionary[object, dict[int, np.ndarray]]" = \
@@ -102,31 +114,20 @@ def _load_stop_mask(tokenizer, vocab_size: int) -> np.ndarray | None:
 
 
 def _save_stop_mask(tokenizer, vocab_size: int, mask: np.ndarray) -> None:
+    """Write the cache file through a temporary file of this process's
+    own and a rename, so processes that build the same mask at once (the
+    ranks of a group) never leave a torn file."""
     path = _stop_mask_path(tokenizer, vocab_size)
     if path is None:
         return
     try:
         path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(".tmp.npy")
-        np.save(tmp, mask)
-        tmp.replace(path)
+        with tempfile.NamedTemporaryFile(dir=path.parent, suffix=".npy",
+                                         delete=False) as handle:
+            np.save(handle, mask)
+        pathlib.Path(handle.name).replace(path)
     except OSError:
         pass
-
-
-def topk_ids(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Ids [B, k] of the ``k`` largest of fp32 ``logits [B, V]``, value-
-    descending and index-ascending on ties (``jax.lax.top_k``'s order;
-    ``torch.topk`` gives ties in no order). Each logit becomes one unique
-    int64 key, its order-preserving int32 image in the high half and
-    V - 1 - index in the low half, so the top-k of the keys is exact; it
-    all stays on the device."""
-    vocab = logits.shape[-1]
-    bits = logits.float().contiguous().view(torch.int32)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
-    low = vocab - 1 - torch.arange(vocab, device=logits.device)
-    top = torch.topk(ordered * (1 << 32) + low, k, dim=-1).values
-    return vocab - 1 - (top & 0xFFFFFFFF)
 
 
 @dataclasses.dataclass
@@ -193,15 +194,25 @@ class PagedProgram:
     """Paged prefill + chunked greedy decode over one decoder stack.
 
     ``params`` is a text tree in the port's layout (embed / layers /
-    final_norm / lm_head), e.g. a VL model's ``params["text"]``.
+    final_norm / lm_head), e.g. a VL model's ``params["text"]``; with a
+    ``mesh``, the rank's tensor-parallel slices of it, and every stage
+    runs over the rank's "model" group.
     """
 
-    def __init__(self, params: dict, cfg, *, eos_token_id: int | None = None):
+    def __init__(self, params: dict, cfg, *, eos_token_id: int | None = None,
+                 mesh=None):
         self.params = params
         self.cfg = cfg
         self.eos_token_id = (eos_token_id if eos_token_id is not None
                              else cfg.eos_token_id)
         self.mrope = getattr(cfg, "mrope_section", None) is not None
+        self.mesh = mesh
+        self.group = model_group(mesh)
+        # the kv heads this rank's pools hold
+        self.kv_heads = cfg.num_key_value_heads // group_size(self.group)
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return embed(self.params["embed"], ids.long(), self.group)
 
     def _prefill_logits(self, cache: PagedKVCache, embeds: torch.Tensor,
                         positions: torch.Tensor, true_len: torch.Tensor,
@@ -210,7 +221,8 @@ class PagedProgram:
         each row's last real token."""
         start = torch.zeros_like(true_len)
         hidden = paged_forward(self.params, self.cfg, embeds, positions,
-                               cache, slot_ids, start, true_len, fresh=True)
+                               cache, slot_ids, start, true_len, fresh=True,
+                               group=self.group)
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         last_hidden = hidden[rows, true_len.long() - 1][:, None]
         return lm_logits(self.params, self.cfg, last_hidden)[:, -1]
@@ -222,7 +234,7 @@ class PagedProgram:
         generated token [B] (device int32)."""
         logits = self._prefill_logits(cache, embeds, positions, true_len,
                                       slot_ids)
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return argmax_ids(logits, self.group)
 
     def prefill_topk(self, cache: PagedKVCache, embeds: torch.Tensor,
                      positions: torch.Tensor, true_len: torch.Tensor, k: int,
@@ -230,7 +242,8 @@ class PagedProgram:
         """Prefill variant for guided decode: each row's next-token top-k
         ids [B, k] (device int64, :func:`topk_ids` order)."""
         return topk_ids(self._prefill_logits(cache, embeds, positions,
-                                             true_len, slot_ids), k)
+                                             true_len, slot_ids), k,
+                        self.group)
 
     def _step_logits(self, cache: PagedKVCache, slot_ids: torch.Tensor,
                      last: torch.Tensor, valid: torch.Tensor,
@@ -245,10 +258,10 @@ class PagedProgram:
         if self.mrope:
             pos = pos[None].expand(3, last.shape[0], 1)
         new_len = torch.where(valid, start + 1, start) if freeze else start + 1
-        embeds = self.params["embed"]["w"][last.long()][:, None]
-        hidden = paged_forward(self.params, self.cfg, embeds, pos, cache,
-                               slot_ids, start, new_len, attn_valid=valid,
-                               table_pages=table_pages)
+        hidden = paged_forward(self.params, self.cfg, self._embed(last)[:, None],
+                               pos, cache, slot_ids, start, new_len,
+                               attn_valid=valid, table_pages=table_pages,
+                               group=self.group)
         return lm_logits(self.params, self.cfg, hidden)[:, -1]
 
     def _step(self, cache: PagedKVCache, slot_ids: torch.Tensor,
@@ -259,7 +272,7 @@ class PagedProgram:
         for a done slot (which appends nothing and skips its attention)."""
         logits = self._step_logits(cache, slot_ids, last, ~done, rope_delta,
                                    table_pages)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = argmax_ids(logits, self.group)
         return torch.where(done, torch.full_like(nxt, self.eos_token_id), nxt)
 
     def step_topk(self, cache: PagedKVCache, last: torch.Tensor,
@@ -272,7 +285,8 @@ class PagedProgram:
         skip their attention; their top-k is never read."""
         slot_ids = torch.arange(last.shape[0], device=last.device)
         return topk_ids(self._step_logits(cache, slot_ids, last, active,
-                                          rope_delta, table_pages), k)
+                                          rope_delta, table_pages), k,
+                        self.group)
 
     def string_chunk(self, cache: PagedKVCache, last: torch.Tensor,
                      auto: torch.Tensor, remaining: torch.Tensor,
@@ -298,7 +312,7 @@ class PagedProgram:
                 break
             logits = self._step_logits(cache, slot_ids, last, auto,
                                        rope_delta, table_pages, freeze=True)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = argmax_ids(logits, self.group)
             last = torch.where(auto, nxt, last)
             tokens[:, i] = torch.where(auto, nxt, torch.full_like(nxt, eos))
             stall = stop_mask[nxt.long()] | (nxt == eos) | (i + 1 >= remaining)
@@ -328,7 +342,7 @@ class PagedProgram:
         steps = torch.arange(k + 1, device=last.device)
         slot_ids = torch.arange(n_slots, device=last.device)
         in_tokens = torch.cat([last[:, None], drafts], dim=1)
-        embeds = self.params["embed"]["w"][in_tokens.long()]
+        embeds = self._embed(in_tokens)
         start = cache.lengths.clone()
         pos = (start + rope_delta)[:, None] + steps[None]
         if self.mrope:
@@ -336,9 +350,10 @@ class PagedProgram:
         token_valid = active[:, None] & (steps[None] <= draft_len[:, None])
         hidden = paged_forward(self.params, self.cfg, embeds, pos, cache,
                                slot_ids, start, start,    # lengths set below
-                               attn_valid=token_valid, table_pages=table_pages)
+                               attn_valid=token_valid, table_pages=table_pages,
+                               group=self.group)
         logits = lm_logits(self.params, self.cfg, hidden)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = argmax_ids(logits, self.group)
         match = (nxt[:, :k] == drafts) & (steps[None, :k] < draft_len[:, None])
         accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
         new_len = torch.clamp(start + 1 + accepted, max=cache.max_context)
@@ -369,7 +384,7 @@ class PagedProgram:
 
     def embed_prompt(self, ids: torch.Tensor) -> torch.Tensor:
         """Default prompt embedding (no vision splice): table lookup."""
-        return self.params["embed"]["w"][ids]
+        return self._embed(ids)
 
 
 class ContinuousBatcher:
@@ -420,7 +435,7 @@ class ContinuousBatcher:
         self.prefill_bucket = prefill_bucket
         self.cache = PagedKVCache.zeros(
             cfg.num_hidden_layers, n_blocks, block_size, n_slots,
-            self.max_blocks, cfg.num_key_value_heads, cfg.head_dim,
+            self.max_blocks, program.kv_heads, cfg.head_dim,
             dtype=dtype, device=self.device, kv_quant=kv_quant)
         self._free_blocks: list[int] = list(range(n_blocks - 1, 0, -1))
         self._tables = np.zeros((n_slots, self.max_blocks), np.int32)

@@ -31,6 +31,17 @@ on every device) unless the caller passes ``kv_quant=False`` or, passing
 no ``kv_quant``, sets ``HOCR_KV_INT8`` to ``0``, ``off`` or ``false``
 (read at construction, as the JAX engines do): then the KV pools are
 bf16 and decode attention runs the paged kernel's fp-KV body.
+
+Several cards (``shard(mesh)``, ``parallel/mesh.py``): one process per
+rank, every rank building the same engine from the same weights. An
+engine sharded over a ("data", "model") mesh keeps the rank's
+tensor-parallel slices of its model (heads, MLP columns and vocabulary
+over "model", ``parallel/sharding.py``), and ``read_batch`` /
+``chat_batch`` split their requests over "data": each data rank runs a
+contiguous share through its model group, and the texts come back in
+request order on every rank (``all_gather_object`` over "data"), so
+every rank returns what one process would. ``read`` and ``chat`` run on
+every rank alike.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from handwritten_ocr_tpu_torch.models.processor import (TextTokenizer,
                                                         resize_bicubic,
                                                         vlm_chat_prompt)
 from handwritten_ocr_tpu_torch.ops.dispatch import resolve_device
+from handwritten_ocr_tpu_torch.parallel.mesh import axis_rank, axis_size
 
 OLMOCR_DIR_ENV = "HOCR_OLMOCR_DIR"
 QWEN3_DIR_ENV = "HOCR_QWEN3_DIR"
@@ -88,18 +100,31 @@ def _full_fp32_on_the_card() -> None:
 
 
 def _card_bytes(device: torch.device) -> int:
+    """The card memory this process may plan with: the card's, or its
+    share where the ranks of a process group outnumber the cards (ranks
+    sharing a card, over gloo)."""
     if device.type != "cuda":
         raise ValueError(f"no card memory to plan on {device}; pass the "
                          "budget in bytes")
-    return torch.cuda.get_device_properties(device).total_memory
+    total = torch.cuda.get_device_properties(device).total_memory
+    if torch.distributed.is_initialized():
+        cards = torch.cuda.device_count()
+        total //= -(-torch.distributed.get_world_size() // cards)
+    return total
+
+
+def _tp(owner) -> int:
+    """The engine's tensor-parallel degree (1 unsharded)."""
+    return axis_size(owner.mesh, "model")
 
 
 def _pool_blocks(owner, text_cfg, dtype: torch.dtype, max_blocks: int) -> int:
     """The engine's pool size in blocks: the full ``1 + slots x blocks``
     when its byte budget holds it, else as many as the budget holds.
-    Budget: ``owner.pool_bytes``; None means the whole card after the
-    engine's own weights and ``config.ACTIVATION_RESERVE_BYTES`` (the
-    full pool on the CPU)."""
+    Budget: ``owner.pool_bytes``; None means the whole card (or this
+    rank's share of it) after the engine's own weights (the rank's
+    slices) and ``config.ACTIVATION_RESERVE_BYTES`` (the full pool on the
+    CPU). A block holds the rank's kv heads."""
     from handwritten_ocr_tpu_torch.models.paged import PagedKVCache
     from handwritten_ocr_tpu_torch.parallel.budget import tree_bytes
     full = 1 + cfg_mod.SERVE_SLOTS * max_blocks
@@ -111,7 +136,7 @@ def _pool_blocks(owner, text_cfg, dtype: torch.dtype, max_blocks: int) -> int:
                   - cfg_mod.ACTIVATION_RESERVE_BYTES)
     per_block = PagedKVCache.block_bytes(
         text_cfg.num_hidden_layers, cfg_mod.SERVE_BLOCK_SIZE,
-        text_cfg.num_key_value_heads, text_cfg.head_dim, dtype,
+        text_cfg.num_key_value_heads // _tp(owner), text_cfg.head_dim, dtype,
         owner.kv_quant)
     blocks = min(full, budget // per_block)
     if blocks < 2:
@@ -142,7 +167,8 @@ def _ensure_batcher(owner, needed_context: int, text: dict, text_cfg,
         torch.cuda.empty_cache()
     block = cfg_mod.SERVE_BLOCK_SIZE
     dtype = text["embed"]["w"].dtype
-    program = PagedProgram(text, text_cfg, eos_token_id=eos_token_id)
+    program = PagedProgram(text, text_cfg, eos_token_id=eos_token_id,
+                           mesh=owner.mesh)
     owner._batcher = ContinuousBatcher(
         program, n_slots=cfg_mod.SERVE_SLOTS, block_size=block,
         n_blocks=_pool_blocks(owner, text_cfg, dtype, -(-context // block)),
@@ -157,26 +183,34 @@ def plan_pools(ocr, llm, card_bytes: int | None = None):
     """Plan both engines' KV pools on one card at once and hand each its
     budget (``pool_bytes``); returns the ``ServingPlan``.
 
-    ``parallel/budget.py:coresident_plan`` with ``n_chips=1``, the card's
-    memory (``card_bytes``, else the card of ``ocr.device``), the resident
+    ``parallel/budget.py:coresident_plan`` of one card (or one rank's
+    card, for sharded engines): the card's memory (``card_bytes``, else
+    the card of ``ocr.device``, or this rank's share of it), the resident
     weights of both engines and ``config.ACTIVATION_RESERVE_BYTES``: the
     OCR pool holds ``SERVE_SLOTS`` reads at a 4096-token context, the
-    reasoner's 8 agent calls at 16384 (the default budgets' bounds). Only
-    a paged engine gets a pool budget: a dense engine's share goes to the
-    other engine (a dense engine allocates its cache per call). Any
-    batcher built before is dropped, so the next call builds within its
-    budget."""
+    reasoner's 8 agent calls at 16384 (the default budgets' bounds).
+    Sharded engines plan per rank: the chips are the process group's
+    ranks, each engine's TP degree divides its KV pool, and its weights
+    are the rank's slices. Only a paged engine gets a pool budget: a dense
+    engine's share goes to the other engine (a dense engine allocates its
+    cache per call). Any batcher built before is dropped, so the next
+    call builds within its budget."""
     from handwritten_ocr_tpu_torch.parallel.budget import (coresident_plan,
                                                            tree_bytes)
     if card_bytes is None:
         card_bytes = _card_bytes(ocr.device)
+    vl_tp, llm_tp = _tp(ocr), _tp(llm)
+    n_chips = (torch.distributed.get_world_size()
+               if ocr.mesh is not None or llm.mesh is not None else 1)
     plan = coresident_plan(
-        ocr.model.config, llm.model.config, n_chips=1,
-        hbm_per_chip=card_bytes, ocr_batch=cfg_mod.SERVE_SLOTS,
+        ocr.model.config, llm.model.config, n_chips=n_chips,
+        hbm_per_chip=card_bytes, vl_tp=vl_tp, llm_tp=llm_tp,
+        ocr_batch=cfg_mod.SERVE_SLOTS,
         vl_quant=_quant_label(ocr.model.params),
         llm_quant=_quant_label(llm.model.params),
-        vl_weight_bytes=tree_bytes(ocr.model.params),
-        llm_weight_bytes=tree_bytes(llm.model.params),
+        # the rank's slices: the plan divides each model's bytes by its TP
+        vl_weight_bytes=tree_bytes(ocr.model.params) * vl_tp,
+        llm_weight_bytes=tree_bytes(llm.model.params) * llm_tp,
         activation_reserve=cfg_mod.ACTIVATION_RESERVE_BYTES)
     engines = ((ocr, "vl_kv"), (llm, "llm_kv"))
     spare = sum(plan.component(prefix) for engine, prefix in engines
@@ -196,6 +230,38 @@ def _quant_label(tree) -> str | None:
     if isinstance(tree, list):
         return "int8" if any(_quant_label(v) for v in tree) else None
     return None
+
+
+def _shard(owner, mesh, fsdp: bool):
+    """``shard`` of both engines: the model's parameters become the rank's
+    tensor-parallel slices over ``mesh`` (parameters made for that mesh
+    already, e.g. by ``models/init.py`` with ``mesh``, stay as they are)
+    and the batcher is dropped, to be rebuilt against them."""
+    from handwritten_ocr_tpu_torch.parallel.sharding import shard_params
+    if owner.model.mesh is None or fsdp:
+        owner.model.params = shard_params(mesh, owner.model.params, fsdp=fsdp)
+        owner.model.mesh = mesh
+    elif owner.model.mesh is not mesh:
+        raise ValueError("the model is sharded over another mesh")
+    owner._batcher = None
+    return owner
+
+
+def _data_parallel(mesh, items: Sequence, run) -> list:
+    """``run(items)`` with the items split over the mesh's "data" axis:
+    each data rank runs a contiguous share (shares differ by at most
+    one; a rank whose share is empty runs nothing), and the results come
+    back in order on every rank."""
+    data, rank = axis_size(mesh, "data"), axis_rank(mesh, "data")
+    if data < 2:
+        return run(items)
+    n = len(items)
+    share = list(items[rank * n // data:(rank + 1) * n // data])
+    mine = run(share) if share else []
+    parts: list = [None] * data
+    torch.distributed.all_gather_object(parts, mine,
+                                        group=mesh.get_group("data"))
+    return [result for part in parts for result in part]
 
 
 class TorchPreprocessor:
@@ -255,6 +321,7 @@ class TorchOCRBackend:
     decode seconds. ``pool_bytes``: the KV pool's byte budget (None: plan
     alone, see :func:`_pool_blocks`). ``kv_quant``: int8 KV (None:
     ``HOCR_KV_INT8``, else ``config.SERVE_KV_INT8``; see :func:`_kv_quant`).
+    :meth:`shard` spreads it over a mesh.
     """
 
     def __init__(self, model, tokenizer: TextTokenizer,
@@ -274,6 +341,15 @@ class TorchOCRBackend:
         self.serving = serving or os.environ.get("HOCR_VL_SERVING", "paged")
         self._batcher = None
         self.stats = {"vision_s": 0.0}
+
+    @property
+    def mesh(self):
+        return getattr(self.model, "mesh", None)
+
+    def shard(self, mesh, fsdp: bool = False) -> "TorchOCRBackend":
+        """Run over ``mesh``: TP over "model", the reads split over "data"
+        (``fsdp=True``, FSDP, is not ported yet and raises)."""
+        return _shard(self, mesh, fsdp)
 
     def _ensure_batcher(self, needed_context: int):
         config = self.model.config
@@ -352,6 +428,11 @@ class TorchOCRBackend:
 
     def read_batch(self, images: Sequence, prompt: str,
                    max_new_tokens: int) -> list[str]:
+        return _data_parallel(self.mesh, images, lambda share: self._read(
+            share, prompt, max_new_tokens))
+
+    def _read(self, images: Sequence, prompt: str,
+              max_new_tokens: int) -> list[str]:
         if self.serving == "paged":
             return self._read_batch_paged(images, prompt, max_new_tokens)
         return self._read_batch_dense(images, prompt, max_new_tokens)
@@ -402,7 +483,7 @@ class TorchOCRBackend:
         return [self.tokenizer.decode(tokens) for tokens in token_lists]
 
     def read(self, image, prompt: str, max_new_tokens: int) -> str:
-        return self.read_batch([image], prompt, max_new_tokens)[0]
+        return self._read([image], prompt, max_new_tokens)[0]
 
     def release(self) -> None:
         """No-op: the model stays resident on the device."""
@@ -420,8 +501,8 @@ class TorchReasoningBackend:
     cache allocated per call.
 
     ``model`` is a :class:`~handwritten_ocr_tpu_torch.models.qwen3.
-    Qwen3Model`` (bf16 or int8 weights). ``kv_quant`` and ``pool_bytes``
-    as for :class:`TorchOCRBackend`.
+    Qwen3Model`` (bf16 or int8 weights). ``kv_quant``, ``pool_bytes`` and
+    :meth:`shard` as for :class:`TorchOCRBackend`.
     """
 
     def __init__(self, model, tokenizer: TextTokenizer,
@@ -441,6 +522,16 @@ class TorchReasoningBackend:
         self.pool_bytes = pool_bytes
         self.serving = serving or os.environ.get("HOCR_LLM_SERVING", "paged")
         self._batcher = None
+
+    @property
+    def mesh(self):
+        return getattr(self.model, "mesh", None)
+
+    def shard(self, mesh, fsdp: bool = False) -> "TorchReasoningBackend":
+        """Run over ``mesh``: TP over "model" (how qwen3:32b spreads over
+        cards), the turns of a batch split over "data" (``fsdp=True``
+        raises: not ported yet)."""
+        return _shard(self, mesh, fsdp)
 
     @classmethod
     def from_pretrained(cls, model_dir: str | Path,
@@ -582,7 +673,12 @@ class TorchReasoningBackend:
         with ``json_schema`` it runs schema-guided, and rows whose session
         is not complete fall back to free decode. Dense: one left-padded
         free-decode ``generate``, which takes no ``json_schema`` (as in
-        the JAX package)."""
+        the JAX package). Over a mesh the turns split over "data"."""
+        return _data_parallel(self.mesh, requests, lambda share: self._chat_batch(
+            share, max_tokens, json_schema))
+
+    def _chat_batch(self, requests, max_tokens: int,
+                    json_schema: dict | None) -> list[str]:
         encoded = [self._encode(r.system, r.user) for r in requests]
         if self.serving != "paged":
             return self._generate_dense(encoded, max_tokens)

@@ -7,11 +7,22 @@ the fast path). Parameters are plain dicts of tensors in PyTorch's layout:
   linear:  {"w": [out, in], optional "b": [out]}   (JAX stores w as [in, out])
            or weight-only int8 {"w_q": int8 [out, in], "w_scale": f32 [out]}
   rmsnorm: {"scale": [dim]}
+
+Tensor parallelism (``parallel/sharding.py``): a ``group`` argument is
+the rank's "model" process group, None on one device (every function then
+runs exactly as without it). A row-parallel product sums the ranks'
+partials with one all-reduce before its replicated bias; the
+vocab-parallel embedding zeroes the rows outside the rank's range and
+all-reduces; logits stay split by vocabulary, and :func:`topk_ids` /
+:func:`argmax_ids` merge the ranks' candidates. Every collective is an
+``all_reduce`` in the tensor's own dtype, which NCCL and gloo (the CPU,
+and ranks sharing one card) both run on CUDA tensors.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from handwritten_ocr_tpu_torch.ops.int8_matmul import (MAX_ROWS, int8_matmul,
@@ -27,11 +38,16 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (params["scale"] * normed.to(dtype)).to(dtype)
 
 
-def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
+def linear(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x @ w^T + b``. With ``group`` the layer is row-parallel: the
+    rank's partial product (rounded to x's dtype) is summed over the
+    group, then the replicated bias is added once."""
     if "w_q" in params:  # weight-only int8 (models/quant.py)
         out = _quantized_matmul(params, x)
     else:
         out = x @ params["w"].t()
+    if group is not None:
+        dist.all_reduce(out, group=group)
     if "b" in params:
         out = out + params["b"]
     return out
@@ -50,16 +66,94 @@ def _quantized_matmul(params: dict, x: torch.Tensor) -> torch.Tensor:
     return (x @ w_q.to(x.dtype).t()) * scale.to(x.dtype)
 
 
-def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """gate/up/down MLP with a SiLU gate (Qwen2MLP / Qwen2_5_VLMLP)."""
+def swiglu_mlp(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """gate/up/down MLP with a SiLU gate (Qwen2MLP / Qwen2_5_VLMLP);
+    gate/up column-parallel and down row-parallel under ``group``."""
     return linear(params["down"],
-                  F.silu(linear(params["gate"], x)) * linear(params["up"], x))
+                  F.silu(linear(params["gate"], x)) * linear(params["up"], x),
+                  group)
 
 
-def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """fc1 → exact GELU → fc2 (vision patch merger MLP)."""
+def gelu_mlp(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """fc1 → exact GELU → fc2 (vision patch merger MLP); fc1
+    column-parallel and fc2 row-parallel under ``group``."""
     return linear(params["fc2"],
-                  F.gelu(linear(params["fc1"], x), approximate="none"))
+                  F.gelu(linear(params["fc1"], x), approximate="none"), group)
+
+
+def group_size(group) -> int:
+    """Ranks in a model group (1 for None: one device)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def embed(params: dict, ids: torch.Tensor, group=None) -> torch.Tensor:
+    """Rows of the embedding table ``params["w"] [V, D]`` for ``ids``.
+    Under ``group`` the table is split by rows (vocab-parallel): a rank
+    holds rows ``[rank·V/tp, (rank+1)·V/tp)``, looks up the ids in its
+    range, zeroes the others, and the sum over the group gives every
+    rank the full rows (exactly: each sum has one non-zero term)."""
+    w = params["w"]
+    if group is None:
+        return w[ids]
+    local = ids - dist.get_rank(group) * w.shape[0]
+    mine = (local >= 0) & (local < w.shape[0])
+    out = w[torch.where(mine, local, 0)].masked_fill(~mine[..., None], 0)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def gather_columns(x: torch.Tensor, group) -> torch.Tensor:
+    """The full last axis of a tensor split over ``group`` by contiguous
+    column blocks (rank r holds block r): each rank writes its block into
+    a zeroed buffer and one all-reduce sums them (an all-gather that
+    gloo also runs on CUDA tensors)."""
+    if group is None:
+        return x
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    full = x.new_zeros((world, *x.shape))
+    full[rank] = x
+    dist.all_reduce(full, group=group)
+    return full.movedim(0, -2).flatten(-2)
+
+
+def topk_ids(logits: torch.Tensor, k: int, group=None) -> torch.Tensor:
+    """Ids [..., k] of the ``k`` largest of fp32 ``logits [..., V]``,
+    value-descending and index-ascending on ties (``jax.lax.top_k``'s
+    order; ``torch.topk`` gives ties in no order). Each logit becomes one
+    unique int64 key, its order-preserving int32 image in the high half
+    and V - 1 - index in the low half, so the top-k of the keys is exact;
+    it all stays on the device.
+
+    Under ``group`` the logits are the rank's vocab shard (rank r holds
+    ids ``[r·V/tp, (r+1)·V/tp)``): each rank keys its shard with GLOBAL
+    ids, takes its local top-k, the ranks exchange those k keys (one
+    all-reduce of a zeroed ``[tp, ..., k]`` buffer), and a second top-k
+    picks the result: exactly the ids of the whole vocabulary's top-k,
+    ties included, without gathering the logits."""
+    local_vocab = logits.shape[-1]
+    world, offset = 1, 0
+    if group is not None:
+        world = dist.get_world_size(group)
+        offset = dist.get_rank(group) * local_vocab
+    vocab = world * local_vocab
+    bits = logits.float().contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    low = vocab - 1 - offset - torch.arange(local_vocab, device=logits.device)
+    top = torch.topk(ordered * (1 << 32) + low, min(k, local_vocab),
+                     dim=-1).values
+    if group is not None:
+        top = gather_columns(top, group)
+        top = torch.topk(top, k, dim=-1).values
+    return vocab - 1 - (top & 0xFFFFFFFF)
+
+
+def argmax_ids(logits: torch.Tensor, group=None) -> torch.Tensor:
+    """Greedy ids [...] (int32) of fp32 ``logits [..., V]``: the first
+    index of the largest value, as ``torch.argmax``; under ``group`` over
+    the vocab shards through :func:`topk_ids` (same ids)."""
+    if group is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return topk_ids(logits, 1, group)[..., 0].to(torch.int32)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,10 @@ int8 pools with per-token, per-head fp32 scale pools (``kv_quant``).
 
 Unlike the JAX package, the cache is mutated in place: :func:`paged_forward`
 writes the new k/v rows into the pools and the lengths into ``lengths``.
+
+Under tensor parallelism (``group``: the rank's "model" process group) a
+rank's pools hold its Hkv/tp kv heads and its projections its heads; the
+o and down products end in an all-reduce over the group.
 """
 
 from __future__ import annotations
@@ -125,7 +129,8 @@ def _gather(pool: torch.Tensor, layer_idx: int, tables: torch.Tensor,
 def _paged_self_attention(layer: dict, cfg, x: torch.Tensor, cos, sin,
                           layer_idx: int, cache: PagedKVCache,
                           tables: torch.Tensor, start: torch.Tensor,
-                          n_valid: torch.Tensor, fresh: bool) -> torch.Tensor:
+                          n_valid: torch.Tensor, fresh: bool,
+                          group=None) -> torch.Tensor:
     """One attention layer over the paged pools.
 
     x: [B, T, D] current tokens; start[b] = tokens already cached for row
@@ -138,9 +143,9 @@ def _paged_self_attention(layer: dict, cfg, x: torch.Tensor, cos, sin,
     """
     b, t, _ = x.shape
     hd = cfg.head_dim
-    q = linear(layer["q"], x).reshape(b, t, cfg.num_attention_heads, hd)
-    k = linear(layer["k"], x).reshape(b, t, cfg.num_key_value_heads, hd)
-    v = linear(layer["v"], x).reshape(b, t, cfg.num_key_value_heads, hd)
+    q = linear(layer["q"], x).reshape(b, t, -1, hd)
+    k = linear(layer["k"], x).reshape(b, t, -1, hd)
+    v = linear(layer["v"], x).reshape(b, t, -1, hd)
     if "q_norm" in layer:  # Qwen3 QK-norm
         q = rms_norm(layer["q_norm"], q, cfg.rms_norm_eps)
         k = rms_norm(layer["k_norm"], k, cfg.rms_norm_eps)
@@ -152,7 +157,7 @@ def _paged_self_attention(layer: dict, cfg, x: torch.Tensor, cos, sin,
         _write(cache, layer_idx, tables, start, k, v)
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=True, scale=hd ** -0.5)
-        return linear(layer["o"], out.reshape(b, t, -1))
+        return linear(layer["o"], out.reshape(b, t, -1), group)
 
     if t <= 64 and not (cache.quantized and t > cache.block_size):
         # Decode steps (T == 1): query token i attends through absolute
@@ -164,7 +169,7 @@ def _paged_self_attention(layer: dict, cfg, x: torch.Tensor, cos, sin,
             v.to(kv_dtype).contiguous(), cache.k, cache.v, tables,
             start, n_valid, cache.k_scale, cache.v_scale, layer=layer_idx,
             scale=hd ** -0.5)
-        return linear(layer["o"], out.to(x.dtype).reshape(b, t, -1))
+        return linear(layer["o"], out.to(x.dtype).reshape(b, t, -1), group)
 
     _write(cache, layer_idx, tables, start, k, v)
     keys = _gather(cache.k, layer_idx, tables, cache.k_scale)
@@ -174,7 +179,7 @@ def _paged_self_attention(layer: dict, cfg, x: torch.Tensor, cos, sin,
     mask = (cols <= rows)[:, None]                               # [B, 1, T, CTX]
     out = attention(q, keys.to(q.dtype), values.to(q.dtype), mask,
                     scale=hd ** -0.5)
-    return linear(layer["o"], out.reshape(b, t, -1))
+    return linear(layer["o"], out.reshape(b, t, -1), group)
 
 
 def paged_forward(params: dict, cfg, embeds: torch.Tensor,
@@ -182,7 +187,7 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
                   slot_ids: torch.Tensor, start: torch.Tensor,
                   new_len: torch.Tensor, fresh: bool = False,
                   attn_valid: torch.Tensor | None = None,
-                  table_pages: int | None = None) -> torch.Tensor:
+                  table_pages: int | None = None, group=None) -> torch.Tensor:
     """Decoder stack over ``embeds [B, T, D]`` with the paged cache;
     returns the final-normed hidden states and updates ``cache`` in place.
 
@@ -197,6 +202,7 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
     ``new_len``). table_pages (optional): attend over only the first N
     pages of each slot's table; callers keep every valid row's length
     (and every write position) below ``table_pages * block_size``.
+    group (optional): the model group under TP.
     """
     tables = cache.block_tables[slot_ids]
     if table_pages is not None and table_pages < tables.shape[1]:
@@ -214,8 +220,9 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
     for idx, layer in enumerate(params["layers"]):
         x = x + _paged_self_attention(
             layer["attn"], cfg, rms_norm(layer["ln1"], x, cfg.rms_norm_eps),
-            cos, sin, idx, cache, tables, start, n_valid, fresh)
-        x = x + swiglu_mlp(layer["mlp"], rms_norm(layer["ln2"], x, cfg.rms_norm_eps))
+            cos, sin, idx, cache, tables, start, n_valid, fresh, group)
+        x = x + swiglu_mlp(layer["mlp"],
+                           rms_norm(layer["ln2"], x, cfg.rms_norm_eps), group)
     x = rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
     cache.lengths[slot_ids] = torch.clamp(new_len, max=cache.max_context).to(torch.int32)
     return x

@@ -10,6 +10,11 @@ entry point (``forward_logits``, no cache).
 M-RoPE: position ids are [3, B, T] (temporal, height, width planes); the
 rotary half-dim is cut by ``mrope_section`` with plane ``i % 3`` supplying
 chunk ``i``. Text tokens carry equal ids in all planes.
+
+Under tensor parallelism (``group``, a rank's "model" process group) a
+rank runs its H/tp query and Hkv/tp kv heads (the head counts follow the
+weights' widths), its cache holds its kv heads, and its logits are its
+vocab shard.
 """
 
 from __future__ import annotations
@@ -19,9 +24,9 @@ from typing import NamedTuple
 
 import torch
 
-from handwritten_ocr_tpu_torch.models.layers import (apply_rope, attention,
-                                                     linear, rms_norm,
-                                                     rope_inv_freq,
+from handwritten_ocr_tpu_torch.models.layers import (apply_rope, argmax_ids,
+                                                     attention, linear,
+                                                     rms_norm, rope_inv_freq,
                                                      swiglu_mlp)
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import TextConfig
 from handwritten_ocr_tpu_torch.ops.flash_attention import flash_attention
@@ -89,7 +94,8 @@ def _chunked_attention(q, k, v, mask, scale: float) -> torch.Tensor:
 
 def _self_attention(layer: dict, cfg: TextConfig, x: torch.Tensor, cos,
                     sin, layer_idx: int, cache: KVCache | None,
-                    key_padding: torch.Tensor | None) -> torch.Tensor:
+                    key_padding: torch.Tensor | None,
+                    group=None) -> torch.Tensor:
     """One attention layer of the dense stack: x [B, T, D]; the new k/v
     go into ``cache`` at its cursor. T > 1 without key padding is a
     prefill into an empty cache and runs causal flash attention over the
@@ -98,9 +104,9 @@ def _self_attention(layer: dict, cfg: TextConfig, x: torch.Tensor, cos,
     position and ANDed with ``key_padding`` [B, S] (True = a real key)."""
     b, t, _ = x.shape
     hd = cfg.head_dim
-    q = linear(layer["q"], x).reshape(b, t, cfg.num_attention_heads, hd)
-    k = linear(layer["k"], x).reshape(b, t, cfg.num_key_value_heads, hd)
-    v = linear(layer["v"], x).reshape(b, t, cfg.num_key_value_heads, hd)
+    q = linear(layer["q"], x).reshape(b, t, -1, hd)
+    k = linear(layer["k"], x).reshape(b, t, -1, hd)
+    v = linear(layer["v"], x).reshape(b, t, -1, hd)
     if "q_norm" in layer:  # Qwen3: RMSNorm over the head dim before rotary
         q = rms_norm(layer["q_norm"], q, cfg.rms_norm_eps)
         k = rms_norm(layer["k_norm"], k, cfg.rms_norm_eps)
@@ -113,7 +119,7 @@ def _self_attention(layer: dict, cfg: TextConfig, x: torch.Tensor, cos,
     if t > 1 and key_padding is None:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=True, scale=hd ** -0.5)
-        return linear(layer["o"], out.reshape(b, t, -1))
+        return linear(layer["o"], out.reshape(b, t, -1), group)
 
     rows = torch.arange(t, device=x.device)[:, None]
     if cache is None:
@@ -127,25 +133,26 @@ def _self_attention(layer: dict, cfg: TextConfig, x: torch.Tensor, cos,
         mask = mask & key_padding[:, None, None, :]
     out = _chunked_attention(q, keys.to(q.dtype), values.to(q.dtype), mask,
                              hd ** -0.5)
-    return linear(layer["o"], out.reshape(b, t, -1))
+    return linear(layer["o"], out.reshape(b, t, -1), group)
 
 
 def text_forward(params: dict, cfg: TextConfig, embeds: torch.Tensor,
                  position_ids: torch.Tensor, cache: KVCache | None = None,
-                 key_padding: torch.Tensor | None = None,
+                 key_padding: torch.Tensor | None = None, group=None,
                  ) -> tuple[torch.Tensor, KVCache | None]:
     """Dense decoder stack over ``embeds [B, T, D]`` at ``position_ids``
     ([3, B, T] M-RoPE or [B, T] 1D); key_padding: optional bool [B, S]
-    valid-key mask (S = the cache length, or T without a cache). Returns
-    (final-normed hidden [B, T, D], the cache, advanced by T in place)."""
+    valid-key mask (S = the cache length, or T without a cache); group:
+    the model group under TP. Returns (final-normed hidden [B, T, D], the
+    cache, advanced by T in place)."""
     cos, sin = mrope_cos_sin(cfg, position_ids)
     x = embeds
     for idx, layer in enumerate(params["layers"]):
         x = x + _self_attention(
             layer["attn"], cfg, rms_norm(layer["ln1"], x, cfg.rms_norm_eps),
-            cos, sin, idx, cache, key_padding)
+            cos, sin, idx, cache, key_padding, group)
         x = x + swiglu_mlp(layer["mlp"],
-                           rms_norm(layer["ln2"], x, cfg.rms_norm_eps))
+                           rms_norm(layer["ln2"], x, cfg.rms_norm_eps), group)
     if cache is not None:
         cache.cursor += embeds.shape[1]
     return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
@@ -157,12 +164,13 @@ class GenerationResult(NamedTuple):
 
 
 def greedy_decode(step_logits, first: torch.Tensor, max_new: int,
-                  eos: int) -> GenerationResult:
+                  eos: int, group=None) -> GenerationResult:
     """The dense path's decode loop: from ``first [B]`` (the prefill's
     tokens), ``step_logits(step, previous tokens [B])`` gives each step's
     fp32 logits [B, V], until every row emitted EOS or ``max_new`` tokens
     stand (one host read of a flag per step). A done row takes EOS; the
-    columns after the last step stay 0, as in the JAX loop."""
+    columns after the last step stay 0, as in the JAX loop. Under TP the
+    logits are the rank's vocab shard and ``group`` its model group."""
     tokens = torch.zeros((first.shape[0], max_new), dtype=torch.int32,
                          device=first.device)
     tokens[:, 0] = first
@@ -170,8 +178,7 @@ def greedy_decode(step_logits, first: torch.Tensor, max_new: int,
     for step in range(1, max_new):
         if bool(done.all()):
             break
-        nxt = torch.argmax(step_logits(step, tokens[:, step - 1]),
-                           dim=-1).to(torch.int32)
+        nxt = argmax_ids(step_logits(step, tokens[:, step - 1]), group)
         nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
         tokens[:, step] = nxt
         done = done | (nxt == eos)
@@ -180,7 +187,9 @@ def greedy_decode(step_logits, first: torch.Tensor, max_new: int,
 
 
 def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Final hidden states [B, T, D] → fp32 vocabulary logits [B, T, V].
+    """Final hidden states [B, T, D] → fp32 vocabulary logits [B, T, V]
+    (under TP, the rank's vocab shard [B, T, V/tp]: the head is split by
+    output rows, a tied head by the embedding's).
 
     The product accumulates in fp32 and is not rounded to the hidden
     dtype, so the greedy argmax sees fp32 logits. A plain matrix product

@@ -5,6 +5,11 @@ Port of ``handwritten_ocr_tpu/models/qwen25vl/model.py``. Serving decodes
 in the continuous batcher (``engine/serving.py``); ``VLModel.generate``
 is the dense path (one contiguous cache per call) and ``forward_logits``
 the full-sequence parity entry point.
+
+With a ``mesh`` (``parallel/mesh.py``) the parameters are the rank's
+tensor-parallel slices (``parallel/sharding.py``) and every forward runs
+over the rank's "model" group; without one, every method runs on one
+device as before.
 """
 
 from __future__ import annotations
@@ -13,10 +18,14 @@ import numpy as np
 import torch
 
 from handwritten_ocr_tpu_torch.config import SERVE_VISION_CHUNK
+from handwritten_ocr_tpu_torch.models.layers import (argmax_ids, embed,
+                                                     gather_columns,
+                                                     group_size)
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
 from handwritten_ocr_tpu_torch.models.qwen25vl.language import (
     GenerationResult, KVCache, greedy_decode, lm_logits, text_forward)
 from handwritten_ocr_tpu_torch.models.qwen25vl.vision import vision_encode
+from handwritten_ocr_tpu_torch.parallel.mesh import model_group
 
 
 def rope_index_for_prompt(ids: np.ndarray, config: VLConfig,
@@ -70,27 +79,34 @@ def rope_index_for_prompt(ids: np.ndarray, config: VLConfig,
 
 class VLModel:
     """Parameters + config of a Qwen2.5-VL model in the port's layout;
-    dense greedy decode on the parameters' device."""
+    dense greedy decode on the parameters' device. ``mesh``: the
+    tensor-parallel mesh the parameters are sliced for (None: whole)."""
 
-    def __init__(self, params: dict, config: VLConfig):
+    def __init__(self, params: dict, config: VLConfig, mesh=None):
         self.params = params
         self.config = config
+        self.mesh = mesh
+
+    @property
+    def group(self):
+        """The rank's "model" process group (None on one device)."""
+        return model_group(self.mesh)
 
     def vision_embeds(self, patches: torch.Tensor, grid) -> torch.Tensor:
         """Vision tower over ``patches [B, S, C·T·ps·ps]``, in sequential
         chunks of SERVE_VISION_CHUNK pages (caps activation memory)."""
         chunk = max(1, SERVE_VISION_CHUNK)
         outs = [vision_encode(self.params["vision"], self.config.vision,
-                              patches[lo:lo + chunk], grid)
+                              patches[lo:lo + chunk], grid, self.group)
                 for lo in range(0, patches.shape[0], chunk)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def splice_embeds(self, input_ids: torch.Tensor,
                       image_embeds: torch.Tensor) -> torch.Tensor:
         """Prompt embeddings with the image rows placed at the image tokens
-        (one image per row, identical spans)."""
-        embed_w = self.params["text"]["embed"]["w"]
-        embeds = embed_w[input_ids]
+        (one image per row, identical spans); the splice follows the
+        vocab-parallel lookup's sum under TP."""
+        embeds = embed(self.params["text"]["embed"], input_ids, self.group)
         image_embeds = image_embeds.to(embeds.dtype)
         image_mask = input_ids == self.config.image_token_id
         slot = torch.clamp(torch.cumsum(image_mask.long(), dim=1) - 1,
@@ -115,40 +131,43 @@ class VLModel:
 
     def _embeds(self, input_ids: torch.Tensor, patches, grid) -> torch.Tensor:
         if patches is None:
-            return self.params["text"]["embed"]["w"][input_ids]
+            return embed(self.params["text"]["embed"], input_ids, self.group)
         return self.prompt_embeds(input_ids, patches, grid)
 
     def _prefill(self, input_ids: torch.Tensor, patches, grid, max_new: int,
                  position_ids: torch.Tensor):
         """Vision encode + splice, then the prompt pass into a fresh cache
         of prompt + ``max_new`` rows; returns (first token [B], cache)."""
-        text, cfg = self.params["text"], self.config.text
+        text, cfg, group = self.params["text"], self.config.text, self.group
         embeds = self._embeds(input_ids, patches, grid)
         batch, prompt_len = input_ids.shape
         cache = KVCache.zeros(cfg.num_hidden_layers, batch,
-                              prompt_len + max_new, cfg.num_key_value_heads,
+                              prompt_len + max_new,
+                              cfg.num_key_value_heads // group_size(group),
                               cfg.head_dim, dtype=embeds.dtype,
                               device=embeds.device)
-        hidden, cache = text_forward(text, cfg, embeds, position_ids, cache)
+        hidden, cache = text_forward(text, cfg, embeds, position_ids, cache,
+                                     group=group)
         logits = lm_logits(text, cfg, hidden[:, -1:])
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+        return argmax_ids(logits[:, -1], group), cache
 
     def _decode(self, max_new: int, first: torch.Tensor, cache: KVCache,
                 rope_delta: int) -> GenerationResult:
         """Greedy steps at position cursor + rope_delta (all three M-RoPE
         planes)."""
-        text, cfg = self.params["text"], self.config.text
+        text, cfg, group = self.params["text"], self.config.text, self.group
 
         def step_logits(step, prev):
-            embeds = text["embed"]["w"][prev.long()][:, None]
+            embeds = embed(text["embed"], prev.long(), group)[:, None]
             position_ids = torch.full((3, prev.shape[0], 1),
                                       cache.cursor + rope_delta,
                                       device=prev.device)
-            hidden, _ = text_forward(text, cfg, embeds, position_ids, cache)
+            hidden, _ = text_forward(text, cfg, embeds, position_ids, cache,
+                                     group=group)
             return lm_logits(text, cfg, hidden)[:, -1]
 
         return greedy_decode(step_logits, first, max_new,
-                             self.config.eos_token_id)
+                             self.config.eos_token_id, group)
 
     def generate(self, input_ids, patches: torch.Tensor | None, grid,
                  max_new_tokens: int) -> GenerationResult:
@@ -163,11 +182,13 @@ class VLModel:
 
     def forward_logits(self, input_ids, patches: torch.Tensor | None = None,
                        grid=None) -> torch.Tensor:
-        """Full-sequence fp32 logits [B, T, V] without a cache."""
+        """Full-sequence fp32 logits [B, T, V] without a cache (under TP
+        the vocab shards gathered, on every rank)."""
         input_ids = np.asarray(input_ids, dtype=np.int64)
         position_ids, _ = self._positions(input_ids, grid)
         ids = torch.as_tensor(input_ids, device=position_ids.device)
         hidden, _ = text_forward(self.params["text"], self.config.text,
                                  self._embeds(ids, patches, grid),
-                                 position_ids)
-        return lm_logits(self.params["text"], self.config.text, hidden)
+                                 position_ids, group=self.group)
+        return gather_columns(lm_logits(self.params["text"], self.config.text,
+                                        hidden), self.group)

@@ -11,6 +11,13 @@ one gather leaves it before the patch merger.
 Dead slots attend to nothing in the flash kernel and come out as 0 where
 the JAX CPU path (``layers.attention``) averages v uniformly; the merger's
 gather drops them, so only live rows reach the output.
+
+Under tensor parallelism (``group``: the rank's "model" process group) a
+rank runs its H/tp heads (its packed qkv holds its heads' q, k and v,
+``parallel/sharding.py``), proj, the MLP's down and the merger's fc2 end
+in an all-reduce, and the column-parallel patch embedding is gathered
+(one all-reduce of a zeroed buffer) before the first block's norm, which
+needs the full width.
 """
 
 from __future__ import annotations
@@ -21,9 +28,10 @@ import functools
 import numpy as np
 import torch
 
-from handwritten_ocr_tpu_torch.models.layers import (apply_rope, gelu_mlp,
-                                                     linear, rms_norm,
-                                                     swiglu_mlp)
+from handwritten_ocr_tpu_torch.models.layers import (apply_rope,
+                                                     gather_columns, gelu_mlp,
+                                                     group_size, linear,
+                                                     rms_norm, swiglu_mlp)
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import VisionConfig
 from handwritten_ocr_tpu_torch.ops.flash_attention import flash_attention
 from handwritten_ocr_tpu_torch.ops.window_attention import window_attention
@@ -131,33 +139,35 @@ def plan_grid(cfg: VisionConfig, grid: tuple[int, int, int]) -> GridPlan:
 
 def _attend_full(params: dict, cfg: VisionConfig, x: torch.Tensor,
                  cos: torch.Tensor, sin: torch.Tensor,
-                 valid: torch.Tensor) -> torch.Tensor:
+                 valid: torch.Tensor, group=None) -> torch.Tensor:
     """Global attention over the padded sequence (dead slots key-masked)."""
     b, p, _ = x.shape
-    q, k, v = linear(params["qkv"], x).reshape(b, p, 3, cfg.num_heads, -1).unbind(2)
+    q, k, v = linear(params["qkv"], x).reshape(
+        b, p, 3, -1, cfg.head_dim).unbind(2)
     q, k = apply_rope(q, k, cos[None, :, None, :], sin[None, :, None, :])
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                           valid, scale=cfg.head_dim ** -0.5)
-    return linear(params["proj"], out.reshape(b, p, -1))
+    return linear(params["proj"], out.reshape(b, p, -1), group)
 
 
 def _attend_windows(params: dict, cfg: VisionConfig, x: torch.Tensor,
                     cos: torch.Tensor, sin: torch.Tensor, valid: torch.Tensor,
-                    window_len: int) -> torch.Tensor:
+                    window_len: int, group=None) -> torch.Tensor:
     """Attention within uniform windows, on the packed qkv projection."""
     out = window_attention(linear(params["qkv"], x), cos, sin, valid,
-                           num_heads=cfg.num_heads, window_len=window_len,
+                           num_heads=cfg.num_heads // group_size(group),
+                           window_len=window_len,
                            scale=cfg.head_dim ** -0.5)
-    return linear(params["proj"], out)
+    return linear(params["proj"], out, group)
 
 
 def vision_encode(params: dict, cfg: VisionConfig, patches: torch.Tensor,
-                  grid: tuple[int, int, int]) -> torch.Tensor:
+                  grid: tuple[int, int, int], group=None) -> torch.Tensor:
     """Encode a batch of identically-gridded images.
 
     patches: [B, S, C*T*ps*ps] in HF processor patch order (cell-major).
     Returns merged image embeddings [B, S/merge_unit, out_hidden_size] in
-    the original (unpermuted) cell order.
+    the original (unpermuted) cell order. group: the model group under TP.
     """
     plan = plan_grid(cfg, tuple(int(g) for g in grid))
     device = patches.device
@@ -166,7 +176,7 @@ def vision_encode(params: dict, cfg: VisionConfig, patches: torch.Tensor,
 
     # The tower runs in the parameter dtype (packed patches are fp32).
     weight = params["patch_embed"]["w"]
-    x = patches.to(weight.dtype) @ weight.t()                   # [B, S, D]
+    x = gather_columns(patches.to(weight.dtype) @ weight.t(), group)  # [B, S, D]
 
     # One gather into the padded window layout: the cell permutation and
     # the padding composed into a single index.
@@ -181,16 +191,18 @@ def vision_encode(params: dict, cfg: VisionConfig, patches: torch.Tensor,
     for i, layer in enumerate(params["blocks"]):
         normed = rms_norm(layer["norm1"], x, _NORM_EPS)
         if i in full_layers:
-            x = x + _attend_full(layer["attn"], cfg, normed, cos, sin, valid)
+            x = x + _attend_full(layer["attn"], cfg, normed, cos, sin, valid,
+                                 group)
         else:
             x = x + _attend_windows(layer["attn"], cfg, normed, cos, sin,
-                                    valid, plan.window_len)
-        x = x + swiglu_mlp(layer["mlp"], rms_norm(layer["norm2"], x, _NORM_EPS))
+                                    valid, plan.window_len, group)
+        x = x + swiglu_mlp(layer["mlp"], rms_norm(layer["norm2"], x, _NORM_EPS),
+                           group)
 
     # One gather back to the permuted (unpadded) order, then the merger:
     # RMSNorm per patch, fold each cell's `unit` patches, MLP to LM width.
     x = x[:, torch.as_tensor(plan.flat_from_win, device=device)]
     merger = params["merger"]
     x = rms_norm(merger["ln_q"], x, _NORM_EPS)
-    x = gelu_mlp(merger, x.reshape(b, s // unit, unit * x.shape[-1]))
+    x = gelu_mlp(merger, x.reshape(b, s // unit, unit * x.shape[-1]), group)
     return x[:, torch.as_tensor(plan.cell_unperm, device=device)]

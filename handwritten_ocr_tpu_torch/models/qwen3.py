@@ -8,7 +8,9 @@ explicit ``head_dim`` (qwen3:32b: 64 heads x 128 = 8192, not the hidden
 ``models/paged.py`` in the continuous batcher; :class:`Qwen3Model` also
 decodes greedily over a contiguous cache (``generate``, left-padded
 batches; ``generate_json``, JSON-prefix-guarded), the dense path, and
-gives full-sequence logits (``forward_logits``).
+gives full-sequence logits (``forward_logits``). With a ``mesh`` the
+parameters are the rank's tensor-parallel slices and every forward runs
+over its "model" group (``models/qwen25vl/model.py``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from handwritten_ocr_tpu_torch.models.layers import (argmax_ids, embed,
+                                                     gather_columns,
+                                                     group_size, topk_ids)
 from handwritten_ocr_tpu_torch.models.qwen25vl.language import (
     GenerationResult, KVCache, greedy_decode, lm_logits, text_forward)
+from handwritten_ocr_tpu_torch.parallel.mesh import model_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +70,18 @@ class Qwen3Config:
 class Qwen3Model:
     """Parameters (a text tree: embed / layers / final_norm / lm_head, in
     the port's layout) and their config; greedy decode over a contiguous
-    KV cache on the parameters' device."""
+    KV cache on the parameters' device. ``mesh``: the tensor-parallel
+    mesh the parameters are sliced for (None: whole)."""
 
-    def __init__(self, params: dict, config: Qwen3Config):
+    def __init__(self, params: dict, config: Qwen3Config, mesh=None):
         self.params = params
         self.config = config
+        self.mesh = mesh
+
+    @property
+    def group(self):
+        """The rank's "model" process group (None on one device)."""
+        return model_group(self.mesh)
 
     @property
     def device(self) -> torch.device:
@@ -84,21 +97,23 @@ class Qwen3Model:
         returns (fp32 logits [B, V] of the last prompt token, cache, each
         row's last position). Left-padded rows (``key_padding`` False on
         the padding) take positions from 0 on their first real token."""
-        cfg = self.config
+        cfg, group = self.config, self.group
         batch, prompt_len = input_ids.shape
-        embeds = self.params["embed"]["w"][input_ids]
+        embeds = embed(self.params["embed"], input_ids, group)
         position_ids = torch.arange(prompt_len, device=self.device)[None] \
             .expand(batch, prompt_len)
         if key_padding is not None:
             offsets = torch.argmax(key_padding.to(torch.int32), dim=1)[:, None]
             position_ids = torch.clamp(position_ids - offsets, min=0)
         cache = KVCache.zeros(cfg.num_hidden_layers, batch,
-                              prompt_len + max_new, cfg.num_key_value_heads,
+                              prompt_len + max_new,
+                              cfg.num_key_value_heads // group_size(group),
                               cfg.head_dim, dtype=embeds.dtype,
                               device=self.device)
         hidden, cache = text_forward(
             self.params, cfg, embeds, position_ids, cache,
-            key_padding=_pad_to_cache(key_padding, prompt_len + max_new))
+            key_padding=_pad_to_cache(key_padding, prompt_len + max_new),
+            group=group)
         logits = lm_logits(self.params, cfg, hidden[:, -1:])[:, -1]
         return logits, cache, position_ids[:, -1]
 
@@ -107,10 +122,11 @@ class Qwen3Model:
                      key_padding: torch.Tensor | None = None) -> torch.Tensor:
         """One decode step of ``tokens [B]`` at ``positions [B]`` over the
         cache (advanced in place); fp32 logits [B, V]."""
-        embeds = self.params["embed"]["w"][tokens.long()][:, None]
+        group = self.group
+        embeds = embed(self.params["embed"], tokens.long(), group)[:, None]
         hidden, _ = text_forward(self.params, self.config, embeds,
                                  positions[:, None], cache,
-                                 key_padding=key_padding)
+                                 key_padding=key_padding, group=group)
         return lm_logits(self.params, self.config, hidden)[:, -1]
 
     def _prefill(self, input_ids: torch.Tensor, max_new: int,
@@ -118,7 +134,7 @@ class Qwen3Model:
         """Returns (first token [B], cache, each row's last position)."""
         logits, cache, last_pos = self._prompt_logits(input_ids, max_new,
                                                       key_padding)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache, last_pos
+        return argmax_ids(logits, self.group), cache, last_pos
 
     def _decode(self, max_new: int, first: torch.Tensor, cache: KVCache,
                 last_pos: torch.Tensor,
@@ -128,18 +144,19 @@ class Qwen3Model:
         return greedy_decode(
             lambda step, prev: self._step_logits(prev, cache, last_pos + step,
                                                  padding),
-            first, max_new, self.config.eos_token_id)
+            first, max_new, self.config.eos_token_id, self.group)
 
     def _prefill_topk(self, input_ids: torch.Tensor, max_new: int, k: int):
         """Prefill returning the next token's top-k ids [B, k] and the
         cache (B = 1)."""
         logits, cache, _ = self._prompt_logits(input_ids, max_new)
-        return _topk(logits, k), cache
+        return topk_ids(logits, k, self.group), cache
 
     def _step_topk(self, token: torch.Tensor, cache: KVCache, k: int,
                    position: torch.Tensor):
         """One decode step returning the top-k ids [B, k] (B = 1)."""
-        return _topk(self._step_logits(token, cache, position), k), cache
+        return (topk_ids(self._step_logits(token, cache, position), k,
+                         self.group), cache)
 
     def generate_json(self, input_ids, max_new_tokens: int, tokenizer,
                       top_k: int = 64) -> str:
@@ -195,22 +212,18 @@ class Qwen3Model:
                             padding)
 
     def forward_logits(self, input_ids) -> torch.Tensor:
-        """Full-sequence fp32 logits [B, T, V] without a cache."""
+        """Full-sequence fp32 logits [B, T, V] without a cache (under TP
+        the vocab shards gathered, on every rank)."""
         ids = self._ids(input_ids)
         batch, seq = ids.shape
         position_ids = torch.arange(seq, device=self.device)[None] \
             .expand(batch, seq)
+        group = self.group
         hidden, _ = text_forward(self.params, self.config,
-                                 self.params["embed"]["w"][ids],
-                                 position_ids)
-        return lm_logits(self.params, self.config, hidden)
-
-
-def _topk(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Top-k ids in ``jax.lax.top_k``'s order (value-descending,
-    index-ascending on ties)."""
-    from handwritten_ocr_tpu_torch.engine.serving import topk_ids
-    return topk_ids(logits, k)
+                                 embed(self.params["embed"], ids, group),
+                                 position_ids, group=group)
+        return gather_columns(lm_logits(self.params, self.config, hidden),
+                              group)
 
 
 def _pad_to_cache(key_padding: torch.Tensor | None,

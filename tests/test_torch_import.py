@@ -49,7 +49,9 @@ def test_port_has_the_slice_modules():
                  "models.checkpoint", "engine.dryrun", "engine.prefetch",
                  "evaluation", "cli.eval_final", "cli.transcribe",
                  "utils.json_guard", "train", "train.step", "train.data",
-                 "train.optim"):
+                 "train.optim", "parallel", "parallel.mesh",
+                 "parallel.sharding", "parallel.distributed",
+                 "parallel.context_parallel"):
         assert f"handwritten_ocr_tpu_torch.{name}" in modules
 
 

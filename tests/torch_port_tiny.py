@@ -14,10 +14,10 @@ from handwritten_ocr_tpu.models.init import init_vl as jax_init_vl
 from handwritten_ocr_tpu.models.qwen25vl.config import (
     TextConfig as JaxTextConfig, VLConfig as JaxVLConfig,
     VisionConfig as JaxVisionConfig)
-from handwritten_ocr_tpu_torch.models.processor import ByteTokenizer
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import (
     TextConfig, VLConfig, VisionConfig)
 from handwritten_ocr_tpu_torch.models.weights import from_jax_params
+from torch_port_dist import SmallTokenizer
 
 torch.set_num_threads(1)
 
@@ -61,17 +61,6 @@ def jax_tree(jax_cfg, seed=0):
 
 def port_tree(tree):
     return from_jax_params(tree, device="cpu")
-
-
-class SmallTokenizer(ByteTokenizer):
-    """ByteTokenizer with the chat template's special ids at 256-262 and a
-    decode that gives every id one character, so a 300-id vocabulary
-    holds every id and random weights write digits, quotes and braces."""
-
-    SPECIALS = {name: 256 + i for i, name in enumerate(ByteTokenizer.SPECIALS)}
-
-    def decode(self, ids) -> str:
-        return "".join(chr(int(i) % 256) for i in ids)
 
 
 # One object for every test process: the JAX package caches stop masks by
