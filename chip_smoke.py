@@ -145,9 +145,26 @@ Phases, each printing one JSON line:
      and in bf16; and, last, flash and window at the train shapes with
      their backward's time beside SDPA's backward and the backward's
      bound;
+ 13b. train_sharded (right after train): two spawned ranks (NCCL with
+     a card each where there are two cards, else both on cuda:0 over
+     gloo): the narrow fp32 VL's step at TP = 2 and at FSDP over 2 data
+     ranks against its single-card step on the card (loss, every
+     gradient, every updated leaf within 2e-4); then olmOCR-2-7B at full
+     width and depth in bf16, TP = 2 (two steps) and FSDP (2, 1) (one
+     step), one 448x448 page per data rank: each rank's planned bytes
+     (printed before it allocates), peak, step ms, all-reduces with
+     bytes and ms, flash 32 / window 28 launches a rank and step, and
+     the first step's loss within 1e-2 of the train phase's;
+ 13c. fsdp_serving: the read cell's 8 reads and the reasoning cell's 8
+     turns (int8) through engines built with ``shard(mesh, fsdp=True)``
+     over 2 data ranks, at full width and depth 2 (each decode step
+     gathers the whole model through gloo), 8 new tokens, beside the
+     same models' single-card streams; flash, window, the int8 paged
+     kernel and the int8 matmul must launch;
  14. kernels_tp: each kernel at the shapes one rank of TP = 2 and of
      TP = 4 gives it (heads and channels split; the int8 lm_head at
-     75968 and 37984 channels), against its plain version.
+     75968 and 37984 channels), against its plain version; flash and
+     window at a TP = 2 rank's train shapes (path train_sharded).
 
 Phases 6-9 and 11 decode through ``DenseTokenizer``: every id decodes to one
 character, so random weights write texts of their budget's length (with
@@ -158,7 +175,8 @@ Every failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
 ``{"ok": true, "device": {...}}``; the kernels line (each kernel's
 launches on its own path and on the guided, pipeline, cli, speculative,
-dense, fp-KV read and chat, train and tp paths) and the card's name and
+dense, fp-KV read and chat, train, tp, train_sharded and fsdp_serving
+paths) and the card's name and
 power limit come before it.
 
 ``HOCR_SPEC`` is set only inside the speculative phase and
@@ -2446,8 +2464,8 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
     steps: list = []
 
     def observe_plain(lm_logits):
-        def observed(params, cfg, hidden):
-            logits = lm_logits(params, cfg, hidden)
+        def observed(params, cfg, hidden, **kwargs):
+            logits = lm_logits(params, cfg, hidden, **kwargs)
             if tuple(hidden.shape[:2]) == (n, 1):        # a decode step
                 steps.append(torch.topk(logits[:, -1], 2))
             return logits
@@ -2483,8 +2501,8 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
     deltas, delta_at = [], []
 
     def observe_verify(lm_logits):
-        def observed(params, cfg, hidden):
-            logits = lm_logits(params, cfg, hidden)
+        def observed(params, cfg, hidden, **kwargs):
+            logits = lm_logits(params, cfg, hidden, **kwargs)
             if tuple(hidden.shape[:2]) != (n, k + 1):
                 return logits
             picks = []
@@ -3792,6 +3810,444 @@ def phase_kernels_train(cfg, tokens: int) -> list[dict]:
     return rows
 
 
+SHARDED_WORLD = 2
+SHARDED_TIMEOUT_S = 900
+SHARDED_LR = 3e-3         # the fp32 check: AdamW moves every leaf visibly,
+SHARDED_EPS = 1e-3        # and its eps keeps the update a smooth function
+# of the gradient: a gradient of rounding noise (the k biases', zero in
+# exact arithmetic) would otherwise become a whole step of either sign
+SHARDED_FP32_TOL = 2e-4   # abs and rel, tests/test_torch_train_sharded.py's
+# bf16 at full width: a TP rank rounds its partial products to bf16 before
+# the all-reduce sums them, where one card rounds each product once; over
+# 60 layers the loss may move by this share of itself (FSDP gathers the
+# weights exactly and computes each row as one card does)
+SHARDED_BF16_LOSS_RTOL = 1e-2
+FSDP_DEPTH = 2            # layers and blocks of the fsdp_serving models
+FSDP_NEW_TOKENS = 8
+
+
+def _meta_vl(cfg) -> dict:
+    """The VL tree's shapes (tensors on the meta device, bf16), for the
+    plan a rank prints before it allocates."""
+    from handwritten_ocr_tpu_torch.models import init as init_mod
+
+    class Shapes(init_mod._Init):
+        def __init__(self):
+            self.dtype, self.device = torch.bfloat16, torch.device("meta")
+            self.quantize, self.mesh = False, None
+
+        def normal(self, *shape, dtype=None):
+            return torch.empty(shape, dtype=dtype or self.dtype,
+                               device="meta")
+
+    init = Shapes()
+    return {"vision": init_mod._init_vision(init, cfg.vision),
+            "text": init_mod._init_text(init, cfg.text)}
+
+
+class _Collectives:
+    """Counts the rank's ``all_reduce`` calls, their bytes and their host
+    time (gloo copies a CUDA tensor through host memory, so the call
+    returns when the sum is on the card)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.calls, self.bytes, self.ms = 0, 0, 0.0
+
+    def wrap(self, all_reduce):
+        def counted(tensor, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = all_reduce(tensor, *args, **kwargs)
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            self.bytes += tensor.numel() * tensor.element_size()
+            return out
+        return counted
+
+    def read(self) -> dict:
+        return dict(calls=self.calls, bytes=self.bytes, ms=self.ms)
+
+
+def _sharded_batch(cfg, rows: int):
+    """The train phase's page batch, its one row repeated ``rows`` times
+    (every data rank's row is then the single-card batch)."""
+    import tempfile
+    from pathlib import Path
+
+    from handwritten_ocr_tpu_torch.train.step import TrainBatch
+    with tempfile.TemporaryDirectory() as work:
+        root = Path(work)
+        train_pages(root)
+        batch, grid = _train_batch(cfg, root)
+    return TrainBatch(*(t.repeat_interleave(rows, dim=1 if i == 2 else 0)
+                        for i, t in enumerate(batch))), grid
+
+
+def _sharded_fp32_check(mesh, fsdp: bool) -> dict:
+    """The narrow fp32 VL (``_narrow_tp_configs``) one step on this card
+    whole and one step sharded over ``mesh`` (FSDP when ``fsdp``), both
+    at SHARDED_LR and SHARDED_EPS from the same weights and global batch:
+    the loss, every
+    gradient the update gets and every updated leaf (the rank's slices of
+    the single-card results) within SHARDED_FP32_TOL."""
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    from handwritten_ocr_tpu_torch.parallel.sharding import (param_shardings,
+                                                             shard_params)
+    from handwritten_ocr_tpu_torch.train.data import shard_batch
+    from handwritten_ocr_tpu_torch.train.optim import adamw, tree_leaves
+    from handwritten_ocr_tpu_torch.train.step import make_train_step
+
+    cfg, _ = _narrow_tp_configs()
+    data = mesh.size(0)
+    batch, grid = _sharded_batch(cfg, data)
+
+    def run(params, step_mesh, specs, step_batch):
+        init, update = adamw(SHARDED_LR, eps=SHARDED_EPS)
+        seen = []
+
+        def keeping(grads, state, leaves):
+            seen.extend(g.clone() for g in grads)
+            return update(grads, state, leaves)
+
+        _, step = make_train_step(cfg, grid, (init, keeping), step_mesh,
+                                  specs)
+        params, _, loss = step(params, init(params), step_batch)
+        return params, seen, float(loss)
+
+    whole = init_vl(cfg, dtype=torch.float32, device="cuda", seed=SEED + 1)
+    specs = param_shardings(mesh, whole, fsdp=True) if fsdp else None
+    sliced = shard_params(mesh, whole, fsdp=fsdp)
+    if sliced is whole:
+        raise AssertionError("the mesh sliced nothing")
+    got, got_grads, loss = run(sliced, mesh, specs, shard_batch(mesh, batch))
+    whole = init_vl(cfg, dtype=torch.float32, device="cuda", seed=SEED + 1)
+    want, want_grads, want_loss = run(whole, None, None, batch)
+    want_grads = tree_leaves(shard_params(mesh, _tree_like(whole, want_grads),
+                                          fsdp=fsdp))
+    want = tree_leaves(shard_params(mesh, want, fsdp=fsdp))
+    worst = {}
+    for name, a, b in (("grads", got_grads, want_grads),
+                       ("params", tree_leaves(got), want)):
+        if len(a) != len(b):
+            raise AssertionError(f"{len(a)} {name} leaves, want {len(b)}")
+        excess = max(float(((x - y).abs() - SHARDED_FP32_TOL * y.abs())
+                           .max()) for x, y in zip(a, b))
+        worst[name] = excess
+        if not excess <= SHARDED_FP32_TOL:
+            raise AssertionError(f"sharded fp32 {name}: |err| - rtol*|want| "
+                                 f"reaches {excess}")
+    if not abs(loss - want_loss) <= SHARDED_FP32_TOL * (1 + abs(want_loss)):
+        raise AssertionError(f"sharded fp32 loss {loss} vs {want_loss}")
+    return dict(loss=loss, single_card_loss=want_loss,
+                grads_excess=worst["grads"], params_excess=worst["params"],
+                leaves=len(want), tol=SHARDED_FP32_TOL)
+
+
+def _tree_like(tree, leaves: list):
+    """``leaves`` (``tree_leaves`` order) in the structure of ``tree``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {key: build(node[key]) for key in sorted(node)}
+            return {key: built[key] for key in node}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(tree)
+
+
+def _sharded_full_width(mesh, fsdp: bool, counter: _Collectives,
+                        steps: int) -> dict:
+    """olmOCR-2-7B (``VLConfig()``, full width and depth) in bf16 over
+    ``mesh``: TP slices drawn from the train phase's seed one layer at a
+    time, or (FSDP) the whole tree drawn and this rank's "data" blocks
+    kept. The plan printed before the state is allocated; ``steps``
+    steps of the train phase's page (one row per data rank), each
+    counted from 0: flash / window launches, all-reduces with bytes and
+    ms, wall ms, peak memory; the first step's loss."""
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+    from handwritten_ocr_tpu_torch.parallel.budget import tree_bytes
+    from handwritten_ocr_tpu_torch.parallel.sharding import (param_shardings,
+                                                             shard_params)
+    from handwritten_ocr_tpu_torch.train.data import shard_batch
+    from handwritten_ocr_tpu_torch.train.step import make_train_step
+
+    cfg = VLConfig()
+    data = mesh.size(0)
+    mine = tree_bytes(shard_params(mesh, _meta_vl(cfg), fsdp=fsdp))
+    plan = dict(params=mine, grads=mine, mu=mine, nu=mine,
+                total=4 * mine, card_bytes=torch.cuda.get_device_properties(
+                    0).total_memory)
+    emit(phase="train_sharded_plan", rank=torch.distributed.get_rank(),
+         mesh=list(mesh.shape), fsdp=fsdp, bytes=plan)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    specs = None
+    if fsdp:
+        whole = init_vl(cfg, dtype=torch.bfloat16, device="cuda", seed=SEED)
+        specs = param_shardings(mesh, whole, fsdp=True)
+        params = shard_params(mesh, whole, fsdp=True)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        params = init_vl(cfg, dtype=torch.bfloat16, device="cuda", seed=SEED,
+                         mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if tree_bytes(params) != mine:
+        raise AssertionError(f"{tree_bytes(params)} B of slices, planned "
+                             f"{mine}")
+    batch, grid = _sharded_batch(cfg, data)
+    batch = shard_batch(mesh, batch)
+    init, step = make_train_step(cfg, grid, mesh=mesh, shardings=specs)
+    state = init(params)
+    records = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        counter.reset()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        if not math.isfinite(loss):
+            raise AssertionError(f"sharded step {i + 1}: loss {loss}")
+        if (launches["flash_attention"], launches["window_attention"]) \
+                != (32, 28):
+            raise AssertionError(f"sharded step {i + 1}: launches {launches}")
+        records.append(dict(step=i + 1, loss=loss, wall_ms=wall_ms,
+                            collectives=counter.read(),
+                            peak_gib=torch.cuda.max_memory_allocated()
+                            / 2 ** 30, launches=launches))
+    del params, state, batch, init, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(mesh=list(mesh.shape), fsdp=fsdp, init_s=init_s,
+                plan=plan, steps=records)
+
+
+def _train_sharded_rank(rank: int, world: int) -> dict:
+    """One rank of train_sharded: the fp32 checks at (1, 2) TP and (2, 1)
+    FSDP, then full width at (1, 2) TP (two steps: the first pays the
+    first calls) and at (2, 1) FSDP (one step: its ~47 s are gloo's
+    gathers, the same every step), with its all-reduces counted."""
+    import torch.distributed as dist
+    from handwritten_ocr_tpu_torch.parallel.mesh import make_mesh
+
+    tp, dp = make_mesh(model_parallel=world), make_mesh(model_parallel=1)
+    record = dict(rank=rank, backend=dist.get_backend(),
+                  card=torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    record["fp32_tp"] = _sharded_fp32_check(tp, fsdp=False)
+    record["fp32_fsdp"] = _sharded_fp32_check(dp, fsdp=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counter = _Collectives()
+    with _patched(dist, "all_reduce", counter.wrap):
+        record["tp"] = _sharded_full_width(tp, False, counter, steps=2)
+        record["fsdp"] = _sharded_full_width(dp, True, counter, steps=1)
+    return record
+
+
+def phase_train_sharded(card: str, single: dict) -> dict:
+    """Sharded fine-tuning over SHARDED_WORLD ranks (NCCL with a card
+    each where there are enough cards, else both on cuda:0 over gloo):
+    the narrow fp32 model's step sharded equal to its single-card step
+    (loss, gradients, updated leaves within SHARDED_FP32_TOL), then
+    olmOCR-2-7B at full width and depth in bf16, TP = 2 and FSDP over 2
+    data ranks, with each rank's plan, peak, step ms, all-reduces and
+    launches, and the first step's loss beside the single-card train
+    phase's (``single``) within SHARDED_BF16_LOSS_RTOL."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(SHARDED_WORLD, _train_sharded_rank,
+                         SHARDED_TIMEOUT_S)
+    phase_s = time.perf_counter() - t0
+    for r in ranks:
+        emit(phase="train_sharded_rank", **r)
+    want = single["losses"][0]
+    record = dict(phase="train_sharded", card=card, world=SHARDED_WORLD,
+                  backend=ranks[0]["backend"],
+                  ranks_per_card=-(-SHARDED_WORLD
+                                   // torch.cuda.device_count()),
+                  phase_s=phase_s, single_card_loss=want,
+                  loss_rtol=SHARDED_BF16_LOSS_RTOL)
+    for key in ("tp", "fsdp"):
+        losses = {r[key]["steps"][0]["loss"] for r in ranks}
+        if len(losses) != 1:
+            raise AssertionError(f"train_sharded {key}: ranks' losses "
+                                 f"{losses}")
+        loss = losses.pop()
+        if not abs(loss - want) <= SHARDED_BF16_LOSS_RTOL * abs(want):
+            raise AssertionError(f"train_sharded {key}: loss {loss} vs the "
+                                 f"single card's {want}")
+        record[key] = dict(
+            mesh=ranks[0][key]["mesh"], loss=loss,
+            loss_rel_diff=abs(loss - want) / abs(want),
+            step_ms=[[s["wall_ms"] for s in r[key]["steps"]] for r in ranks],
+            collectives=[r[key]["steps"][-1]["collectives"] for r in ranks],
+            peak_gib=[max(s["peak_gib"] for s in r[key]["steps"])
+                      for r in ranks],
+            planned_bytes=[r[key]["plan"]["total"] for r in ranks])
+    record["fp32"] = {key: ranks[0][key] for key in ("fp32_tp", "fp32_fsdp")}
+    record["launches"] = ranks[0]["tp"]["steps"][-1]["launches"]
+    record["launches_fsdp"] = ranks[0]["fsdp"]["steps"][-1]["launches"]
+    emit(**record)
+    return record
+
+
+def _fsdp_serving_rank(rank: int, world: int) -> dict:
+    """One rank of fsdp_serving: the read cell's 8 reads (olmOCR-2-7B
+    widths, bf16) and the reasoning cell's 8 turns (qwen3:32b widths,
+    int8), FSDP_DEPTH layers and blocks each, FSDP_NEW_TOKENS tokens,
+    first through the whole model on this card, then through engines
+    built with ``shard(mesh, fsdp=True)`` over a (world, 1) mesh, counted
+    from 0 (flash, window, the int8 paged kernel and the int8 matmul
+    must launch); the greedy ids of both."""
+    import torch.distributed as dist
+    from handwritten_ocr_tpu_torch.config import (OCR_PROMPT,
+                                                  PREPROCESSING_STRATEGIES)
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3, init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+    from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+    from handwritten_ocr_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(model_parallel=1)
+    full = VLConfig()
+    vl_cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, depth=FSDP_DEPTH,
+                                         fullatt_block_indexes=(1,)),
+        text=dataclasses.replace(full.text, num_hidden_layers=FSDP_DEPTH))
+    q_cfg = dataclasses.replace(Qwen3Config(eos_token_id=-1),
+                                num_hidden_layers=FSDP_DEPTH)
+    prep = TorchPreprocessor()
+    images = [prep.apply(page, s) for page in synthetic_pages(4)
+              for s in PREPROCESSING_STRATEGIES[:2]]
+    turns = editor_turns(8)
+    counter = _Collectives()
+    out = dict(rank=rank, backend=dist.get_backend())
+    for name in ("vl", "qwen3"):
+        streams = []
+        for fsdp in (False, True):
+            if name == "vl":
+                engine = TorchOCRBackend(VLModel(init_vl(
+                    vl_cfg, dtype=torch.bfloat16, device="cuda", seed=SEED),
+                    vl_cfg), spelling_tokenizer(), kv_quant=True,
+                    pool_bytes=_tp_pool_bytes(vl_cfg.text, 1))
+                run = functools.partial(engine.read_batch, images,
+                                        OCR_PROMPT, FSDP_NEW_TOKENS)
+                needed = ("flash_attention", "window_attention",
+                          "paged_append_attention_int8")
+            else:
+                engine = TorchReasoningBackend(Qwen3Model(init_qwen3(
+                    q_cfg, dtype=torch.bfloat16, device="cuda", seed=SEED,
+                    quantize="int8"), q_cfg), spelling_tokenizer(),
+                    kv_quant=True, pool_bytes=_tp_pool_bytes(q_cfg, 1))
+                run = functools.partial(engine.chat_batch, turns,
+                                        temperature=0.1,
+                                        max_tokens=FSDP_NEW_TOKENS)
+                needed = ("flash_attention", "paged_append_attention_int8",
+                          "int8_matmul")
+            if fsdp:
+                engine.shard(mesh, fsdp=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            counter.reset()
+            t0 = time.perf_counter()
+            with _patched(dist, "all_reduce", counter.wrap):
+                texts = run()
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+            streams.append([[int(t) for t in text.split()] for text in texts])
+            if fsdp:
+                launches = read_launches()
+                require_launches(f"fsdp_serving {name}", launches, needed)
+                out[name] = dict(call_s=call_s, collectives=counter.read(),
+                                 peak_gib=torch.cuda.max_memory_allocated()
+                                 / 2 ** 30, launches=launches)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[name]["streams"] = streams
+    return out
+
+
+def phase_fsdp_serving(card: str) -> dict:
+    """Both engines built with ``shard(mesh, fsdp=True)`` over
+    SHARDED_WORLD data ranks (each layer gathered over "data" just before
+    it runs; every rank serves every request), at full width and
+    FSDP_DEPTH layers (every decode step gathers the whole model through
+    gloo's host copies on one card): each row's first token that leaves
+    the same model's single-card stream (FSDP gathers the weights
+    exactly, so none should), call_s, all-reduces, peak, launches."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(SHARDED_WORLD, _fsdp_serving_rank,
+                         SHARDED_TIMEOUT_S)
+    record = dict(phase="fsdp_serving", card=card, world=SHARDED_WORLD,
+                  backend=ranks[0]["backend"], depth=FSDP_DEPTH,
+                  depth_cut=("every decode step gathers the whole model "
+                             "over gloo through host memory"),
+                  new_tokens=FSDP_NEW_TOKENS,
+                  phase_s=time.perf_counter() - t0)
+    for model in ("vl", "qwen3"):
+        single, sharded = ranks[0][model]["streams"]
+        if any(r[model]["streams"][1] != sharded for r in ranks):
+            raise AssertionError(f"fsdp_serving {model}: the ranks' ids differ")
+        if len(sharded) != 8:
+            raise AssertionError(f"fsdp_serving {model}: {len(sharded)} rows")
+        record[model] = {k: ranks[0][model][k] for k in (
+            "call_s", "collectives", "launches")} | dict(
+            peak_gib=[r[model]["peak_gib"] for r in ranks],
+            first_difference=[_first_difference(g, w)
+                              for g, w in zip(sharded, single)])
+    record["launches"] = {name: record["vl"]["launches"][name]
+                          + record["qwen3"]["launches"][name]
+                          for name in record["vl"]["launches"]}
+    emit(**record)
+    return record
+
+
+def phase_kernels_train_tp(cfg, tokens: int) -> list[dict]:
+    """Flash and window at the shapes one TP = 2 rank's train step gives
+    them (the train page: 1024 vision slots; ``tokens`` text tokens; half
+    the heads), with the backward's time beside SDPA's; path
+    train_sharded."""
+    from handwritten_ocr_tpu_torch.models.qwen25vl.vision import plan_grid
+    side = TRAIN_PAGE // 14
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    vis, txt = cfg.vision, cfg.text
+    plan = plan_grid(vis, (1, side, side))
+    valid = torch.as_tensor(plan.valid, device="cuda")
+    rows = [
+        _flash_case("train_tp2_vision_global", "train_sharded", 1,
+                    len(plan.valid), vis.num_heads // 2, vis.num_heads // 2,
+                    vis.head_dim, gen, valid=valid, backward=True),
+        _window_case("train_tp2_vision_window", "train_sharded", 1, plan,
+                     vis.num_heads // 2, vis.head_dim, gen, backward=True),
+        _flash_case("train_tp2_text_causal", "train_sharded", 1, tokens,
+                    txt.num_attention_heads // 2,
+                    txt.num_key_value_heads // 2, txt.head_dim, gen,
+                    causal=True, backward=True)]
+    rows = [with_ratio(r) for r in rows]
+    for r in rows:
+        emit(phase="kernel", **r)
+    return rows
+
+
 def main() -> int:
     from handwritten_ocr_tpu_torch.config import OCR_PROMPT
     from handwritten_ocr_tpu_torch.models.processor import (ByteTokenizer,
@@ -3848,6 +4304,9 @@ def main() -> int:
     phase_ring(info["smi"])
     train = phase_train(cfg, info["smi"])
     paths["train"] = train["launches"]
+    paths["train_sharded"] = phase_train_sharded(info["smi"],
+                                                 train)["launches"]
+    paths["fsdp_serving"] = phase_fsdp_serving(info["smi"])["launches"]
     phase_train_grad_check(cfg, info["smi"])
     phase_loaders(info["smi"])
     phase_reference(info["smi"])
@@ -3856,6 +4315,7 @@ def main() -> int:
     rows += phase_kernels_decode_modes(cfg, Qwen3Config(), prompt_len, q_prompt_len,
                                  dense["json_prompt_tokens"])
     rows += phase_kernels_train(cfg, train["tokens"])
+    rows += phase_kernels_train_tp(cfg, train["tokens"])
     rows += phase_kernels_tp(cfg, Qwen3Config(), prompt_len, q_prompt_len)
     kernels = []
     for r in rows:
@@ -3874,7 +4334,7 @@ def main() -> int:
             | {f"{path}_launches": paths[path][r["counter"]]
                for path in ("guided", "pipeline", "cli", "speculative",
                             "dense", "fp_kv_read", "fp_kv_chat", "train",
-                            "tp")})
+                            "tp", "train_sharded", "fsdp_serving")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

@@ -44,6 +44,7 @@ from handwritten_ocr_tpu_torch.models.layers import (argmax_ids, embed,
 from handwritten_ocr_tpu_torch.models.paged import PagedKVCache, paged_forward
 from handwritten_ocr_tpu_torch.models.qwen25vl.language import lm_logits
 from handwritten_ocr_tpu_torch.parallel.mesh import model_group
+from handwritten_ocr_tpu_torch.parallel.sharding import gathered
 
 
 _STOP_MASKS: "weakref.WeakKeyDictionary[object, dict[int, np.ndarray]]" = \
@@ -196,11 +197,12 @@ class PagedProgram:
     ``params`` is a text tree in the port's layout (embed / layers /
     final_norm / lm_head), e.g. a VL model's ``params["text"]``; with a
     ``mesh``, the rank's tensor-parallel slices of it, and every stage
-    runs over the rank's "model" group.
+    runs over the rank's "model" group. ``gather``: the tree's FSDP
+    gather (``parallel/sharding.py:LayerGather``, None without FSDP).
     """
 
     def __init__(self, params: dict, cfg, *, eos_token_id: int | None = None,
-                 mesh=None):
+                 mesh=None, gather=None):
         self.params = params
         self.cfg = cfg
         self.eos_token_id = (eos_token_id if eos_token_id is not None
@@ -208,11 +210,13 @@ class PagedProgram:
         self.mrope = getattr(cfg, "mrope_section", None) is not None
         self.mesh = mesh
         self.group = model_group(mesh)
+        self.gather = gather
         # the kv heads this rank's pools hold
         self.kv_heads = cfg.num_key_value_heads // group_size(self.group)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
-        return embed(self.params["embed"], ids.long(), self.group)
+        return embed(gathered(self.gather, self.params["embed"], "embed"),
+                     ids.long(), self.group)
 
     def _prefill_logits(self, cache: PagedKVCache, embeds: torch.Tensor,
                         positions: torch.Tensor, true_len: torch.Tensor,
@@ -222,10 +226,11 @@ class PagedProgram:
         start = torch.zeros_like(true_len)
         hidden = paged_forward(self.params, self.cfg, embeds, positions,
                                cache, slot_ids, start, true_len, fresh=True,
-                               group=self.group)
+                               group=self.group, gather=self.gather)
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         last_hidden = hidden[rows, true_len.long() - 1][:, None]
-        return lm_logits(self.params, self.cfg, last_hidden)[:, -1]
+        return lm_logits(self.params, self.cfg, last_hidden,
+                         gather=self.gather)[:, -1]
 
     def prefill(self, cache: PagedKVCache, embeds: torch.Tensor,
                 positions: torch.Tensor, true_len: torch.Tensor,
@@ -261,8 +266,9 @@ class PagedProgram:
         hidden = paged_forward(self.params, self.cfg, self._embed(last)[:, None],
                                pos, cache, slot_ids, start, new_len,
                                attn_valid=valid, table_pages=table_pages,
-                               group=self.group)
-        return lm_logits(self.params, self.cfg, hidden)[:, -1]
+                               group=self.group, gather=self.gather)
+        return lm_logits(self.params, self.cfg, hidden,
+                         gather=self.gather)[:, -1]
 
     def _step(self, cache: PagedKVCache, slot_ids: torch.Tensor,
               last: torch.Tensor, done: torch.Tensor,
@@ -351,8 +357,8 @@ class PagedProgram:
         hidden = paged_forward(self.params, self.cfg, embeds, pos, cache,
                                slot_ids, start, start,    # lengths set below
                                attn_valid=token_valid, table_pages=table_pages,
-                               group=self.group)
-        logits = lm_logits(self.params, self.cfg, hidden)
+                               group=self.group, gather=self.gather)
+        logits = lm_logits(self.params, self.cfg, hidden, gather=self.gather)
         nxt = argmax_ids(logits, self.group)
         match = (nxt[:, :k] == drafts) & (steps[None, :k] < draft_len[:, None])
         accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)

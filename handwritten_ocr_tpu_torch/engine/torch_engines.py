@@ -68,6 +68,7 @@ from handwritten_ocr_tpu_torch.models.processor import (TextTokenizer,
                                                         vlm_chat_prompt)
 from handwritten_ocr_tpu_torch.ops.dispatch import resolve_device
 from handwritten_ocr_tpu_torch.parallel.mesh import axis_rank, axis_size
+from handwritten_ocr_tpu_torch.parallel.sharding import scoped
 
 OLMOCR_DIR_ENV = "HOCR_OLMOCR_DIR"
 QWEN3_DIR_ENV = "HOCR_QWEN3_DIR"
@@ -146,7 +147,7 @@ def _pool_blocks(owner, text_cfg, dtype: torch.dtype, max_blocks: int) -> int:
 
 
 def _ensure_batcher(owner, needed_context: int, text: dict, text_cfg,
-                    eos_token_id: int):
+                    eos_token_id: int, gather=None):
     """``owner._batcher``, rebuilt when it is None or its context bound is
     below ``needed_context``. The bound rounds up to a power of two (floor
     512); the table-width ladder keeps attention reads length-bounded
@@ -168,7 +169,7 @@ def _ensure_batcher(owner, needed_context: int, text: dict, text_cfg,
     block = cfg_mod.SERVE_BLOCK_SIZE
     dtype = text["embed"]["w"].dtype
     program = PagedProgram(text, text_cfg, eos_token_id=eos_token_id,
-                           mesh=owner.mesh)
+                           mesh=owner.mesh, gather=gather)
     owner._batcher = ContinuousBatcher(
         program, n_slots=cfg_mod.SERVE_SLOTS, block_size=block,
         n_blocks=_pool_blocks(owner, text_cfg, dtype, -(-context // block)),
@@ -235,25 +236,39 @@ def _quant_label(tree) -> str | None:
 def _shard(owner, mesh, fsdp: bool):
     """``shard`` of both engines: the model's parameters become the rank's
     tensor-parallel slices over ``mesh`` (parameters made for that mesh
-    already, e.g. by ``models/init.py`` with ``mesh``, stay as they are)
-    and the batcher is dropped, to be rebuilt against them."""
-    from handwritten_ocr_tpu_torch.parallel.sharding import shard_params
-    if owner.model.mesh is None or fsdp:
-        owner.model.params = shard_params(mesh, owner.model.params, fsdp=fsdp)
-        owner.model.mesh = mesh
-    elif owner.model.mesh is not mesh:
+    already, e.g. by ``models/init.py`` with ``mesh``, are not sliced
+    again) and, with ``fsdp``, its "data" blocks of them (the model keeps
+    their specs, and its forwards gather each layer); the batcher is
+    dropped, to be rebuilt against them."""
+    from handwritten_ocr_tpu_torch.parallel.sharding import (param_shardings,
+                                                             shard_params)
+    model = owner.model
+    if model.mesh is not None and model.mesh is not mesh:
         raise ValueError("the model is sharded over another mesh")
+    if model.shardings is not None:
+        raise ValueError("the model is split over \"data\" (FSDP) already")
+    sliced = model.mesh is not None
+    if fsdp:
+        model.shardings = param_shardings(mesh, model.params, fsdp=True)
+        model.params = shard_params(mesh, model.params, fsdp=True,
+                                    model_sliced=sliced)
+    elif not sliced:
+        model.params = shard_params(mesh, model.params)
+    model.mesh = mesh
     owner._batcher = None
     return owner
 
 
-def _data_parallel(mesh, items: Sequence, run) -> list:
+def _data_parallel(owner, items: Sequence, run) -> list:
     """``run(items)`` with the items split over the mesh's "data" axis:
     each data rank runs a contiguous share (shares differ by at most
     one; a rank whose share is empty runs nothing), and the results come
-    back in order on every rank."""
+    back in order on every rank. Under FSDP every rank runs every item:
+    each layer's gather is a collective of the "data" group, so its ranks
+    must run the same forwards."""
+    mesh = owner.mesh
     data, rank = axis_size(mesh, "data"), axis_rank(mesh, "data")
-    if data < 2:
+    if data < 2 or owner.model.shardings is not None:
         return run(items)
     n = len(items)
     share = list(items[rank * n // data:(rank + 1) * n // data])
@@ -347,14 +362,17 @@ class TorchOCRBackend:
         return getattr(self.model, "mesh", None)
 
     def shard(self, mesh, fsdp: bool = False) -> "TorchOCRBackend":
-        """Run over ``mesh``: TP over "model", the reads split over "data"
-        (``fsdp=True``, FSDP, is not ported yet and raises)."""
+        """Run over ``mesh``: TP over "model", the reads split over "data";
+        ``fsdp=True`` splits the parameters over "data" too (ZeRO-3: each
+        layer is gathered just before it runs), and then every rank reads
+        every page."""
         return _shard(self, mesh, fsdp)
 
     def _ensure_batcher(self, needed_context: int):
         config = self.model.config
         return _ensure_batcher(self, needed_context, self.model.params["text"],
-                               config.text, config.eos_token_id)
+                               config.text, config.eos_token_id,
+                               scoped(self.model.gather, "text"))
 
     def _prompt_ids(self, prompt: str, n_image_tokens: int) -> np.ndarray:
         image_token = self.model.config.image_token_id
@@ -428,7 +446,7 @@ class TorchOCRBackend:
 
     def read_batch(self, images: Sequence, prompt: str,
                    max_new_tokens: int) -> list[str]:
-        return _data_parallel(self.mesh, images, lambda share: self._read(
+        return _data_parallel(self, images, lambda share: self._read(
             share, prompt, max_new_tokens))
 
     def _read(self, images: Sequence, prompt: str,
@@ -529,8 +547,10 @@ class TorchReasoningBackend:
 
     def shard(self, mesh, fsdp: bool = False) -> "TorchReasoningBackend":
         """Run over ``mesh``: TP over "model" (how qwen3:32b spreads over
-        cards), the turns of a batch split over "data" (``fsdp=True``
-        raises: not ported yet)."""
+        cards), the turns of a batch split over "data"; ``fsdp=True``
+        splits the parameters over "data" too (each layer, int8 ``w_q``
+        and ``w_scale`` included, is gathered just before it runs), and
+        then every rank answers every turn."""
         return _shard(self, mesh, fsdp)
 
     @classmethod
@@ -566,7 +586,7 @@ class TorchReasoningBackend:
     def _ensure_batcher(self, needed_context: int):
         config = self.model.config
         return _ensure_batcher(self, needed_context, self.model.params,
-                               config, config.eos_token_id)
+                               config, config.eos_token_id, self.model.gather)
 
     def _stream_printer(self):
         """on_tokens callback: prints the decoded text incrementally."""
@@ -674,7 +694,7 @@ class TorchReasoningBackend:
         is not complete fall back to free decode. Dense: one left-padded
         free-decode ``generate``, which takes no ``json_schema`` (as in
         the JAX package). Over a mesh the turns split over "data"."""
-        return _data_parallel(self.mesh, requests, lambda share: self._chat_batch(
+        return _data_parallel(self, requests, lambda share: self._chat_batch(
             share, max_tokens, json_schema))
 
     def _chat_batch(self, requests, max_tokens: int,

@@ -16,7 +16,9 @@ vocab-parallel embedding zeroes the rows outside the rank's range and
 all-reduces; logits stay split by vocabulary, and :func:`topk_ids` /
 :func:`argmax_ids` merge the ranks' candidates. Every collective is an
 ``all_reduce`` in the tensor's own dtype, which NCCL and gloo (the CPU,
-and ranks sharing one card) both run on CUDA tensors.
+and ranks sharing one card) both run on CUDA tensors, through the
+differentiable Functions of ``parallel/collectives.py`` (the sharded
+training step differentiates them; serving's values are the same).
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ import torch.nn.functional as F
 
 from handwritten_ocr_tpu_torch.ops.int8_matmul import (MAX_ROWS, int8_matmul,
                                                        int8_matmul_supported)
+from handwritten_ocr_tpu_torch.parallel.collectives import (copy_to_group,
+                                                            gather_from_group,
+                                                            reduce_from_group)
 
 
 def rms_norm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -46,8 +51,7 @@ def linear(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
         out = _quantized_matmul(params, x)
     else:
         out = x @ params["w"].t()
-    if group is not None:
-        dist.all_reduce(out, group=group)
+    out = reduce_from_group(out, group)
     if "b" in params:
         out = out + params["b"]
     return out
@@ -68,7 +72,9 @@ def _quantized_matmul(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def swiglu_mlp(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
     """gate/up/down MLP with a SiLU gate (Qwen2MLP / Qwen2_5_VLMLP);
-    gate/up column-parallel and down row-parallel under ``group``."""
+    gate/up column-parallel and down row-parallel under ``group`` (the
+    replicated ``x`` enters them through "f")."""
+    x = copy_to_group(x, group)
     return linear(params["down"],
                   F.silu(linear(params["gate"], x)) * linear(params["up"], x),
                   group)
@@ -76,7 +82,9 @@ def swiglu_mlp(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
 
 def gelu_mlp(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
     """fc1 → exact GELU → fc2 (vision patch merger MLP); fc1
-    column-parallel and fc2 row-parallel under ``group``."""
+    column-parallel and fc2 row-parallel under ``group`` (the replicated
+    ``x`` enters fc1 through "f")."""
+    x = copy_to_group(x, group)
     return linear(params["fc2"],
                   F.gelu(linear(params["fc1"], x), approximate="none"), group)
 
@@ -98,22 +106,16 @@ def embed(params: dict, ids: torch.Tensor, group=None) -> torch.Tensor:
     local = ids - dist.get_rank(group) * w.shape[0]
     mine = (local >= 0) & (local < w.shape[0])
     out = w[torch.where(mine, local, 0)].masked_fill(~mine[..., None], 0)
-    dist.all_reduce(out, group=group)
-    return out
+    return reduce_from_group(out, group)
 
 
 def gather_columns(x: torch.Tensor, group) -> torch.Tensor:
     """The full last axis of a tensor split over ``group`` by contiguous
     column blocks (rank r holds block r): each rank writes its block into
     a zeroed buffer and one all-reduce sums them (an all-gather that
-    gloo also runs on CUDA tensors)."""
-    if group is None:
-        return x
-    world, rank = dist.get_world_size(group), dist.get_rank(group)
-    full = x.new_zeros((world, *x.shape))
-    full[rank] = x
-    dist.all_reduce(full, group=group)
-    return full.movedim(0, -2).flatten(-2)
+    gloo also runs on CUDA tensors); the gradient's block of this rank
+    flows back."""
+    return gather_from_group(x, group, dim=-1)
 
 
 def topk_ids(logits: torch.Tensor, k: int, group=None) -> torch.Tensor:

@@ -16,7 +16,8 @@ writes the new k/v rows into the pools and the lengths into ``lengths``.
 
 Under tensor parallelism (``group``: the rank's "model" process group) a
 rank's pools hold its Hkv/tp kv heads and its projections its heads; the
-o and down products end in an all-reduce over the group.
+o and down products end in an all-reduce over the group. Under FSDP
+(``gather``) each layer's "data" blocks are gathered just before it runs.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from handwritten_ocr_tpu_torch.models.qwen25vl.language import mrope_cos_sin
 from handwritten_ocr_tpu_torch.ops.flash_attention import flash_attention
 from handwritten_ocr_tpu_torch.ops.paged_decode_attention import (
     paged_append_attention, quantize_rows)
+from handwritten_ocr_tpu_torch.parallel.sharding import gathered
 
 
 @dataclasses.dataclass
@@ -187,7 +189,8 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
                   slot_ids: torch.Tensor, start: torch.Tensor,
                   new_len: torch.Tensor, fresh: bool = False,
                   attn_valid: torch.Tensor | None = None,
-                  table_pages: int | None = None, group=None) -> torch.Tensor:
+                  table_pages: int | None = None, group=None,
+                  gather=None) -> torch.Tensor:
     """Decoder stack over ``embeds [B, T, D]`` with the paged cache;
     returns the final-normed hidden states and updates ``cache`` in place.
 
@@ -202,7 +205,8 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
     ``new_len``). table_pages (optional): attend over only the first N
     pages of each slot's table; callers keep every valid row's length
     (and every write position) below ``table_pages * block_size``.
-    group (optional): the model group under TP.
+    group (optional): the model group under TP. gather (optional): the
+    text tree's FSDP gather.
     """
     tables = cache.block_tables[slot_ids]
     if table_pages is not None and table_pages < tables.shape[1]:
@@ -218,11 +222,13 @@ def paged_forward(params: dict, cfg, embeds: torch.Tensor,
     cos, sin = mrope_cos_sin(cfg, position_ids)
     x = embeds
     for idx, layer in enumerate(params["layers"]):
+        layer = gathered(gather, layer, "layers", idx)
         x = x + _paged_self_attention(
             layer["attn"], cfg, rms_norm(layer["ln1"], x, cfg.rms_norm_eps),
             cos, sin, idx, cache, tables, start, n_valid, fresh, group)
         x = x + swiglu_mlp(layer["mlp"],
                            rms_norm(layer["ln2"], x, cfg.rms_norm_eps), group)
-    x = rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
+    x = rms_norm(gathered(gather, params["final_norm"], "final_norm"), x,
+                 cfg.rms_norm_eps)
     cache.lengths[slot_ids] = torch.clamp(new_len, max=cache.max_context).to(torch.int32)
     return x

@@ -14,7 +14,10 @@ chunk ``i``. Text tokens carry equal ids in all planes.
 Under tensor parallelism (``group``, a rank's "model" process group) a
 rank runs its H/tp query and Hkv/tp kv heads (the head counts follow the
 weights' widths), its cache holds its kv heads, and its logits are its
-vocab shard.
+vocab shard. The replicated activations enter q/k/v, gate/up and the LM
+head through Megatron's "f" (``parallel/collectives.py``). Under FSDP
+(``gather``, ``parallel/sharding.py:LayerGather``) each layer's "data"
+blocks are gathered just before the layer runs.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from handwritten_ocr_tpu_torch.models.layers import (apply_rope, argmax_ids,
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import TextConfig
 from handwritten_ocr_tpu_torch.ops.flash_attention import flash_attention
 from handwritten_ocr_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_matmul
+from handwritten_ocr_tpu_torch.parallel.collectives import copy_to_group
+from handwritten_ocr_tpu_torch.parallel.sharding import gathered
 
 # The masked attention of the dense path runs in query chunks whose fp32
 # scores stay within this many bytes (a left-padded 2.8k-token prefill of
@@ -104,6 +109,7 @@ def _self_attention(layer: dict, cfg: TextConfig, x: torch.Tensor, cos,
     position and ANDed with ``key_padding`` [B, S] (True = a real key)."""
     b, t, _ = x.shape
     hd = cfg.head_dim
+    x = copy_to_group(x, group)
     q = linear(layer["q"], x).reshape(b, t, -1, hd)
     k = linear(layer["k"], x).reshape(b, t, -1, hd)
     v = linear(layer["v"], x).reshape(b, t, -1, hd)
@@ -139,15 +145,17 @@ def _self_attention(layer: dict, cfg: TextConfig, x: torch.Tensor, cos,
 def text_forward(params: dict, cfg: TextConfig, embeds: torch.Tensor,
                  position_ids: torch.Tensor, cache: KVCache | None = None,
                  key_padding: torch.Tensor | None = None, group=None,
-                 ) -> tuple[torch.Tensor, KVCache | None]:
+                 gather=None) -> tuple[torch.Tensor, KVCache | None]:
     """Dense decoder stack over ``embeds [B, T, D]`` at ``position_ids``
     ([3, B, T] M-RoPE or [B, T] 1D); key_padding: optional bool [B, S]
     valid-key mask (S = the cache length, or T without a cache); group:
-    the model group under TP. Returns (final-normed hidden [B, T, D], the
-    cache, advanced by T in place)."""
+    the model group under TP; gather: the text tree's FSDP gather (None
+    without FSDP). Returns (final-normed hidden [B, T, D], the cache,
+    advanced by T in place)."""
     cos, sin = mrope_cos_sin(cfg, position_ids)
     x = embeds
     for idx, layer in enumerate(params["layers"]):
+        layer = gathered(gather, layer, "layers", idx)
         x = x + _self_attention(
             layer["attn"], cfg, rms_norm(layer["ln1"], x, cfg.rms_norm_eps),
             cos, sin, idx, cache, key_padding, group)
@@ -155,7 +163,8 @@ def text_forward(params: dict, cfg: TextConfig, embeds: torch.Tensor,
                            rms_norm(layer["ln2"], x, cfg.rms_norm_eps), group)
     if cache is not None:
         cache.cursor += embeds.shape[1]
-    return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
+    final_norm = gathered(gather, params["final_norm"], "final_norm")
+    return rms_norm(final_norm, x, cfg.rms_norm_eps), cache
 
 
 class GenerationResult(NamedTuple):
@@ -186,10 +195,14 @@ def greedy_decode(step_logits, first: torch.Tensor, max_new: int,
     return GenerationResult(tokens=tokens, lengths=lengths)
 
 
-def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor,
+              group=None, gather=None) -> torch.Tensor:
     """Final hidden states [B, T, D] → fp32 vocabulary logits [B, T, V]
     (under TP, the rank's vocab shard [B, T, V/tp]: the head is split by
-    output rows, a tied head by the embedding's).
+    output rows, a tied head by the embedding's; ``group``, the model
+    group, is needed only to differentiate it: the replicated hidden
+    states enter the head through "f"). ``gather``: the text tree's FSDP
+    gather.
 
     The product accumulates in fp32 and is not rounded to the hidden
     dtype, so the greedy argmax sees fp32 logits. A plain matrix product
@@ -202,8 +215,9 @@ def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tens
     widened weight, times the scale in fp32.
     """
     b, t, d = hidden.shape
-    flat = hidden.reshape(b * t, d)
-    head = params.get("lm_head", {})
+    flat = copy_to_group(hidden, group).reshape(b * t, d)
+    key = "embed" if cfg.tie_word_embeddings else "lm_head"
+    head = gathered(gather, params[key], key)
     if not cfg.tie_word_embeddings and "w_q" in head:
         if b * t <= MAX_ROWS:
             logits = int8_matmul(flat.contiguous(), head["w_q"],
@@ -212,8 +226,7 @@ def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tens
             logits = (_fp32_product(flat, head["w_q"].to(hidden.dtype))
                       * head["w_scale"])
         return logits.reshape(b, t, -1)
-    w = params["embed"]["w"] if cfg.tie_word_embeddings else head["w"]
-    return _fp32_product(flat, w).reshape(b, t, -1)
+    return _fp32_product(flat, head["w"]).reshape(b, t, -1)
 
 
 class _Fp32Product(torch.autograd.Function):

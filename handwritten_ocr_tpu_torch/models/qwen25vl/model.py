@@ -9,7 +9,9 @@ the full-sequence parity entry point.
 With a ``mesh`` (``parallel/mesh.py``) the parameters are the rank's
 tensor-parallel slices (``parallel/sharding.py``) and every forward runs
 over the rank's "model" group; without one, every method runs on one
-device as before.
+device as before. With ``shardings`` (the FSDP specs of the tree,
+``param_shardings(..., fsdp=True)``) the parameters are also split over
+"data", and every forward gathers each layer just before it runs.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from handwritten_ocr_tpu_torch.models.qwen25vl.language import (
     GenerationResult, KVCache, greedy_decode, lm_logits, text_forward)
 from handwritten_ocr_tpu_torch.models.qwen25vl.vision import vision_encode
 from handwritten_ocr_tpu_torch.parallel.mesh import model_group
+from handwritten_ocr_tpu_torch.parallel.sharding import (gathered,
+                                                         layer_gather, scoped)
 
 
 def rope_index_for_prompt(ids: np.ndarray, config: VLConfig,
@@ -80,24 +84,39 @@ def rope_index_for_prompt(ids: np.ndarray, config: VLConfig,
 class VLModel:
     """Parameters + config of a Qwen2.5-VL model in the port's layout;
     dense greedy decode on the parameters' device. ``mesh``: the
-    tensor-parallel mesh the parameters are sliced for (None: whole)."""
+    tensor-parallel mesh the parameters are sliced for (None: whole);
+    ``shardings``: their FSDP specs when they are split over "data" too."""
 
-    def __init__(self, params: dict, config: VLConfig, mesh=None):
+    def __init__(self, params: dict, config: VLConfig, mesh=None,
+                 shardings=None):
         self.params = params
         self.config = config
         self.mesh = mesh
+        self.shardings = shardings
 
     @property
     def group(self):
         """The rank's "model" process group (None on one device)."""
         return model_group(self.mesh)
 
+    @property
+    def gather(self):
+        """The FSDP gather of the whole tree (None without FSDP)."""
+        return layer_gather(self.mesh, self.shardings)
+
+    def _text_embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        gather = scoped(self.gather, "text")
+        return embed(gathered(gather, self.params["text"]["embed"], "embed"),
+                     input_ids, self.group)
+
     def vision_embeds(self, patches: torch.Tensor, grid) -> torch.Tensor:
         """Vision tower over ``patches [B, S, C·T·ps·ps]``, in sequential
         chunks of SERVE_VISION_CHUNK pages (caps activation memory)."""
         chunk = max(1, SERVE_VISION_CHUNK)
+        gather = scoped(self.gather, "vision")
         outs = [vision_encode(self.params["vision"], self.config.vision,
-                              patches[lo:lo + chunk], grid, self.group)
+                              patches[lo:lo + chunk], grid, self.group,
+                              gather)
                 for lo in range(0, patches.shape[0], chunk)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -106,7 +125,7 @@ class VLModel:
         """Prompt embeddings with the image rows placed at the image tokens
         (one image per row, identical spans); the splice follows the
         vocab-parallel lookup's sum under TP."""
-        embeds = embed(self.params["text"]["embed"], input_ids, self.group)
+        embeds = self._text_embed(input_ids)
         image_embeds = image_embeds.to(embeds.dtype)
         image_mask = input_ids == self.config.image_token_id
         slot = torch.clamp(torch.cumsum(image_mask.long(), dim=1) - 1,
@@ -131,7 +150,7 @@ class VLModel:
 
     def _embeds(self, input_ids: torch.Tensor, patches, grid) -> torch.Tensor:
         if patches is None:
-            return embed(self.params["text"]["embed"], input_ids, self.group)
+            return self._text_embed(input_ids)
         return self.prompt_embeds(input_ids, patches, grid)
 
     def _prefill(self, input_ids: torch.Tensor, patches, grid, max_new: int,
@@ -139,6 +158,7 @@ class VLModel:
         """Vision encode + splice, then the prompt pass into a fresh cache
         of prompt + ``max_new`` rows; returns (first token [B], cache)."""
         text, cfg, group = self.params["text"], self.config.text, self.group
+        gather = scoped(self.gather, "text")
         embeds = self._embeds(input_ids, patches, grid)
         batch, prompt_len = input_ids.shape
         cache = KVCache.zeros(cfg.num_hidden_layers, batch,
@@ -147,8 +167,8 @@ class VLModel:
                               cfg.head_dim, dtype=embeds.dtype,
                               device=embeds.device)
         hidden, cache = text_forward(text, cfg, embeds, position_ids, cache,
-                                     group=group)
-        logits = lm_logits(text, cfg, hidden[:, -1:])
+                                     group=group, gather=gather)
+        logits = lm_logits(text, cfg, hidden[:, -1:], gather=gather)
         return argmax_ids(logits[:, -1], group), cache
 
     def _decode(self, max_new: int, first: torch.Tensor, cache: KVCache,
@@ -156,15 +176,16 @@ class VLModel:
         """Greedy steps at position cursor + rope_delta (all three M-RoPE
         planes)."""
         text, cfg, group = self.params["text"], self.config.text, self.group
+        gather = scoped(self.gather, "text")
 
         def step_logits(step, prev):
-            embeds = embed(text["embed"], prev.long(), group)[:, None]
+            embeds = self._text_embed(prev.long())[:, None]
             position_ids = torch.full((3, prev.shape[0], 1),
                                       cache.cursor + rope_delta,
                                       device=prev.device)
             hidden, _ = text_forward(text, cfg, embeds, position_ids, cache,
-                                     group=group)
-            return lm_logits(text, cfg, hidden)[:, -1]
+                                     group=group, gather=gather)
+            return lm_logits(text, cfg, hidden, gather=gather)[:, -1]
 
         return greedy_decode(step_logits, first, max_new,
                              self.config.eos_token_id, group)
@@ -187,8 +208,10 @@ class VLModel:
         input_ids = np.asarray(input_ids, dtype=np.int64)
         position_ids, _ = self._positions(input_ids, grid)
         ids = torch.as_tensor(input_ids, device=position_ids.device)
+        gather = scoped(self.gather, "text")
         hidden, _ = text_forward(self.params["text"], self.config.text,
                                  self._embeds(ids, patches, grid),
-                                 position_ids, group=self.group)
+                                 position_ids, group=self.group,
+                                 gather=gather)
         return gather_columns(lm_logits(self.params["text"], self.config.text,
-                                        hidden), self.group)
+                                        hidden, gather=gather), self.group)

@@ -17,7 +17,11 @@ rank runs its H/tp heads (its packed qkv holds its heads' q, k and v,
 ``parallel/sharding.py``), proj, the MLP's down and the merger's fc2 end
 in an all-reduce, and the column-parallel patch embedding is gathered
 (one all-reduce of a zeroed buffer) before the first block's norm, which
-needs the full width.
+needs the full width. The replicated activations enter qkv, gate/up and
+the merger's fc1 through Megatron's "f" (``parallel/collectives.py``), so
+the gradients of everything replicated upstream are whole on every rank.
+Under FSDP (``gather``, ``parallel/sharding.py:LayerGather``) each block's
+"data" blocks are gathered just before the block runs.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from handwritten_ocr_tpu_torch.models.layers import (apply_rope,
 from handwritten_ocr_tpu_torch.models.qwen25vl.config import VisionConfig
 from handwritten_ocr_tpu_torch.ops.flash_attention import flash_attention
 from handwritten_ocr_tpu_torch.ops.window_attention import window_attention
+from handwritten_ocr_tpu_torch.parallel.collectives import copy_to_group
+from handwritten_ocr_tpu_torch.parallel.sharding import gathered
 
 _NORM_EPS = 1e-6  # vision blocks use a fixed 1e-6 (HF Qwen2RMSNorm(eps=1e-6))
 
@@ -142,7 +148,7 @@ def _attend_full(params: dict, cfg: VisionConfig, x: torch.Tensor,
                  valid: torch.Tensor, group=None) -> torch.Tensor:
     """Global attention over the padded sequence (dead slots key-masked)."""
     b, p, _ = x.shape
-    q, k, v = linear(params["qkv"], x).reshape(
+    q, k, v = linear(params["qkv"], copy_to_group(x, group)).reshape(
         b, p, 3, -1, cfg.head_dim).unbind(2)
     q, k = apply_rope(q, k, cos[None, :, None, :], sin[None, :, None, :])
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -154,7 +160,8 @@ def _attend_windows(params: dict, cfg: VisionConfig, x: torch.Tensor,
                     cos: torch.Tensor, sin: torch.Tensor, valid: torch.Tensor,
                     window_len: int, group=None) -> torch.Tensor:
     """Attention within uniform windows, on the packed qkv projection."""
-    out = window_attention(linear(params["qkv"], x), cos, sin, valid,
+    out = window_attention(linear(params["qkv"], copy_to_group(x, group)),
+                           cos, sin, valid,
                            num_heads=cfg.num_heads // group_size(group),
                            window_len=window_len,
                            scale=cfg.head_dim ** -0.5)
@@ -162,12 +169,14 @@ def _attend_windows(params: dict, cfg: VisionConfig, x: torch.Tensor,
 
 
 def vision_encode(params: dict, cfg: VisionConfig, patches: torch.Tensor,
-                  grid: tuple[int, int, int], group=None) -> torch.Tensor:
+                  grid: tuple[int, int, int], group=None,
+                  gather=None) -> torch.Tensor:
     """Encode a batch of identically-gridded images.
 
     patches: [B, S, C*T*ps*ps] in HF processor patch order (cell-major).
     Returns merged image embeddings [B, S/merge_unit, out_hidden_size] in
-    the original (unpermuted) cell order. group: the model group under TP.
+    the original (unpermuted) cell order. group: the model group under TP;
+    gather: the vision tree's FSDP gather (None without FSDP).
     """
     plan = plan_grid(cfg, tuple(int(g) for g in grid))
     device = patches.device
@@ -175,7 +184,7 @@ def vision_encode(params: dict, cfg: VisionConfig, patches: torch.Tensor,
     unit = cfg.spatial_merge_unit
 
     # The tower runs in the parameter dtype (packed patches are fp32).
-    weight = params["patch_embed"]["w"]
+    weight = gathered(gather, params["patch_embed"], "patch_embed")["w"]
     x = gather_columns(patches.to(weight.dtype) @ weight.t(), group)  # [B, S, D]
 
     # One gather into the padded window layout: the cell permutation and
@@ -189,6 +198,7 @@ def vision_encode(params: dict, cfg: VisionConfig, patches: torch.Tensor,
     sin = torch.as_tensor(plan.sin_pad, device=device)
     full_layers = set(cfg.fullatt_block_indexes)
     for i, layer in enumerate(params["blocks"]):
+        layer = gathered(gather, layer, "blocks", i)
         normed = rms_norm(layer["norm1"], x, _NORM_EPS)
         if i in full_layers:
             x = x + _attend_full(layer["attn"], cfg, normed, cos, sin, valid,
@@ -202,7 +212,7 @@ def vision_encode(params: dict, cfg: VisionConfig, patches: torch.Tensor,
     # One gather back to the permuted (unpadded) order, then the merger:
     # RMSNorm per patch, fold each cell's `unit` patches, MLP to LM width.
     x = x[:, torch.as_tensor(plan.flat_from_win, device=device)]
-    merger = params["merger"]
+    merger = gathered(gather, params["merger"], "merger")
     x = rms_norm(merger["ln_q"], x, _NORM_EPS)
     x = gelu_mlp(merger, x.reshape(b, s // unit, unit * x.shape[-1]), group)
     return x[:, torch.as_tensor(plan.cell_unperm, device=device)]

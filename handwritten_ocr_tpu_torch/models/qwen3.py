@@ -28,6 +28,7 @@ from handwritten_ocr_tpu_torch.models.layers import (argmax_ids, embed,
 from handwritten_ocr_tpu_torch.models.qwen25vl.language import (
     GenerationResult, KVCache, greedy_decode, lm_logits, text_forward)
 from handwritten_ocr_tpu_torch.parallel.mesh import model_group
+from handwritten_ocr_tpu_torch.parallel.sharding import gathered, layer_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,17 +72,30 @@ class Qwen3Model:
     """Parameters (a text tree: embed / layers / final_norm / lm_head, in
     the port's layout) and their config; greedy decode over a contiguous
     KV cache on the parameters' device. ``mesh``: the tensor-parallel
-    mesh the parameters are sliced for (None: whole)."""
+    mesh the parameters are sliced for (None: whole); ``shardings``:
+    their FSDP specs when they are split over "data" too (every forward
+    then gathers each layer just before it runs)."""
 
-    def __init__(self, params: dict, config: Qwen3Config, mesh=None):
+    def __init__(self, params: dict, config: Qwen3Config, mesh=None,
+                 shardings=None):
         self.params = params
         self.config = config
         self.mesh = mesh
+        self.shardings = shardings
 
     @property
     def group(self):
         """The rank's "model" process group (None on one device)."""
         return model_group(self.mesh)
+
+    @property
+    def gather(self):
+        """The FSDP gather of the tree (None without FSDP)."""
+        return layer_gather(self.mesh, self.shardings)
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return embed(gathered(self.gather, self.params["embed"], "embed"),
+                     ids, self.group)
 
     @property
     def device(self) -> torch.device:
@@ -99,7 +113,7 @@ class Qwen3Model:
         the padding) take positions from 0 on their first real token."""
         cfg, group = self.config, self.group
         batch, prompt_len = input_ids.shape
-        embeds = embed(self.params["embed"], input_ids, group)
+        embeds = self._embed(input_ids)
         position_ids = torch.arange(prompt_len, device=self.device)[None] \
             .expand(batch, prompt_len)
         if key_padding is not None:
@@ -113,8 +127,9 @@ class Qwen3Model:
         hidden, cache = text_forward(
             self.params, cfg, embeds, position_ids, cache,
             key_padding=_pad_to_cache(key_padding, prompt_len + max_new),
-            group=group)
-        logits = lm_logits(self.params, cfg, hidden[:, -1:])[:, -1]
+            group=group, gather=self.gather)
+        logits = lm_logits(self.params, cfg, hidden[:, -1:],
+                           gather=self.gather)[:, -1]
         return logits, cache, position_ids[:, -1]
 
     def _step_logits(self, tokens: torch.Tensor, cache: KVCache,
@@ -123,11 +138,13 @@ class Qwen3Model:
         """One decode step of ``tokens [B]`` at ``positions [B]`` over the
         cache (advanced in place); fp32 logits [B, V]."""
         group = self.group
-        embeds = embed(self.params["embed"], tokens.long(), group)[:, None]
+        embeds = self._embed(tokens.long())[:, None]
         hidden, _ = text_forward(self.params, self.config, embeds,
                                  positions[:, None], cache,
-                                 key_padding=key_padding, group=group)
-        return lm_logits(self.params, self.config, hidden)[:, -1]
+                                 key_padding=key_padding, group=group,
+                                 gather=self.gather)
+        return lm_logits(self.params, self.config, hidden,
+                         gather=self.gather)[:, -1]
 
     def _prefill(self, input_ids: torch.Tensor, max_new: int,
                  key_padding: torch.Tensor | None):
@@ -220,10 +237,11 @@ class Qwen3Model:
             .expand(batch, seq)
         group = self.group
         hidden, _ = text_forward(self.params, self.config,
-                                 embed(self.params["embed"], ids, group),
-                                 position_ids, group=group)
-        return gather_columns(lm_logits(self.params, self.config, hidden),
-                              group)
+                                 self._embed(ids),
+                                 position_ids, group=group,
+                                 gather=self.gather)
+        return gather_columns(lm_logits(self.params, self.config, hidden,
+                                        gather=self.gather), group)
 
 
 def _pad_to_cache(key_padding: torch.Tensor | None,

@@ -5,7 +5,12 @@ Port of ``handwritten_ocr_tpu/parallel/``:
   * ``budget``      — device-memory plan of the co-resident engines.
   * ``mesh``        — ("data", "model") ``DeviceMesh`` over the group.
   * ``sharding``    — Megatron-style tensor-parallel specs and slices of
-    both model families; the forward calls the collectives itself.
+    both model families, FSDP's "data" blocks and their per-layer
+    gather; the forward calls the collectives itself.
+  * ``collectives`` — the differentiable collectives of the sharded
+    forward (Megatron's "f" and "g", the TP and FSDP gathers).
+  * ``dryrun``      — the multi-rank dry run (a sharded serving round,
+    ring attention, one TP + FSDP train step) at small shapes.
   * ``context_parallel`` — ring attention: sequence-sharded attention
     with K/V chunks passed around the ring.
   * ``distributed`` — the ``torch.distributed`` process group (NCCL where

@@ -8,6 +8,12 @@ binds its card (``cuda:{local rank}``; ranks on one card all bind
 ``cuda:0``) before the group forms, so the engines built after it place
 their tensors there.
 
+Where the job says nothing of its hosts (HOCR_DIST_* alone, as the JAX
+contract allows across hosts), the ranks meet first on a ``TCPStore`` at
+the coordinator's address, each naming its host and its card count; the
+local rank is then a rank's index among the ranks of its host
+(:func:`placement`), and the group forms over the same store.
+
 Single-process use is untouched: :func:`initialize_from_env` is a no-op
 unless the environment opts in.
 
@@ -25,8 +31,10 @@ counterpart of JAX's cluster autodetection.
 
 from __future__ import annotations
 
+import datetime
 import os
-from typing import Callable
+import socket
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -62,21 +70,54 @@ def _torchrun_env() -> dict | None:
     }
 
 
-def _placement(env: dict) -> tuple[str, int | None]:
-    """(backend, card) of this process: NCCL and ``cuda:{local rank}``
-    when every process of the host has a card of its own; gloo and
-    ``cuda:0`` when they share one; gloo and no card without one. The
-    local rank and the host's process count are torchrun's
-    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` where set, else the whole job
-    runs on this host."""
-    if not torch.cuda.is_available():
-        return "gloo", None
-    local_rank = int(os.environ.get("LOCAL_RANK", env["process_id"]))
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
-                                     env["num_processes"]))
-    if local_world <= torch.cuda.device_count():
+def placement(hosts: Sequence[str], cards: Sequence[int],
+              rank: int) -> tuple[str, int | None]:
+    """(backend, card) of ``rank`` in a job whose rank r runs on host
+    ``hosts[r]``, which has ``cards[r]`` cards: NCCL and ``cuda:{local
+    rank}`` (the rank's index among the ranks of its host) when every
+    host has a card for each of its ranks; else gloo, the ranks of a host
+    sharing its ``cuda:0``, or no card on a host without one. Every rank
+    computes the same backend."""
+    host = hosts[rank]
+    local_rank = sum(1 for other in hosts[:rank] if other == host)
+    per_host = {h: (hosts.count(h), n) for h, n in zip(hosts, cards)}
+    if all(0 < count <= n for count, n in per_host.values()):
         return "nccl", local_rank
-    return "gloo", 0
+    return "gloo", 0 if cards[rank] > 0 else None
+
+
+def _cards() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _placement(env: dict, hosts: Sequence[str] | None = None,
+               cards: Sequence[int] | None = None) -> tuple[str, int | None]:
+    """(backend, card) of this process. torchrun's ``LOCAL_RANK`` /
+    ``LOCAL_WORLD_SIZE``, where set, give its host's share; else
+    ``hosts`` / ``cards`` (each rank's host and card count, from the
+    rendezvous) do, and without them the whole job runs on this host."""
+    n, rank = env["num_processes"], env["process_id"]
+    if "LOCAL_RANK" in os.environ or "LOCAL_WORLD_SIZE" in os.environ:
+        n = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+        rank = int(os.environ.get("LOCAL_RANK", rank))
+        hosts = None
+    if hosts is None:
+        hosts, cards = ["this host"] * n, [_cards()] * n
+    return placement(hosts, cards, rank)
+
+
+def _rendezvous(env: dict) -> tuple[dist.TCPStore, list[str], list[int]]:
+    """A ``TCPStore`` on the coordinator's address (served by process 0)
+    where every rank sets its host name and card count; returns the
+    store and every rank's host and card count."""
+    host, port = env["coordinator_address"].rsplit(":", 1)
+    n, rank = env["num_processes"], env["process_id"]
+    store = dist.TCPStore(host, int(port), n, is_master=rank == 0,
+                          timeout=datetime.timedelta(minutes=10))
+    store.set(f"hocr_host/{rank}", f"{_cards()} {socket.gethostname()}")
+    entries = [store.get(f"hocr_host/{r}").decode().split(" ", 1)
+               for r in range(n)]
+    return store, [h for _, h in entries], [int(c) for c, _ in entries]
 
 
 def initialize_from_env(auto: bool = False) -> bool:
@@ -93,12 +134,16 @@ def initialize_from_env(auto: bool = False) -> bool:
         env = _torchrun_env()
     if env is None:
         return False
-    backend, card = _placement(env)
+    join = dict(world_size=env["num_processes"], rank=env["process_id"])
+    if "LOCAL_RANK" in os.environ or "LOCAL_WORLD_SIZE" in os.environ:
+        backend, card = _placement(env)
+        join["init_method"] = f"tcp://{env['coordinator_address']}"
+    else:
+        join["store"], hosts, cards = _rendezvous(env)
+        backend, card = _placement(env, hosts, cards)
     if card is not None:
         torch.cuda.set_device(card)      # before anything is allocated
-    dist.init_process_group(
-        backend, init_method=f"tcp://{env['coordinator_address']}",
-        world_size=env["num_processes"], rank=env["process_id"])
+    dist.init_process_group(backend, **join)
     return True
 
 
@@ -123,7 +168,8 @@ def shard_host_batch(mesh, per_index: Callable[[tuple], np.ndarray],
     ``per_index`` receives the global index (a tuple of slices) of this
     rank's shard and returns its host data, so a folder workload loads
     and decodes only its own pages. The batch axis (0) must divide by the
-    "data" axis."""
+    "data" axis. A train batch already on the device: ``train/data.py:
+    shard_batch``."""
     data, rank = axis_size(mesh, "data"), axis_rank(mesh, "data")
     if global_shape[0] % data:
         raise ValueError(f"batch {global_shape[0]} not divisible by "

@@ -70,3 +70,12 @@ def model_group(mesh: DeviceMesh | None):
     if axis_size(mesh, "model") < 2:
         return None
     return mesh.get_group("model")
+
+
+def data_group(mesh: DeviceMesh | None):
+    """The process group of this rank's "data" axis: the group FSDP
+    gathers over and the gradients of data parallelism are summed over.
+    None without a mesh or with a data axis of 1."""
+    if axis_size(mesh, "data") < 2:
+        return None
+    return mesh.get_group("data")

@@ -6,7 +6,8 @@ target is the ground-truth transcription followed by ``<|im_end|>``, and
 the loss mask covers only the target tokens. Pages are grouped by patch
 grid (the bucketing the inference engine uses), so every batch holds
 pages of one grid. Batches are built on the host and placed on
-``device``: the CUDA card unless the caller names another.
+``device``: the CUDA card unless the caller names another. A sharded
+step takes each rank's rows of a batch (:func:`shard_batch`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from handwritten_ocr_tpu_torch.models.processor import (TextTokenizer,
 from handwritten_ocr_tpu_torch.models.qwen25vl.model import (
     rope_index_for_prompt)
 from handwritten_ocr_tpu_torch.ops.dispatch import resolve_device
+from handwritten_ocr_tpu_torch.parallel.mesh import axis_rank, axis_size
 from handwritten_ocr_tpu_torch.text.gt import parse_ground_truth
 from handwritten_ocr_tpu_torch.train.step import TrainBatch
 
@@ -144,3 +146,24 @@ def batches_by_grid(
         for start in range(0, len(bucket), batch_size):
             yield build_batch(bucket[start:start + batch_size], tokenizer,
                               vl_config, **kwargs)
+
+
+def shard_batch(mesh, batch: TrainBatch) -> TrainBatch:
+    """This rank's rows of a global batch split over the mesh's "data"
+    axis, as JAX places it (``data_sharding(mesh, 2)`` / ``(mesh, 3)``
+    for ids, mask and patches, ``data_sharding(mesh, 3, batch_axis=1)``
+    for the ``[3, B, T]`` positions); every rank must hold the same
+    global batch. The batch must divide by the "data" axis."""
+    data, rank = axis_size(mesh, "data"), axis_rank(mesh, "data")
+    rows = batch.input_ids.shape[0]
+    if rows % data:
+        raise ValueError(f"batch {rows} not divisible by data={data}")
+    share = rows // data
+
+    def mine(tensor: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        return tensor.narrow(axis, rank * share, share).contiguous()
+
+    return TrainBatch(input_ids=mine(batch.input_ids),
+                      patches=mine(batch.patches),
+                      position_ids=mine(batch.position_ids, 1),
+                      loss_mask=mine(batch.loss_mask))

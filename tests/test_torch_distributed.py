@@ -82,6 +82,56 @@ def test_torchrun_env_and_placement(monkeypatch):
     assert distributed._placement(env) == ("gloo", 0)
 
 
+@pytest.mark.parametrize("case", ["two_hosts_of_8", "one_card",
+                                  "no_card", "host_short_of_cards"])
+def test_placement_from_each_ranks_host(case):
+    """The pure placement rule over every rank's host and card count, as
+    the rendezvous gathers them when LOCAL_RANK / LOCAL_WORLD_SIZE are
+    unset: 16 ranks on two hosts of 8 cards take NCCL and local ranks
+    0-7 on each host; two ranks on a host of one card share cuda:0 over
+    gloo; four ranks on a host without a card take gloo and no card; one
+    host with fewer cards than ranks puts the whole job on gloo."""
+    from handwritten_ocr_tpu_torch.parallel.distributed import placement
+
+    if case == "two_hosts_of_8":
+        hosts = ["node-a"] * 8 + ["node-b"] * 8
+        got = [placement(hosts, [8] * 16, r) for r in range(16)]
+        assert got == [("nccl", r % 8) for r in range(16)]
+        mixed = ["node-a", "node-b"] * 8          # ranks interleaved
+        got = [placement(mixed, [8] * 16, r) for r in range(16)]
+        assert got == [("nccl", r // 2) for r in range(16)]
+    elif case == "one_card":
+        assert [placement(["h", "h"], [1, 1], r) for r in (0, 1)] == \
+            [("gloo", 0), ("gloo", 0)]
+    elif case == "no_card":
+        assert [placement(["h"] * 4, [0] * 4, r) for r in range(4)] == \
+            [("gloo", None)] * 4
+    else:
+        hosts = ["a"] * 8 + ["b"] * 8
+        cards = [8] * 8 + [4] * 8
+        assert {placement(hosts, cards, r)[0] for r in range(16)} == {"gloo"}
+        assert placement(hosts, cards, 12) == ("gloo", 0)
+
+
+def test_rendezvous_names_each_ranks_host(monkeypatch):
+    """Without LOCAL_* the ranks meet on a TCPStore at the coordinator's
+    address: a one-process store here (a job of one) gives back this
+    host's name and card count."""
+    from handwritten_ocr_tpu_torch.parallel import distributed
+    from torch_port_dist import free_port
+
+    env = {"coordinator_address": f"localhost:{free_port()}",
+           "num_processes": 1, "process_id": 0}
+    store, hosts, cards = distributed._rendezvous(env)
+    import socket
+    assert hosts == [socket.gethostname()]
+    assert cards == [torch.cuda.device_count()
+                     if torch.cuda.is_available() else 0]
+    assert distributed._placement(env, hosts, cards) == (
+        ("gloo", None) if not torch.cuda.is_available() else ("nccl", 0))
+    del store
+
+
 @pytest.fixture(scope="module")
 def folder(tmp_path_factory):
     """Three pages and one page in a folder of its own; the output of a

@@ -51,7 +51,8 @@ def test_port_has_the_slice_modules():
                  "utils.json_guard", "train", "train.step", "train.data",
                  "train.optim", "parallel", "parallel.mesh",
                  "parallel.sharding", "parallel.distributed",
-                 "parallel.context_parallel"):
+                 "parallel.context_parallel", "parallel.collectives",
+                 "parallel.dryrun"):
         assert f"handwritten_ocr_tpu_torch.{name}" in modules
 
 

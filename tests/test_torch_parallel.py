@@ -50,7 +50,8 @@ from torch_port_tiny import jax_tree
 
 torch.set_num_threads(1)
 
-MESHES = {"1x2": (2, 2), "2x2": (4, 2)}        # name: (world, model axis)
+# name: (world, model axis); "_fsdp": every model split over "data" too
+MESHES = {"1x2": (2, 2), "2x2": (4, 2), "2x2_fsdp": (4, 2)}
 GRID = (1, 4, 4)
 TOPK = 64
 
@@ -98,7 +99,8 @@ def runs(tmp_path_factory):
             "logits": planted_logits(), "k": TOPK}
     path = tmp_path_factory.mktemp("tp") / "inputs.pkl"
     path.write_bytes(pickle.dumps(data))
-    groups = {name: Group(world, tp_cases, model, str(path))
+    groups = {name: Group(world, tp_cases, model, str(path),
+                          name.endswith("_fsdp"))
               for name, (world, model) in MESHES.items()}
 
     with jax.default_matmul_precision("highest"):
@@ -253,13 +255,53 @@ def test_rank_slices_concatenate_to_every_leaf(tree, tp):
                 qkv[third * d + per:third * d + 2 * per], rtol=0, atol=0)
 
 
-def test_fsdp_specs_add_the_data_axis_and_sharding_raises():
-    port = from_jax_params(jax.tree_util.tree_map(np.asarray,
-                                                  _trees()["qwen3_int8"]))
-    spec = param_shardings(None, port, fsdp=True)["layers"][0]["attn"]["q"]["w_q"]
-    assert "model" in spec and "data" in spec
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_params(_Mesh(2, 0), port, fsdp=True)
+class _GridMesh:
+    """A (data, model) mesh's coordinates without a process group."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, data: int, model: int, data_rank: int, model_rank: int):
+        self.shape, self.ranks = (data, model), (data_rank, model_rank)
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.ranks[self.mesh_dim_names.index(axis)]
+
+
+@pytest.mark.parametrize("tree", ["vl", "qwen3_int8"])
+def test_fsdp_specs_add_the_data_axis_and_sharding_raises(tree):
+    """FSDP specs name "data" beside "model"; the (2, 2) ranks' "data"
+    blocks, put back together over "data" and then over "model", give
+    every leaf (int8 ``w_q`` / ``w_scale`` too), and a leaf whose
+    dimension does not split over "data" raises, naming the leaf."""
+    port = from_jax_params(jax.tree_util.tree_map(np.asarray, _trees()[tree]))
+    specs = dict(_leaves(param_shardings(None, port, fsdp=True)))
+    first = ("layers", "0", "attn", "q", "w_q") if tree == "qwen3_int8" \
+        else ("text", "layers", "0", "attn", "q", "w")
+    assert "model" in specs[first] and "data" in specs[first]
+    tp = {m: dict(_leaves(shard_params(_Mesh(2, m), port))) for m in (0, 1)}
+    shards = {(d, m): dict(_leaves(shard_params(_GridMesh(2, 2, d, m), port,
+                                                fsdp=True)))
+              for d in (0, 1) for m in (0, 1)}
+    split = 0
+    for path, leaf in _leaves(port):
+        for m in (0, 1):
+            parts = [shards[(d, m)][path] for d in (0, 1)]
+            if "data" not in specs[path]:
+                for part in parts:
+                    torch.testing.assert_close(part, tp[m][path], rtol=0,
+                                               atol=0)
+                continue
+            split += 1
+            torch.testing.assert_close(
+                torch.cat(parts, specs[path].index("data")), tp[m][path],
+                rtol=0, atol=0)
+    assert split > len(specs)     # most leaves split, on both model ranks
+    odd = {"layers": [{"ln1": {"scale": torch.ones(3)}}]}
+    with pytest.raises(ValueError, match="layers/0/ln1/scale"):
+        shard_params(_GridMesh(2, 1, 0, 0), odd, fsdp=True)
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))

@@ -63,3 +63,24 @@ def test_kernels_at_the_rank_shapes_on_cuda(tp):
     kw = dict(num_heads=heads, window_len=64, scale=80 ** -0.5)
     close(window_attention(*args, **kw), window_attention_plain(*args, **kw))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)])
+def test_sharded_train_step_equals_single_card_step_on_cuda(mesh):
+    """Two ranks on the card (NCCL with a card each, else gloo on
+    cuda:0): a narrow fp32 VL's train step at (data, model) = (1, 2) TP
+    and (2, 1) FSDP against the same step on one card (flash and window
+    kernels forward, autograd through their reference forms backward):
+    the loss, every gradient the update gets and every updated leaf
+    within 2e-4 absolute and relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch_port_dist import run_group, train_cuda_cases
+    data, model = mesh
+    for result in run_group(data * model, train_cuda_cases, model,
+                            timeout=600):
+        loss, want = result["loss"]
+        assert abs(loss - want) <= 2e-4 * (1 + abs(want))
+        assert result["grads"] <= 2e-4
+        assert result["params"] <= 2e-4

@@ -99,9 +99,10 @@ def qwen3_config():
     return Qwen3Config(**QWEN3)
 
 
-def port_engines(trees: dict, mesh=None):
+def port_engines(trees: dict, mesh=None, fsdp: bool = False):
     """(OCR backend, free reasoner, guided reasoner) of the port on the
-    CPU over the given numpy trees, sharded over ``mesh`` when given."""
+    CPU over the given numpy trees, sharded over ``mesh`` when given
+    (with FSDP over "data" when ``fsdp``)."""
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchOCRBackend, TorchReasoningBackend)
     from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
@@ -117,7 +118,7 @@ def port_engines(trees: dict, mesh=None):
         for tokenizer in (SpellingTokenizer(), SmallTokenizer())]
     engines = [ocr, *llm]
     if mesh is not None:
-        engines = [engine.shard(mesh) for engine in engines]
+        engines = [engine.shard(mesh, fsdp=fsdp) for engine in engines]
     return engines
 
 
@@ -200,32 +201,41 @@ def run_group(world: int, fn, *args, timeout: float = 240) -> list:
 
 
 # ── group cases (run in every rank of a group) ─────────────────────────
-def tp_cases(rank: int, world: int, model_parallel: int, path: str) -> dict:
+def tp_cases(rank: int, world: int, model_parallel: int, path: str,
+             fsdp: bool = False) -> dict:
     """The TP forward, dense generate, both sharded engines and the
     vocab-parallel top-k over a (world / model_parallel, model_parallel)
-    mesh, on the numpy trees and inputs pickled at ``path``."""
+    mesh, on the numpy trees and inputs pickled at ``path``; with
+    ``fsdp`` every model is split over "data" as well (FSDP)."""
     from handwritten_ocr_tpu_torch.models.layers import argmax_ids, topk_ids
     from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
     from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
     from handwritten_ocr_tpu_torch.models.weights import from_jax_params
     from handwritten_ocr_tpu_torch.parallel.mesh import make_mesh, model_group
-    from handwritten_ocr_tpu_torch.parallel.sharding import shard_params
+    from handwritten_ocr_tpu_torch.parallel.sharding import (param_shardings,
+                                                             shard_params)
 
     with open(path, "rb") as handle:
         data = pickle.load(handle)
     mesh = make_mesh(model_parallel=model_parallel)
     out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
            "model_rank": mesh.get_local_rank("model")}
-    vl = VLModel(shard_params(mesh, from_jax_params(data["trees"]["vl"])),
-                 vl_config(), mesh)
+
+    def placed(tree):
+        full = from_jax_params(tree)
+        specs = param_shardings(mesh, full, fsdp=True) if fsdp else None
+        return dict(params=shard_params(mesh, full, fsdp=fsdp),
+                    mesh=mesh, shardings=specs)
+
+    vl = VLModel(config=vl_config(), **placed(data["trees"]["vl"]))
     out["vl_logits"] = vl.forward_logits(
         data["vl_ids"], torch.from_numpy(data["patches"]),
         data["grid"]).numpy()
-    qwen3 = Qwen3Model(shard_params(mesh, from_jax_params(
-        data["trees"]["qwen3"])), qwen3_config(), mesh)
+    qwen3 = Qwen3Model(config=qwen3_config(), **placed(data["trees"]["qwen3"]))
     gen = qwen3.generate(data["q_ids"], 8)
     out["dense"] = (gen.tokens.numpy(), gen.lengths.numpy())
-    out.update(serve(port_engines(data["trees"], mesh), data["schema"]))
+    out.update(serve(port_engines(data["trees"], mesh, fsdp),
+                     data["schema"]))
     group = model_group(mesh)
     logits = torch.from_numpy(data["logits"])
     local = logits.shape[-1] // model_parallel
@@ -295,3 +305,192 @@ def cli_and_helpers(rank: int, world: int, runs: list) -> dict:
             "up": placed["layers"][0]["mlp"]["up"]["w"].numpy(),
             "data_rank": data_mesh.get_local_rank("data"),
             "model_rank": model_mesh.get_local_rank("model")}
+
+
+class RankMesh:
+    """A mesh's coordinates without a process group, for slicing a tree
+    as the rank at (``data_rank``, ``model_rank``) of a (``data``,
+    ``model``) mesh keeps it."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, data: int, model: int, data_rank: int = 0,
+                 model_rank: int = 0):
+        self.shape = (data, model)
+        self.ranks = {"data": data_rank, "model": model_rank}
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.ranks[axis]
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return tree.detach().numpy().copy()
+
+
+def train_cases(rank: int, world: int, model_parallel: int, fsdp: bool,
+                path: str) -> dict:
+    """Two sharded train steps of the tiny VL over a (world /
+    model_parallel, model_parallel) mesh, FSDP over "data" when
+    ``fsdp``, on the numpy params and global batch pickled at ``path``
+    (JAX's layout); returns the mesh coordinates, both losses, this
+    rank's slices after each step, every gradient the first step's
+    update got (the rank's slices, summed over "data") and how many
+    tensors the backward gathered again (FSDP)."""
+    from handwritten_ocr_tpu_torch.models.weights import from_jax_params
+    from handwritten_ocr_tpu_torch.parallel.mesh import make_mesh
+    from handwritten_ocr_tpu_torch.parallel.sharding import (param_shardings,
+                                                             shard_params)
+    from handwritten_ocr_tpu_torch.train import optim
+    from handwritten_ocr_tpu_torch.train.data import shard_batch
+    from handwritten_ocr_tpu_torch.train.step import (TrainBatch,
+                                                      make_train_step)
+    from handwritten_ocr_tpu_torch.parallel import collectives
+
+    with open(path, "rb") as handle:
+        data = pickle.load(handle)
+    mesh = make_mesh(model_parallel=model_parallel)
+    cfg, grid = vl_config(), tuple(data["grid"])
+    full = from_jax_params(data["params"])
+    specs = param_shardings(mesh, full, fsdp=True) if fsdp else None
+    params = shard_params(mesh, full, fsdp=fsdp)
+    batch = shard_batch(mesh, TrainBatch(
+        *(torch.from_numpy(data["batch"][name])
+          for name in TrainBatch._fields)))
+    out = {"data_rank": mesh.get_local_rank("data"),
+           "model_rank": mesh.get_local_rank("model"),
+           "rows": batch.input_ids.shape[0]}
+
+    init, update = optim.adamw(data["lr"])
+    seen = []
+
+    def keeping(grads, state, params):
+        seen.append([g.numpy().copy() for g in grads])
+        return update(grads, state, params)
+
+    unpacked = []
+    regather = collectives._unpack
+
+    def counting(packed):
+        unpacked.append(not isinstance(packed, torch.Tensor))
+        return regather(packed)
+
+    collectives._unpack = counting
+    init, step = make_train_step(cfg, grid, optimizer=(init, keeping),
+                                 mesh=mesh, shardings=specs)
+    state = init(params)
+    for i in (1, 2):
+        params, state, loss = step(params, state, batch)
+        out[f"loss{i}"] = float(loss)
+        out[f"params{i}"] = _numpy_tree(params)
+    collectives._unpack = regather
+    out["grads1"] = seen[0]
+    out["regathered"] = sum(unpacked)
+    return out
+
+
+def dryrun_case(rank: int, world: int) -> str:
+    """The port's ``dryrun_multichip`` on every rank, on the CPU."""
+    from handwritten_ocr_tpu_torch.parallel.dryrun import dryrun_multichip
+    return dryrun_multichip(world, device="cpu")
+
+
+def train_cuda_cases(rank: int, world: int, model_parallel: int) -> dict:
+    """On the card: a narrow fp32 VL (vision 4 x 80, text 4:2 x 128, the
+    kernels' head sizes) one train step whole on this card and one step
+    over a (world / model_parallel, model_parallel) mesh from the same
+    weights and global batch (FSDP where the data axis is 2); the largest
+    difference of the loss, of every gradient the update got and of
+    every updated leaf (the rank's slices of the whole results), each
+    less its 2e-4 relative allowance."""
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import (
+        TextConfig, VLConfig, VisionConfig)
+    from handwritten_ocr_tpu_torch.parallel.mesh import make_mesh
+    from handwritten_ocr_tpu_torch.parallel.sharding import (param_shardings,
+                                                             shard_params)
+    from handwritten_ocr_tpu_torch.train import optim
+    from handwritten_ocr_tpu_torch.train.data import shard_batch
+    from handwritten_ocr_tpu_torch.train.step import (TrainBatch,
+                                                      make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = VLConfig(
+        vision=VisionConfig(depth=2, hidden_size=320, intermediate_size=640,
+                            num_heads=4, fullatt_block_indexes=(1,),
+                            out_hidden_size=512),
+        text=TextConfig(vocab_size=512, hidden_size=512,
+                        intermediate_size=1024, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2,
+                        mrope_section=(16, 24, 24)), **VL_IDS)
+    mesh = make_mesh(model_parallel=model_parallel)
+    fsdp = world // model_parallel > 1
+    grid = (1, 8, 8)
+    rng = np.random.default_rng(3)
+    prompt = ([1, IDS["<|vision_start|>"]] + [IDS["<|image_pad|>"]] * 16
+              + [IDS["<|vision_end|>"], 3])
+    ids = np.array([prompt + list(rng.integers(5, 250, 12))
+                    for _ in range(2)])
+    mask = np.zeros(ids.shape, np.float32)
+    mask[0, len(prompt):len(prompt) + 5] = 1
+    mask[1, len(prompt):] = 1
+    from handwritten_ocr_tpu_torch.models.qwen25vl.model import (
+        rope_index_for_prompt)
+    positions = np.stack([rope_index_for_prompt(row, cfg, [grid])[0]
+                          for row in ids], axis=1)
+    patches = rng.standard_normal((2, 64, 1176)).astype(np.float32)
+    batch = TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                         for a in (ids, patches, positions, mask)))
+
+    def run(step_mesh, specs, params, step_batch):
+        # eps 1e-3: a gradient of rounding noise (the k biases', zero in
+        # exact arithmetic) does not become a whole step of either sign
+        init, update = optim.adamw(3e-3, eps=1e-3)
+        seen = []
+
+        def keeping(grads, state, leaves):
+            seen.extend(g.clone() for g in grads)
+            return update(grads, state, leaves)
+
+        _, step = make_train_step(cfg, grid, (init, keeping), step_mesh,
+                                  specs)
+        params, _, loss = step(params, init(params), step_batch)
+        return float(loss), seen, optim.tree_leaves(params)
+
+    def draw():
+        return init_vl(cfg, torch.float32, "cuda", seed=4)
+
+    specs = param_shardings(mesh, draw(), fsdp=True) if fsdp else None
+    loss, grads, params = run(mesh, specs,
+                              shard_params(mesh, draw(), fsdp=fsdp),
+                              shard_batch(mesh, batch))
+    whole = draw()
+    want_loss, want_grads, _ = run(None, None, whole, batch)
+    it = iter(want_grads)
+    grad_tree = optim.tree_map(lambda _: next(it), _sorted(whole))
+    want_grads = optim.tree_leaves(shard_params(mesh, grad_tree, fsdp=fsdp))
+    want = optim.tree_leaves(shard_params(mesh, whole, fsdp=fsdp))
+
+    def excess(got, wanted):
+        return max(float(((a - b).abs() - 2e-4 * b.abs()).max())
+                   for a, b in zip(got, wanted, strict=True))
+
+    return {"loss": (loss, want_loss), "grads": excess(grads, want_grads),
+            "params": excess(params, want),
+            "backend": torch.distributed.get_backend()}
+
+
+def _sorted(tree):
+    """``tree`` with every dict's keys in sorted order (``tree_map``
+    then visits the leaves in ``tree_leaves`` order)."""
+    if isinstance(tree, dict):
+        return {key: _sorted(tree[key]) for key in sorted(tree)}
+    if isinstance(tree, list):
+        return [_sorted(v) for v in tree]
+    return tree
