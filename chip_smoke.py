@@ -26,7 +26,7 @@ Phases, each printing one JSON line:
      over the int8 KV cache (the default); the launch counts of every
      kernel are set to 0 just before this run and read just after, and
      each kernel of the path must be > 0; then two more reads under
-     ``torch.profiler`` (8 and 40 new tokens): the device's busy share of
+     ``torch.profiler`` (8 and 24 new tokens): the device's busy share of
      a read and of a decode step, and each kernel's device ms and launches
      per decode step;
   5. the reasoning engine: qwen3:32b at its published widths and depth
@@ -71,6 +71,21 @@ Phases, each printing one JSON line:
   9. pipeline: ``OCRPipeline.run`` resumes one page from a snapshot at
      its re-OCR node (re-OCR read, arbitrator, critic again) with the
      same engines and pools; the walk must pass through reocr;
+  9a. parity: the same resident olmOCR-2-7B reads one contract page
+     through ``OCRPipeline(ocr, OllamaBackend(host=stub))``: every agent
+     call goes over HTTP to an in-process ``/api/chat`` stub
+     (``OllamaStub``) that the port's ``ScriptedReasoningBackend``
+     answers (``PARITY_SCRIPT``: a critic that answers ``needs_reocr``
+     after one free-text retry streamed as NDJSON, the arbitrator, the
+     editor, acceptance); the walk, the fake's calls against what the
+     agents asked, the stub's requests and bytes, the reads' launches
+     (counted from 0); ``tier1_metrics`` / ``merge_versions`` host ms
+     with the C++ text engine (required) beside the NumPy engines (equal
+     results); ``build_pipeline("ollama")``: its ``FilePreprocessor``
+     writes a file from the card and, where transformers is missing, its
+     first read raises the ImportError that names it (where it is
+     installed, phase 9d reads through ``HFTorchOCRBackend`` on the
+     card);
   9b. dense: both resident models with their pools dropped, through
      ``serving="dense"`` engines: the read phase's 8 reads, the 8 editor
      turns left-padded, one critic call through ``generate_json``; wall
@@ -84,7 +99,20 @@ Phases, each printing one JSON line:
      and the int8 branch must not), wall, prefill, decode and ms per
      decode step, two traced calls, beside the int8 path's figures from
      phases 4 and 5;
-  9d. tp (after both resident models are dropped): two spawned ranks
+  9d. convert (after both resident models are dropped): full-width
+     random snapshots (olmOCR-2-7B widths at 1 text layer and 8 vision
+     blocks, qwen3:32b widths at 1 layer) converted on the card by
+     ``python -m handwritten_ocr_tpu_torch.cli.convert`` in a subprocess
+     (``vl`` bf16, ``qwen3 --quantize int8``); each engine loaded from
+     the snapshot and from the checkpoint (``load_s`` each): equal trees
+     and equal greedy tokens (two reads of page0, 32 tokens; 8 editor
+     turns, 16 tokens); convert seconds, snapshot and checkpoint bytes;
+     where transformers is installed, ``HFTorchOCRBackend`` reads page0
+     from the VL snapshot on the card through transformers' model and
+     must give the tokens of ``TorchOCRBackend`` on the same snapshot
+     (both fp32); counts set to 0 before the engine calls and read
+     after;
+  9e. tp: two spawned ranks
      join one process group through ``initialize_from_env``
      (HOCR_DIST_*): a card each over NCCL where there are two cards,
      else both on cuda:0 over gloo. Each rank draws the full models from
@@ -101,7 +129,7 @@ Phases, each printing one JSON line:
      the reference phase's narrow fp32 models with doubled head counts,
      whole and sliced on the card: the tokens must be equal. A rank's
      exception or silence (TP_TIMEOUT_S) fails the script;
-  9e. ring: ring attention over two cards (NCCL) at [1, 8192, 64/8, 128],
+  9f. ring: ring attention over two cards (NCCL) at [1, 8192, 64/8, 128],
      causal, against plain attention, where there are two cards; on one
      card a line that says why it did not run;
  10. loaders: narrow VL and Qwen3 snapshots in HF layout (config.json,
@@ -158,7 +186,7 @@ Phases, each printing one JSON line:
  13c. fsdp_serving: the read cell's 8 reads and the reasoning cell's 8
      turns (int8) through engines built with ``shard(mesh, fsdp=True)``
      over 2 data ranks, at full width and depth 2 (each decode step
-     gathers the whole model through gloo), 8 new tokens, beside the
+     gathers the whole model through gloo), 4 new tokens, beside the
      same models' single-card streams; flash, window, the int8 paged
      kernel and the int8 matmul must launch;
  14. kernels_tp: each kernel at the shapes one rank of TP = 2 and of
@@ -174,9 +202,9 @@ quotes, digits and braces among them) as a real tokenizer would, where
 Every failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
 ``{"ok": true, "device": {...}}``; the kernels line (each kernel's
-launches on its own path and on the guided, pipeline, cli, speculative,
-dense, fp-KV read and chat, train, tp, train_sharded and fsdp_serving
-paths) and the card's name and
+launches on its own path and on the guided, pipeline, cli, parity,
+speculative, dense, fp-KV read and chat, convert, train, tp,
+train_sharded and fsdp_serving paths) and the card's name and
 power limit come before it.
 
 ``HOCR_SPEC`` is set only inside the speculative phase and
@@ -213,7 +241,13 @@ BF16_ULPS = 2
 REL_RMS_TOL = 1e-2
 
 
+T_START = time.perf_counter()
+
+
 def emit(**record) -> None:
+    """One JSON line; ``at_s`` is the script's seconds so far, so each
+    phase's wall time is the gap to the line before it."""
+    record["at_s"] = time.perf_counter() - T_START
     print(json.dumps(record), flush=True)
 
 
@@ -986,23 +1020,27 @@ def phase_main_path(cfg, prompt_len: int, max_new_tokens: int = 128) -> dict:
 
 def _profiled(run, budget: int):
     """(wall s, device-busy s, {kernel: (launches, device s)}) of one call
-    under the profiler."""
+    under the profiler, tracing the device only and summed from its raw
+    events (``key_averages`` over a decode call's host and device events
+    took tens of seconds a call; ranges' device-side annotations are left
+    out)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(budget)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = {e.key: (e.count, e.self_device_time_total / 1e6)
-              for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0}
+    device: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and \
+                not e.is_user_annotation() and e.duration_ns() > 0:
+            count, secs = device.get(e.name(), (0, 0.0))
+            device[e.name()] = (count + 1, secs + e.duration_ns() / 1e9)
     return wall, sum(t for _, t in device.values()), device
 
 
-def phase_trace(path: str, run, short: int = 8, long: int = 40) -> dict:
+def phase_trace(path: str, run, short: int = 8, long: int = 24) -> dict:
     """Two more calls of the same inputs under ``torch.profiler`` (after
     the timed call, so the timed numbers carry no tracing cost), with
     ``short`` and ``long`` new tokens. Their difference isolates decode
@@ -1943,6 +1981,262 @@ def phase_pipeline(ocr, reasoner, card: str, seen: dict) -> dict:
     return run
 
 
+class OllamaStub:
+    """Ollama's ``/api/chat`` on 127.0.0.1 (an ephemeral port), served
+    from a thread and answered by ``backend.chat`` (the port's
+    ``ScriptedReasoningBackend``): one JSON body for a request that does
+    not stream, NDJSON (a line per four characters, then a done line) for
+    one that does. Counts requests, streamed requests and bytes each way;
+    an exception while answering is kept in ``errors`` and answered 500."""
+
+    def __init__(self, backend):
+        import http.server
+        import threading
+        stub = self
+        self.backend = backend
+        self.requests = self.streamed = self.bytes_in = self.bytes_out = 0
+        self.errors: list[str] = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                raw = self.rfile.read(int(self.headers["Content-Length"]))
+                try:
+                    body = json.loads(raw)
+                    data, kind = stub.answer(body)
+                except Exception as exc:     # reported by the phase
+                    stub.errors.append(repr(exc))
+                    self.send_error(500)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", kind)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                stub.requests += 1
+                stub.streamed += bool(body["stream"])
+                stub.bytes_in += len(raw)
+                stub.bytes_out += len(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def answer(self, body: dict) -> tuple[bytes, str]:
+        messages = body["messages"]
+        system = messages[0]["content"] if len(messages) == 2 else ""
+        text = self.backend.chat(system, messages[-1]["content"],
+                                 temperature=body["options"]["temperature"],
+                                 max_tokens=body["options"]["num_predict"],
+                                 json_schema=body.get("format"))
+        if not body["stream"]:
+            return json.dumps({"message": {"role": "assistant",
+                                           "content": text},
+                               "done": True}).encode(), "application/json"
+        lines = [json.dumps({"message": {"role": "assistant",
+                                         "content": text[i:i + 4]},
+                             "done": False}) for i in range(0, len(text), 4)]
+        lines.append(json.dumps({"message": {"role": "assistant",
+                                             "content": ""}, "done": True}))
+        return ("\n".join(lines) + "\n").encode(), "application/x-ndjson"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+        if self.thread.is_alive():
+            raise AssertionError("the Ollama stub did not stop")
+
+
+def _critique(confidence: int, verdict: str) -> dict:
+    return {"overall_confidence": confidence, "verdict": verdict,
+            "segments": [{"text": "march", "confidence": 40, "issues": [
+                {"description": "unclear word", "severity": "minor",
+                 "suggestion": "march"}]}],
+            "reasoning": "scripted"}
+
+
+# The parity run's scripted agents: the critic's first structured answer
+# does not parse, so its JSON ladder asks again in free text (streamed as
+# NDJSON); then re-OCR, arbitration, one editor round and acceptance.
+PARITY_SCRIPT = (
+    "no JSON in this answer",
+    _critique(40, "needs_reocr"),
+    {"final_text": "the letter was written in march", "decisions": [],
+     "confidence": 80, "uncertain_segments": []},
+    _critique(60, "needs_editing"),
+    {"corrected_text": "the letter was written in March", "changes": [
+        {"original": "march", "corrected": "March", "reason": "a month",
+         "confidence": 90}], "unresolved": []},
+    _critique(95, "accept"),
+)
+
+
+def _host_ms(fn, repeats: int = 20) -> tuple[object, float]:
+    """(fn's result, host ms a call over ``repeats`` calls)."""
+    result = fn()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    return result, (time.perf_counter() - t0) * 1e3 / repeats
+
+
+def phase_parity(ocr, card: str) -> dict:
+    """The parity stack's reasoner (``engine/ollama_client.py``) with the
+    resident olmOCR-2-7B of ``pool_plan`` reading on the card:
+    ``OCRPipeline(ocr, OllamaBackend(host=stub))`` over the contract page
+    ``page0.png`` (read from its file through ``TorchPreprocessor``, 128
+    OCR and 256 agent tokens), every agent call going over HTTP to an
+    ``OllamaStub`` that the port's ``ScriptedReasoningBackend`` answers
+    with ``PARITY_SCRIPT``. The walk must be initial reads, critic
+    (``needs_reocr``), re-OCR with its reads on the card and the
+    arbitrator, critic, editor, critic, accept; the fake's recorded calls
+    must equal what the agents asked the client, and the stub must have
+    answered one NDJSON stream. Launch counts set to 0 before the run and
+    read after it (flash, window and the int8 paged kernel must launch).
+    Then ``tier1_metrics`` / ``merge_versions`` on the run's texts with the
+    C++ text engine (required) and with the NumPy engines: equal results,
+    host ms each; and ``build_pipeline("ollama")`` on this machine: its
+    ``FilePreprocessor`` writes the first strategy's file from the card,
+    and, where transformers is missing, the first read must raise the
+    ImportError that names it (where it is installed, ``phase_convert``
+    reads through the backend on the card instead)."""
+    import importlib.metadata
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    from handwritten_ocr_tpu_torch import native
+    from handwritten_ocr_tpu_torch.cli import transcribe
+    from handwritten_ocr_tpu_torch.config import (PREPROCESSING_STRATEGIES,
+                                                  RunConfig)
+    from handwritten_ocr_tpu_torch.engine.fakes import ScriptedReasoningBackend
+    from handwritten_ocr_tpu_torch.engine.ollama_client import OllamaBackend
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchPreprocessor)
+    from handwritten_ocr_tpu_torch.graph.driver import OCRPipeline
+    from handwritten_ocr_tpu_torch.state import initial_state
+    from handwritten_ocr_tpu_torch.text import merge_versions, tier1_metrics
+
+    page = Path(__file__).resolve().parent / ".contract_pages" / "page0.png"
+    fake = ScriptedReasoningBackend(list(PARITY_SCRIPT))
+    stub = OllamaStub(fake)
+    llm = OllamaBackend(host=stub.url)
+    pipeline = OCRPipeline(ocr, llm, preprocessor=TorchPreprocessor(),
+                           quiet=True)
+    node_s: dict = {}
+    asked: list[dict] = []
+    read_batches: list[int] = []
+
+    def node_hook(kind):
+        return lambda seconds, args, kwargs: node_s.update(
+            {kind: node_s.get(kind, 0.0) + seconds})
+    restores = [_observe(pipeline, f"node_{kind}", node_hook(kind))
+                for kind in ("initial_ocr", "critic", "editor", "reocr")]
+    restores.append(_observe(llm, "chat", lambda s, args, kwargs: asked.append(
+        {"system": args[0], "user": args[1],
+         "temperature": kwargs["temperature"],
+         "max_tokens": kwargs["max_tokens"],
+         "json_schema": kwargs.get("json_schema")})))
+    restores.append(_observe(ocr, "read_batch", lambda s, args, kwargs:
+                             read_batches.append(len(args[0]))))
+    run_cfg = RunConfig(max_iterations=4, **BUDGETS)
+    state = initial_state(str(page), config=run_cfg.as_state_dict(),
+                          max_iterations=run_cfg.max_iterations)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as echoed:
+            final = pipeline.run(state)
+        torch.cuda.synchronize()
+    finally:
+        for undo in restores:
+            undo()
+        stub.close()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    if stub.errors or fake.queue:
+        raise AssertionError(f"the stub failed or the script was not used "
+                             f"up: {stub.errors}, {len(fake.queue)} left")
+    walk = check_walk(final)
+    if walk != ["initial_ocr", "critic", "reocr", "critic", "editor",
+                "critic", "accept"]:
+        raise AssertionError(f"the parity walk is {walk}")
+    if fake.calls != asked:
+        raise AssertionError("the fake's calls differ from what the agents "
+                             "asked the Ollama client")
+    if stub.requests != len(PARITY_SCRIPT) or stub.streamed != 1 or \
+            echoed.getvalue() != json.dumps(PARITY_SCRIPT[1]) + "\n":
+        raise AssertionError(f"{stub.requests} requests, {stub.streamed} "
+                             "streamed; the stream echoed "
+                             f"{echoed.getvalue()!r}")
+    require_launches("parity", launches, (
+        "flash_attention", "window_attention", "paged_append_attention_int8"))
+
+    if native.engine() != "cpp":
+        raise AssertionError(f"the C++ text engine did not build: "
+                             f"{native.build_error()}")
+    texts = [c["text"] for c in final["candidates"]] + [final["current_best"]]
+    text_engines = {}
+    for name, switch in (("cpp", None), ("numpy", "1")):
+        with _env("HOCR_TPU_NO_NATIVE", switch):
+            if native.engine() != name:
+                raise AssertionError(f"the {name} text engine is not in use")
+            metrics, metrics_ms = _host_ms(lambda: [
+                tier1_metrics(texts[0], t) for t in texts[1:]])
+            merged, merge_ms = _host_ms(lambda: merge_versions(texts))
+        text_engines[name] = dict(tier1_metrics_ms=metrics_ms,
+                                  merge_versions_ms=merge_ms,
+                                  result=(metrics, merged))
+    if text_engines["cpp"].pop("result") != text_engines["numpy"].pop("result"):
+        raise AssertionError("the C++ and NumPy text engines disagree")
+
+    installed = (importlib.metadata.version("transformers")
+                 if importlib.util.find_spec("transformers") else None)
+    hf_pipeline = transcribe.build_pipeline("ollama", quiet=True)
+    prepared = hf_pipeline.preprocessor.apply(str(page),
+                                              PREPROCESSING_STRATEGIES[0])
+    written = Path(prepared.data)
+    if not (written.name.startswith(f"ocr_{prepared.strategy_label}_")
+            and written.parent == Path(tempfile.gettempdir())
+            and written.suffix == ".png"):
+        raise AssertionError(f"FilePreprocessor wrote {written}")
+    written.unlink()
+    import_error = None
+    if installed is None:
+        try:
+            hf_pipeline.ocr.read(prepared, "Read the page.", 8)
+        except ImportError as exc:
+            import_error = str(exc)
+        else:
+            raise AssertionError("HFTorchOCRBackend read without "
+                                 "transformers")
+        if "transformers" not in import_error:
+            raise AssertionError(f"the ImportError does not name "
+                                 f"transformers: {import_error}")
+    record = dict(
+        phase="parity", card=card, page="page0.png", **BUDGETS,
+        max_iterations=run_cfg.max_iterations, run_s=run_s, walk=walk,
+        node_s=node_s, read_batches=read_batches, reads=sum(read_batches),
+        stub=dict(requests=stub.requests, streamed=stub.streamed,
+                  bytes_in=stub.bytes_in, bytes_out=stub.bytes_out),
+        fake_calls=len(fake.calls),
+        schema_calls=sum(c["json_schema"] is not None for c in fake.calls),
+        fake_calls_equal_asked=True, status=final["status"],
+        text_engine=native.engine(), text_chars=[len(t) for t in texts],
+        text_engines=text_engines, hf_import_error=import_error,
+        transformers_installed=installed,
+        file_preprocessor=prepared.strategy_label, launches=launches)
+    emit(**record)
+    return record
+
+
 def byte_level_tokenizer_json() -> dict:
     """A hand-written byte-level BPE ``tokenizer.json`` in the Qwen2
     layout: the 256 byte symbols (id = byte), a few merges, and the chat
@@ -2131,6 +2425,319 @@ def phase_loaders(card: str) -> dict:
                   grid=list(grid), resize_bit_equal=True, host_pack=True,
                   unaligned_read_tokens=len(text.split()))
     work.cleanup()
+    emit(**record)
+    return record
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def _wants_mm_token_types() -> bool:
+    """Whether this transformers' Qwen2.5-VL takes ``mm_token_type_ids``."""
+    import importlib
+    import inspect
+
+    modeling_qwen2_5_vl = importlib.import_module(
+        "transformers.models.qwen2_5_vl.modeling_qwen2_5_vl")
+    return "mm_token_type_ids" in inspect.signature(
+        modeling_qwen2_5_vl.Qwen2_5_VLModel.get_rope_index).parameters
+
+
+class PortProcessor:
+    """Stands in for transformers' Qwen2.5-VL processor, whose video half
+    needs torchvision: the chat template's ids (``engine._prompt_ids``)
+    and the packed patches of the page a message names, as a
+    ``BatchFeature``; ``decode`` spells the ids. A copy of
+    ``tests/test_torch_hf_ocr.py``'s."""
+
+    def __init__(self, engine, min_pixels, max_pixels):
+        self.engine = engine
+        self.pixels = dict(min_pixels=min_pixels, max_pixels=max_pixels)
+        self.mm_token_types = _wants_mm_token_types()
+
+    def apply_chat_template(self, messages, *, add_generation_prompt,
+                            tokenize, return_dict, return_tensors):
+        import importlib
+
+        from handwritten_ocr_tpu_torch.models.processor import (
+            load_image_rgb, pack_image)
+        assert add_generation_prompt and tokenize and return_dict
+        assert return_tensors == "pt"
+        (message,) = messages
+        image, text = message["content"]
+        assert message["role"] == "user" and image["type"] == "image"
+        packed = pack_image(load_image_rgb(image["url"]), **self.pixels)
+        ids = self.engine._prompt_ids(text["text"], packed.num_llm_tokens)
+        feature = {
+            "input_ids": torch.tensor(ids[None].astype(np.int64)),
+            "attention_mask": torch.ones(1, len(ids), dtype=torch.long),
+            "pixel_values": torch.from_numpy(packed.patches),
+            "image_grid_thw": torch.tensor([packed.grid])}
+        if self.mm_token_types:
+            # transformers 5 places the image's M-RoPE ids by these (1 at
+            # the image tokens), which its own processor returns
+            feature["mm_token_type_ids"] = (
+                feature["input_ids"] == self.engine.model.config.image_token_id
+            ).to(torch.int32)
+        return importlib.import_module("transformers").BatchFeature(feature)
+
+    def decode(self, ids, skip_special_tokens):
+        assert skip_special_tokens
+        return " ".join(str(int(i)) for i in ids)
+
+
+def _hf_read(snapshot, page, new_tokens: int) -> dict:
+    """``HFTorchOCRBackend(model_id=snapshot)`` reads ``page`` on the card
+    (transformers' Qwen2.5-VL model moved to the card, ``generate``)
+    against ``TorchOCRBackend`` loaded from the same snapshot: both in
+    fp32 (the backend's bf16 load widened by a wrapper around
+    ``from_pretrained``; TF32 off, so HF's patch convolution is fp32 as
+    the port's patch product is), equal greedy tokens required.
+
+    transformers' ``get_rope_index`` is recorded during the read and held
+    against the port's M-RoPE ids (``rope_index_for_prompt``, equal to
+    transformers 4.57's). Where they differ (transformers 5.5 multiplies
+    the image's temporal ids, start offset included, by
+    ``tokens_per_second``), the record says where, and the read is made
+    again with ``get_rope_index`` returning the port's ids: its tokens
+    must then equal the port's. transformers is imported here, only where
+    it is installed, as the backend imports it at its first read."""
+    import importlib
+
+    transformers = importlib.import_module("transformers")
+
+    from handwritten_ocr_tpu_torch.config import (OCR_MAX_PIXELS,
+                                                  OCR_MIN_PIXELS, OCR_PROMPT)
+    from handwritten_ocr_tpu_torch.engine.hf_ocr import HFTorchOCRBackend
+    from handwritten_ocr_tpu_torch.engine.torch_engines import TorchOCRBackend
+    from handwritten_ocr_tpu_torch.models.processor import load_image_rgb
+
+    pixels = dict(min_pixels=OCR_MIN_PIXELS, max_pixels=OCR_MAX_PIXELS)
+    port = TorchOCRBackend.from_pretrained(snapshot, dtype=torch.float32,
+                                           kv_quant=False,
+                                           pool_bytes=2 ** 30, **pixels)
+    port.tokenizer = SpelledTokens(port.tokenizer)
+    asked, rope = [], []
+
+    def processor(original):
+        return lambda model_id, **kw: PortProcessor(port, **kw)
+
+    def model(original):
+        def load(model_id, **kw):
+            asked.append({k: str(v) for k, v in kw.items()})
+            return original(model_id, **(kw | {"torch_dtype": torch.float32}))
+        return load
+
+    def port_ids(input_ids):
+        grid = tuple(pack_grid)
+        ids, delta = port.model._positions(input_ids.cpu().numpy(), grid)
+        return ids.to(input_ids.device), torch.tensor(
+            [[delta]], device=input_ids.device)
+
+    def recorded(original):
+        def get_rope_index(self, input_ids, *args, **kwargs):
+            out = original(self, input_ids, *args, **kwargs)
+            rope.append((out[0].cpu(), port_ids(input_ids)[0].cpu()))
+            return out
+        return get_rope_index
+
+    def replaced(original):
+        return lambda self, input_ids, *args, **kwargs: port_ids(input_ids)
+
+    from handwritten_ocr_tpu_torch.models.processor import pack_image
+    pack_grid = pack_image(load_image_rgb(page), **pixels).grid
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = HFTorchOCRBackend(model_id=str(snapshot), **pixels)
+    eos = str(port.model.config.eos_token_id)
+    try:
+        with _patched(transformers.AutoProcessor, "from_pretrained",
+                      processor), \
+                _patched(transformers.AutoModelForImageTextToText,
+                         "from_pretrained", model), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            backend._load()
+            load_s = time.perf_counter() - t0
+            inner = type(backend._model.model)
+            t0 = time.perf_counter()
+            with _patched(inner, "get_rope_index", recorded):
+                got = backend.read(str(page), OCR_PROMPT, new_tokens)
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            hf_ids, ours = rope[0]
+            rope_equal = torch.equal(hf_ids, ours)
+            if not rope_equal:
+                with _patched(inner, "get_rope_index", replaced):
+                    got_port_rope = backend.read(str(page), OCR_PROMPT,
+                                                 new_tokens)
+        placed = {str(p.device) for p in backend._model.parameters()}
+        dtypes = {str(p.dtype) for p in backend._model.parameters()}
+        want = port.read_batch([load_image_rgb(page)], OCR_PROMPT,
+                               new_tokens)[0]
+        torch.cuda.synchronize()
+    finally:
+        with contextlib.redirect_stdout(io.StringIO()):
+            backend.release()
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+    if placed != {str(backend.device)} or dtypes != {"torch.float32"}:
+        raise AssertionError(f"the HF model is on {placed} in {dtypes}")
+    got = got.removesuffix(" " + eos)
+    record = dict(transformers=transformers.__version__, asked=asked,
+                  device=sorted(placed), load_s=load_s, read_s=read_s,
+                  rope_index_equal=rope_equal, tokens=len(want.split()),
+                  tokens_equal=got == want)
+    if rope_equal:
+        if got != want or not want:
+            raise AssertionError(f"HF read {got!r}, the port read {want!r}")
+    else:
+        column = int((hf_ids != ours).any(0).any(0).nonzero()[0])
+        record.update(
+            rope_first_difference=dict(
+                column=column, transformers=hf_ids[:, 0, column].tolist(),
+                port=ours[:, 0, column].tolist()),
+            hf_tokens=got.split(), port_tokens=want.split(),
+            tokens_equal_with_port_rope=(
+                got_port_rope.removesuffix(" " + eos) == want))
+        if not record["tokens_equal_with_port_rope"] or not want:
+            raise AssertionError(
+                f"HF read with the port's M-RoPE ids {got_port_rope!r}, "
+                f"the port read {want!r}")
+    del port
+    return record
+
+
+def phase_convert(card: str) -> dict:
+    """``python -m handwritten_ocr_tpu_torch.cli.convert`` at full width.
+    Random-weight HF snapshots (bf16, 4 shards + index, the byte-level
+    ``tokenizer.json``) written with ``save_snapshot``: olmOCR-2-7B's
+    widths (``VLConfig()``) cut to 1 text layer and 8 vision blocks (the
+    last, block 7, global), and qwen3:32b's widths (``Qwen3Config()``, 64
+    x 5120) cut to 1 layer, the depth the script's time forces. The CLI
+    converts each in a subprocess on the card, its default device
+    (``vl`` in bf16, ``qwen3 --quantize int8``). Each engine is then
+    loaded twice on the card, from the snapshot (the reasoner quantised
+    at load) and from the checkpoint, with ``load_s`` for each way: the
+    trees must be equal, and the greedy tokens too: two reads of page0
+    (the two initial strategies, 32 new tokens) and the 8 editor turns
+    (16 new tokens). Where transformers is installed, the VL snapshot is
+    also read through ``HFTorchOCRBackend`` (``_hf_read``: 32 tokens,
+    equal to the port's in fp32). Launch counts set to 0 before the
+    phase and read after it (flash, window, the int8 paged kernel, the
+    int8 matmul and, with the fp32 read, the fp32 paged body must
+    launch; writing, converting, loading and transformers' model launch
+    none)."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    from handwritten_ocr_tpu_torch.config import (OCR_PROMPT,
+                                                  PREPROCESSING_STRATEGIES)
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3, init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    from handwritten_ocr_tpu_torch.models.weights import save_snapshot
+
+    repo = Path(__file__).resolve().parent
+    full_vl, full_q = VLConfig(), Qwen3Config()
+    vl_cfg = dataclasses.replace(
+        full_vl, text=dataclasses.replace(full_vl.text, num_hidden_layers=1),
+        vision=dataclasses.replace(full_vl.vision, depth=8,
+                                   fullatt_block_indexes=(7,)))
+    q_cfg = dataclasses.replace(full_q, num_hidden_layers=1)
+    cuts = {"vl": {"text_layers": [1, full_vl.text.num_hidden_layers],
+                   "vision_blocks": [8, full_vl.vision.depth],
+                   "global_blocks": [[7], list(
+                       full_vl.vision.fullatt_block_indexes)]},
+            "qwen3": {"layers": [1, full_q.num_hidden_layers]}}
+    spec = json.dumps(byte_level_tokenizer_json())
+    prep = TorchPreprocessor()
+    page = repo / ".contract_pages" / "page0.png"
+    images = [prep.apply(str(page), s) for s in PREPROCESSING_STRATEGIES[:2]]
+    turns = editor_turns(8)
+    with_hf = importlib.util.find_spec("transformers") is not None
+    families = {
+        "vl": (vl_cfg, init_vl, TorchOCRBackend, [], {},
+               lambda e: e.read_batch(images, OCR_PROMPT, 32)),
+        "qwen3": (q_cfg, init_qwen3, TorchReasoningBackend,
+                  ["--quantize", "int8"], {"quantize": "int8"},
+                  lambda e: e.chat_batch(turns, temperature=0.1,
+                                         max_tokens=16))}
+    record = dict(phase="convert", card=card, cuts=cuts, reduced=(
+        "depth only: VL 1 of 28 text layers and 8 of 32 vision blocks, "
+        "qwen3 1 of 64 layers; every width as published"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t_phase = time.perf_counter()
+    for seed, (family, (cfg, init, engine_cls, flags, at_load, run)) in \
+            enumerate(families.items(), start=SEED + 20):
+        with tempfile.TemporaryDirectory() as work:
+            snapshot, checkpoint = Path(work) / "snapshot", Path(work) / "ckpt"
+            t0 = time.perf_counter()
+            tree = init(cfg, dtype=torch.bfloat16, device="cuda", seed=seed)
+            save_snapshot(snapshot, tree, cfg, shards=4)
+            (snapshot / "tokenizer.json").write_text(spec, encoding="utf-8")
+            del tree
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, "-m", "handwritten_ocr_tpu_torch.cli.convert",
+                 family, str(snapshot), str(checkpoint), *flags],
+                cwd=repo, capture_output=True, text=True, timeout=600)
+            convert_s = time.perf_counter() - t0
+            if done.returncode != 0:
+                raise AssertionError(f"convert {family} failed:\n"
+                                     f"{done.stderr[-4000:]}")
+            meta = json.loads((checkpoint / "meta.json").read_text())
+            if meta["family"] != family or \
+                    meta["quantize"] != (flags[1] if flags else None) or \
+                    not (checkpoint / "tokenizer.json").exists():
+                raise AssertionError(f"{family} checkpoint: {meta}")
+            engines, load_s = {}, {}
+            for way, path, kwargs in (("snapshot", snapshot, at_load),
+                                      ("checkpoint", checkpoint, {})):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engines[way] = engine_cls.from_pretrained(
+                    path, pool_bytes=2 ** 30, **kwargs)
+                torch.cuda.synchronize()
+                load_s[way] = time.perf_counter() - t0
+                engines[way].tokenizer = SpelledTokens(engines[way].tokenizer)
+            if not _trees_equal(engines["snapshot"].model.params,
+                                engines["checkpoint"].model.params):
+                raise AssertionError(f"{family}: the checkpoint's tree "
+                                     "differs from the snapshot's")
+            streams = {way: run(engine) for way, engine in engines.items()}
+            torch.cuda.synchronize()
+            if streams["snapshot"] != streams["checkpoint"]:
+                raise AssertionError(f"{family}: snapshot and checkpoint "
+                                     f"engines differ: {streams}")
+            record[family] = dict(
+                write_s=write_s, convert_s=convert_s,
+                converter_said=done.stdout.strip().splitlines()[-1],
+                snapshot_bytes=_dir_bytes(snapshot),
+                checkpoint_bytes=_dir_bytes(checkpoint), load_s=load_s,
+                calls=len(streams["snapshot"]), tokens_equal=True,
+                tokens=sum(len(t.split()) for t in streams["snapshot"]))
+            del engines, streams
+            gc.collect()
+            torch.cuda.empty_cache()
+            if family == "vl":
+                record["hf_read"] = (_hf_read(snapshot, page, 32) if with_hf
+                                     else None)
+                gc.collect()
+                torch.cuda.empty_cache()
+    launches = read_launches()
+    record.update(seconds=time.perf_counter() - t_phase, launches=launches)
+    require_launches("convert", launches, (
+        "flash_attention", "window_attention", "paged_append_attention_int8",
+        "int8_matmul") + (("paged_append_attention_fp32",) if with_hf else ()))
     emit(**record)
     return record
 
@@ -3823,7 +4430,7 @@ SHARDED_FP32_TOL = 2e-4   # abs and rel, tests/test_torch_train_sharded.py's
 # weights exactly and computes each row as one card does)
 SHARDED_BF16_LOSS_RTOL = 1e-2
 FSDP_DEPTH = 2            # layers and blocks of the fsdp_serving models
-FSDP_NEW_TOKENS = 8
+FSDP_NEW_TOKENS = 4       # each decode step gathers the model over gloo
 
 
 def _meta_vl(cfg) -> dict:
@@ -4291,6 +4898,7 @@ def main() -> int:
     # counted from 0
     paths["pipeline"] = {name: cli["run_many"]["launches"][name]
                          + run["launches"][name] for name in run["launches"]}
+    paths["parity"] = phase_parity(ocr, info["smi"])["launches"]
     dense = phase_dense(ocr, reasoner, turns, info["smi"], int8)
     paths["dense"] = dense["launches"]
     paths["fp_kv_read"] = dense["fp_kv"]["calls"]["read_batch"]["launches"]
@@ -4298,6 +4906,7 @@ def main() -> int:
     del reasoner, ocr
     gc.collect()                # both models go before the last phases
     torch.cuda.empty_cache()
+    paths["convert"] = phase_convert(info["smi"])["launches"]
     tp = phase_tp(info["smi"], {"read": int8["read"]["streams"],
                                 "chat": int8["chat"]["streams"]})
     paths["tp"] = tp["launches"]
@@ -4332,9 +4941,10 @@ def main() -> int:
                                            "library_backward_ms",
                                            "backward_bound_ms")}
             | {f"{path}_launches": paths[path][r["counter"]]
-               for path in ("guided", "pipeline", "cli", "speculative",
-                            "dense", "fp_kv_read", "fp_kv_chat", "train",
-                            "tp", "train_sharded", "fsdp_serving")})
+               for path in ("guided", "pipeline", "cli", "parity",
+                            "speculative", "dense", "fp_kv_read",
+                            "fp_kv_chat", "convert", "train", "tp",
+                            "train_sharded", "fsdp_serving")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

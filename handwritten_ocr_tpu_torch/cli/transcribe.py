@@ -8,9 +8,11 @@ Positional image-or-directory input, ``--ground-truth``,
 ``{stem}_trace.json``, ``{stem}_trace_summary.txt`` and
 ``{stem}_eval.json``, the same files the JAX package's CLI writes.
 
-  * ``--backend {torch,dryrun}`` — the engine stack: ``torch`` (default)
-    loads both models from ``HOCR_OLMOCR_DIR`` / ``HOCR_QWEN3_DIR`` onto
-    the CUDA card; ``dryrun`` runs the pipeline without models.
+  * ``--backend {torch,ollama,dryrun}`` — the engine stack: ``torch``
+    (default) loads both models from ``HOCR_OLMOCR_DIR`` /
+    ``HOCR_QWEN3_DIR`` onto the CUDA card; ``ollama`` is the parity mode,
+    olmOCR-2 through transformers on the card and the reasoner over
+    Ollama's HTTP API; ``dryrun`` runs the pipeline without models.
   * ``--skip-existing``  — skip pages whose transcription exists.
   * ``--snapshot``       — per-node state snapshots; resume a crashed page.
   * ``--lockstep``       — folder pages advance together, one batched model
@@ -36,14 +38,25 @@ from pathlib import Path
 IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".tiff", ".tif", ".webp"}
 
 
-def build_pipeline(backend: str, quiet: bool = False):
-    """Construct the OCRPipeline for the requested backend stack."""
+def build_pipeline(backend: str, quiet: bool = False,
+                   device: str | None = None):
+    """Construct the OCRPipeline for the requested backend stack; the
+    model stacks run on ``device`` (default: the CUDA card)."""
     from handwritten_ocr_tpu_torch.graph.driver import OCRPipeline
+
+    if backend == "ollama":
+        from handwritten_ocr_tpu_torch.engine.hf_ocr import (
+            FilePreprocessor, HFTorchOCRBackend)
+        from handwritten_ocr_tpu_torch.engine.ollama_client import (
+            OllamaBackend)
+        return OCRPipeline(HFTorchOCRBackend(device=device), OllamaBackend(),
+                           preprocessor=FilePreprocessor(device=device),
+                           quiet=quiet)
 
     if backend == "torch":
         from handwritten_ocr_tpu_torch.engine.torch_engines import (
             build_torch_pipeline)
-        return build_torch_pipeline(quiet=quiet)
+        return build_torch_pipeline(quiet=quiet, device=device)
 
     if backend == "dryrun":
         from handwritten_ocr_tpu_torch.engine.dryrun import (
@@ -51,7 +64,8 @@ def build_pipeline(backend: str, quiet: bool = False):
         return OCRPipeline(DryRunOCRBackend(), DryRunReasoningBackend(),
                            quiet=quiet)
 
-    raise SystemExit(f"unknown backend '{backend}' (expected: torch, dryrun)")
+    raise SystemExit(f"unknown backend '{backend}' "
+                     "(expected: torch, ollama, dryrun)")
 
 
 def transcribe_single(
@@ -174,9 +188,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--accept-threshold", type=int, default=None,
                         help="Critic confidence threshold to auto-accept (0-100)")
     parser.add_argument("--backend", default="torch",
-                        choices=["torch", "dryrun"],
+                        choices=["torch", "ollama", "dryrun"],
                         help="Model engine stack (default: torch, on the CUDA "
-                             "card; 'dryrun' is a deterministic model-free "
+                             "card; 'ollama' reads through transformers and "
+                             "reasons over Ollama's HTTP API, the parity "
+                             "mode; 'dryrun' is a deterministic model-free "
                              "smoke mode)")
     parser.add_argument("--skip-existing", action="store_true",
                         help="Batch mode: skip pages whose transcription already exists")

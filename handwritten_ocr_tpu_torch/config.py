@@ -11,8 +11,12 @@ import dataclasses
 from typing import Sequence
 
 # ── Reasoning-LLM configuration ─────────────────────────────────────
+# The Ollama model the HTTP parity client asks for (engine/ollama_client.py).
+OLLAMA_MODEL = "qwen3:32b"
 LLM_TEMPERATURE = 0.1
 LLM_MAX_TOKENS = 4096
+LLM_TIMEOUT = 300  # seconds
+LLM_STREAM = True
 # Non-thinking mode: the chat template closes an empty <think> block.
 LLM_ENABLE_THINKING = False
 

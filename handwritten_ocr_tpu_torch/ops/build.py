@@ -10,8 +10,9 @@ The library name carries a digest of the kernel's source, every shared
 header and the whole compiler command, so an edited kernel, header or
 flag never loads a stale build. Builds happen at first use, never at import,
 and write through a temporary file renamed into place, so concurrent
-processes cannot load a half-written library. :func:`build_all` starts one
-``nvcc`` per source at once.
+processes cannot load a half-written library (:func:`start_compile` /
+:func:`finish_compile`, which ``native/`` also builds with). :func:`build_all`
+starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -61,8 +62,32 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def _command(name: str, out: Path) -> list[str]:
-    return [_nvcc(), *_flags(name), "-o", str(out)]
+def start_compile(command: list[str], target: Path):
+    """Start ``command -o <temp file beside target>``; returns the handle
+    :func:`finish_compile` takes."""
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=target.suffix, dir=target.parent)
+    os.close(fd)
+    proc = subprocess.Popen([*command, "-o", tmp], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, Path(tmp), target, time.perf_counter()
+
+
+def finish_compile(handle, timeout: float | None = None) -> tuple[int, str]:
+    """Wait for a :func:`start_compile`; on success rename its temp file
+    onto the target, else remove it. Returns (exit code, compiler output);
+    a compiler that outlives ``timeout`` is killed (exit code -9)."""
+    proc, tmp, target, _ = handle
+    try:
+        output, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        output, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return proc.returncode, output
+    os.replace(tmp, target)
+    return 0, output
 
 
 def build_all(names=KERNELS) -> dict[str, dict]:
@@ -71,28 +96,18 @@ def build_all(names=KERNELS) -> dict[str, dict]:
     Returns ``{name: {"seconds": s, "ptxas": text}}`` for the libraries
     built now (``ptxas`` holds the registers/shared-memory report); raises
     RuntimeError with the compiler's output when a build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        target = library_path(name)
-        if target.exists():
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.Popen(_command(name, Path(tmp)),
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, Path(tmp), target, time.perf_counter())
+    running = {name: start_compile([_nvcc(), *_flags(name)],
+                                   library_path(name))
+               for name in names if not library_path(name).exists()}
     report = {}
     failures = []
-    for name, (proc, tmp, target, t0) in running.items():
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{output}")
+    for name, handle in running.items():
+        code, output = finish_compile(handle)
+        if code != 0:
+            failures.append(f"{name}: nvcc exited {code}\n{output}")
             continue
-        os.replace(tmp, target)
-        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": output}
+        report[name] = {"seconds": time.perf_counter() - handle[3],
+                        "ptxas": output}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return report

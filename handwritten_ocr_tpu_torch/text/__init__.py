@@ -1,5 +1,7 @@
 """Pure text tools: the scoring oracle and merge/diff machinery (copied
-from ``handwritten_ocr_tpu/text``; NumPy engines only)."""
+from ``handwritten_ocr_tpu/text``; the C++ engine of
+:mod:`handwritten_ocr_tpu_torch.native` where it is available, else the
+NumPy engines)."""
 
 from handwritten_ocr_tpu_torch.text.diff import compare_versions
 from handwritten_ocr_tpu_torch.text.gt import parse_ground_truth

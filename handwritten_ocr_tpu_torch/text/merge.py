@@ -1,5 +1,5 @@
 """Majority-vote merge of transcription candidates (copied from
-``handwritten_ocr_tpu/text/merge.py``, NumPy LCS only).
+``handwritten_ocr_tpu/text/merge.py``).
 
 Contract: the longest normalized candidate is
 the backbone; every candidate is LCS-aligned to it (case-insensitive token
@@ -12,6 +12,8 @@ Engine: the LCS table is built row-wise with vectorized NumPy using
     row[j] = max(cand[j], row[j-1])  ⇔  row = accumulate_max(cand)
 where cand[j] = max(prev[j], prev[j-1] + eq[j]); an O(n·m) Python DP is
 replaced by O(n) SIMD row updates. Backtracking walks the stored rows.
+The C++ engine (:mod:`handwritten_ocr_tpu_torch.native`) builds the table
+and backtracks in its place where it is available, with the same result.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from handwritten_ocr_tpu_torch import native
 from handwritten_ocr_tpu_torch.text.normalize import normalize_text
 
 
@@ -82,6 +85,10 @@ def align_to_backbone(backbone: Sequence[str], words: Sequence[str]) -> list[Opt
 
     a = enc(backbone)
     b = enc(words)
+
+    if native.available():
+        idx = native.lcs_align(a, b)
+        return [words[j] if j >= 0 else None for j in idx]
 
     table = _lcs_rows(a, b)
     aligned: list[Optional[str]] = [None] * len(backbone)

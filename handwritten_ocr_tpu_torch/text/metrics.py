@@ -1,5 +1,5 @@
 """Edit-distance metrics: Levenshtein, CER, WER, tier-1 metric bundle
-(copied from ``handwritten_ocr_tpu/text/metrics.py``, NumPy engine only).
+(copied from ``handwritten_ocr_tpu/text/metrics.py``).
 
 Numeric contract:
   * ``levenshtein`` — unit-cost character edit distance.
@@ -13,8 +13,9 @@ Engine: rows are advanced with vectorized NumPy using the prefix-min
 identity
     new[j] = min(cand[j], new[j-1] + 1)
         ⇔  new = accumulate_min(cand - arange) + arange
-so each DP row is a handful of SIMD ops. The JAX package's optional C++
-row engine returns the same integers; the port does not use it.
+so each DP row is a handful of SIMD ops. The C++ row engine
+(:mod:`handwritten_ocr_tpu_torch.native`, built at first use) runs in its
+place where it is available; both return the same integers.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Sequence
 
 import numpy as np
 
+from handwritten_ocr_tpu_torch import native
 from handwritten_ocr_tpu_torch.text.normalize import normalize_text
 
 
@@ -51,6 +53,8 @@ def edit_distance_ids(a: np.ndarray, b: np.ndarray) -> int:
         return m
     if m == 0:
         return n
+    if native.available():
+        return native.edit_distance_u32(a, b)
     if m > n:  # iterate over the longer side so rows are wide (better SIMD)
         a, b, n, m = b, a, m, n
     row = np.arange(m + 1, dtype=np.int64)

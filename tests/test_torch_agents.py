@@ -1,6 +1,6 @@
 """The agent layer of the port against the JAX package's: the contracts
 (plain classes against pydantic), the schema prompt, the runners' prompts
-and parsers, the JSON ladder (with the JAX package's scripted fakes), and
+and parsers, the JSON ladder (each package's scripted fakes on its side), and
 the pure text tools (``text/``, ``utils/jsonio.py``) on fuzz corpora.
 """
 
@@ -16,7 +16,7 @@ from handwritten_ocr_tpu.agents import schemas as jax_schemas
 from handwritten_ocr_tpu.agents.schema_prompt import (
     schema_example as jax_schema_example)
 from handwritten_ocr_tpu.engine import llm_client as jax_llm_client
-from handwritten_ocr_tpu.engine.fakes import ScriptedReasoningBackend
+from handwritten_ocr_tpu.engine import fakes as jax_fakes
 from handwritten_ocr_tpu.text import diff as jax_diff
 from handwritten_ocr_tpu.text import gt as jax_gt
 from handwritten_ocr_tpu.text import merge as jax_merge
@@ -25,7 +25,7 @@ from handwritten_ocr_tpu.text import normalize as jax_normalize
 from handwritten_ocr_tpu.utils import jsonio as jax_jsonio
 from handwritten_ocr_tpu_torch.agents import runners, schemas
 from handwritten_ocr_tpu_torch.agents.schema_prompt import schema_example
-from handwritten_ocr_tpu_torch.engine import llm_client
+from handwritten_ocr_tpu_torch.engine import fakes, llm_client
 from handwritten_ocr_tpu_torch.text import diff, gt, merge, metrics, normalize
 from handwritten_ocr_tpu_torch.utils import jsonio
 
@@ -156,10 +156,10 @@ ANSWERS = {
 }
 
 
-def _run(module, schema_module, agent, answer):
+def _run(module, schema_module, fake, agent, answer):
     """(result dump, the fake's calls) of one agent run on a scripted
     backend; an unparseable answer walks the whole ladder."""
-    backend = ScriptedReasoningBackend([answer] * 3)
+    backend = fake.ScriptedReasoningBackend([answer] * 3)
     prev = schema_module.CriticResult.validate(CRITIQUE) \
         if schema_module is schemas else \
         schema_module.CriticResult.model_validate(CRITIQUE)
@@ -178,8 +178,8 @@ def _run(module, schema_module, agent, answer):
     (agent, answer) for agent, answers in ANSWERS.items()
     for answer in answers])
 def test_runners_match_jax(agent, answer):
-    assert _run(runners, schemas, agent, answer) == \
-        _run(jax_runners, jax_schemas, agent, answer)
+    assert _run(runners, schemas, fakes, agent, answer) == \
+        _run(jax_runners, jax_schemas, jax_fakes, agent, answer)
 
 
 @pytest.mark.parametrize("script", [
@@ -190,32 +190,36 @@ def test_runners_match_jax(agent, answer):
 ])
 def test_ladder_matches_jax(script):
     results = []
-    for module in (llm_client, jax_llm_client):
-        backend = ScriptedReasoningBackend(list(script))
+    for module, fake in ((llm_client, fakes), (jax_llm_client, jax_fakes)):
+        backend = fake.ScriptedReasoningBackend(list(script))
         out = module.call_llm_json(backend, "sys", "user", max_tokens=32,
                                    json_schema={"type": "object"}, quiet=True)
         results.append((out, backend.calls))
     assert results[0] == results[1]
 
 
-class BatchFake(ScriptedReasoningBackend):
-    """A scripted backend with ``chat_batch``: rows answered from the
-    queue, each call recorded with its schema."""
+def batch_fake(fake):
+    """``fake.ScriptedReasoningBackend`` with ``chat_batch``: rows answered
+    from the queue, each call recorded with its schema."""
 
-    def chat_batch(self, requests, *, temperature, max_tokens,
-                   json_schema=None):
-        self.calls.append({"batch": len(requests), "json_schema": json_schema,
-                           "max_tokens": max_tokens})
-        return [self.chat(r.system, r.user, temperature=temperature,
-                          max_tokens=max_tokens, json_schema=json_schema)
-                for r in requests]
+    class BatchFake(fake.ScriptedReasoningBackend):
+        def chat_batch(self, requests, *, temperature, max_tokens,
+                       json_schema=None):
+            self.calls.append({"batch": len(requests),
+                               "json_schema": json_schema,
+                               "max_tokens": max_tokens})
+            return [self.chat(r.system, r.user, temperature=temperature,
+                              max_tokens=max_tokens, json_schema=json_schema)
+                    for r in requests]
+    return BatchFake
 
 
 @pytest.mark.parametrize("batched", [True, False])
 def test_batch_ladder_matches_jax(batched):
     results = []
-    for module, run_mod in ((llm_client, runners), (jax_llm_client, jax_runners)):
-        cls = BatchFake if batched else ScriptedReasoningBackend
+    for module, run_mod, fake in ((llm_client, runners, fakes),
+                                  (jax_llm_client, jax_runners, jax_fakes)):
+        cls = batch_fake(fake) if batched else fake.ScriptedReasoningBackend
         backend = cls(['{"final_text": "a"}', "junk", '{"final_text": "b"}'])
         requests = [run_mod.arbitrator_request(VERSIONS),
                     run_mod.arbitrator_request(VERSIONS[::-1])]

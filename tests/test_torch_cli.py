@@ -33,6 +33,7 @@ from handwritten_ocr_tpu.cli import transcribe as jax_transcribe
 from handwritten_ocr_tpu_torch import config
 from handwritten_ocr_tpu_torch.cli import eval_final, transcribe
 from handwritten_ocr_tpu_torch.graph.driver import OCRPipeline
+from test_torch_ollama import stub  # noqa: F401  (a fixture)
 from test_torch_pipeline import engines  # noqa: F401  (a fixture)
 
 torch.set_num_threads(1)
@@ -256,3 +257,70 @@ def test_python_dash_m_runs_the_port_cli(workspace, tmp_path):
     assert sorted(p.name for p in out.iterdir()) == [
         "a_eval.json", "a_trace.json", "a_trace_summary.txt",
         "a_transcription.txt"]
+
+
+def test_ollama_backend_is_the_jax_stack_and_writes_its_artifacts(
+        workspace, tmp_path, monkeypatch, stub):  # noqa: F811
+    """``build_pipeline("ollama")`` is ``OCRPipeline(HFTorchOCRBackend(),
+    OllamaBackend(), preprocessor=FilePreprocessor())`` in both packages.
+    With each side's HF backend replaced by its package's
+    ``ScriptedOCRBackend`` and both Ollama clients sent (``OLLAMA_HOST``)
+    to a stub on localhost that each package's ``ScriptedReasoningBackend``
+    answers, one page through either CLI writes the same four artifacts,
+    reads the same ``FilePreprocessor`` files and asks the same calls."""
+    from handwritten_ocr_tpu.engine import fakes as jax_fakes
+    from handwritten_ocr_tpu.engine import hf_ocr as jax_hf_ocr
+    from handwritten_ocr_tpu.engine import ollama_client as jax_ollama
+    from handwritten_ocr_tpu_torch.engine import fakes, hf_ocr, ollama_client
+    from test_graph import critic_json, editor_json
+
+    pages, gt = workspace
+    server, url = stub
+    monkeypatch.setenv("OLLAMA_HOST", url)
+    monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+    reads = {"deskew+high_contrast+binarize": "helo wrld",
+             "high_contrast+binarize": "hello wrld"}
+    answers = [critic_json(50, "needs_editing", issues=[("wrld", "typo",
+                                                         "minor")]),
+               editor_json("hello world"), critic_json(95, "accept")]
+    sides = {"jax": (jax_transcribe, jax_fakes, jax_hf_ocr, jax_ollama, {}),
+             "port": (transcribe, fakes, hf_ocr, ollama_client,
+                      {"device": "cpu"})}
+    out, seen = {}, {}
+    for name, (cli, fake, hf, ollama, kwargs) in sides.items():
+        pipeline = cli.build_pipeline("ollama", quiet=True, **kwargs)
+        assert type(pipeline.ocr) is hf.HFTorchOCRBackend
+        assert type(pipeline.llm) is ollama.OllamaBackend
+        assert type(pipeline.preprocessor) is hf.FilePreprocessor
+        assert pipeline.llm.host == url and pipeline.ocr._model is None
+        pipeline.ocr = fake.ScriptedOCRBackend(by_key=reads)
+        llm = fake.ScriptedReasoningBackend(list(answers))
+        server.answer = lambda body, llm=llm: llm.chat(
+            *([""] + [m["content"] for m in body["messages"]])[-2:],
+            temperature=body["options"]["temperature"],
+            max_tokens=body["options"]["num_predict"],
+            json_schema=body.get("format"))
+        start = len(server.requests)
+        out_dir = tmp_path / f"out_{name}"
+        cli.main([str(pages / "a.png"), "--ground-truth", str(gt / "a.md"),
+                  "--output-dir", str(out_dir), "--quiet"], pipeline=pipeline)
+        out[name] = _artifacts(out_dir)
+        files = [Path(c["image"].data) for c in pipeline.ocr.calls]
+        assert all(f.name.startswith(f"ocr_{c['image'].strategy_label}_")
+                   and f.parent == tmp_path for f, c in
+                   zip(files, pipeline.ocr.calls))
+        seen[name] = (llm.calls, [body for _, _, body in
+                                  server.requests[start:]],
+                      [(c["image"].strategy_label, c["prompt"],
+                        c["max_new_tokens"]) for c in pipeline.ocr.calls],
+                      [np.asarray(Image.open(f)) for f in files])
+    assert out["port"] == out["jax"]
+    assert sorted(out["port"]) == ["a_eval.json", "a_trace.json",
+                                   "a_trace_summary.txt",
+                                   "a_transcription.txt"]
+    assert out["port"]["a_transcription.txt"] == "hello world"
+    for got, want in zip(seen["port"][:3], seen["jax"][:3]):
+        assert got == want
+    assert len(seen["port"][0]) == 3
+    for got, want in zip(seen["port"][3], seen["jax"][3]):
+        assert got.shape == want.shape and (got != want).mean() <= 0.001

@@ -52,7 +52,8 @@ def test_port_has_the_slice_modules():
                  "train.optim", "parallel", "parallel.mesh",
                  "parallel.sharding", "parallel.distributed",
                  "parallel.context_parallel", "parallel.collectives",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "engine.fakes", "engine.ollama_client",
+                 "engine.hf_ocr", "native", "cli.convert"):
         assert f"handwritten_ocr_tpu_torch.{name}" in modules
 
 

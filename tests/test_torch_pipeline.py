@@ -2,9 +2,9 @@
 single-page driver (``OCRPipeline.run``, snapshot and resume), the
 lockstep driver (``LockstepPipeline.run_many``), state and trace.
 
-Scripted backends (the JAX package's fakes and the lockstep tests'
-content-keyed fakes) drive every routing branch through both packages'
-drivers; the final states and trace events must be equal, apart from
+Scripted backends (each package's own fakes, ``engine/fakes.py``, on
+its side, and the lockstep tests' content-keyed fakes) drive every
+routing branch through both packages' drivers; the final states and trace events must be equal, apart from
 wall-clock fields. Then one rendered page goes through both drivers of
 both packages with tiny real engines on the same weights.
 """
@@ -22,20 +22,22 @@ from PIL import Image
 from handwritten_ocr_tpu import config as jax_config
 from handwritten_ocr_tpu import state as jax_state
 from handwritten_ocr_tpu import trace as jax_trace
-from handwritten_ocr_tpu.engine.fakes import (ScriptedOCRBackend,
-                                              ScriptedReasoningBackend)
+from handwritten_ocr_tpu.engine import fakes as jax_fakes
 from handwritten_ocr_tpu.graph import batch_driver as jax_batch_driver
 from handwritten_ocr_tpu.graph import driver as jax_driver
 from handwritten_ocr_tpu.graph import routing as jax_routing
 from handwritten_ocr_tpu_torch import config, state, trace
+from handwritten_ocr_tpu_torch.engine import fakes
 from handwritten_ocr_tpu_torch.graph import batch_driver, driver, routing
 from test_graph import arbitrator_json, critic_json, editor_json
 from test_lockstep import ContentKeyedLLM, PageKeyedOCR, critic
 
 torch.set_num_threads(1)
 
-PORT = dict(state=state, driver=driver, batch_driver=batch_driver)
-JAX = dict(state=jax_state, driver=jax_driver, batch_driver=jax_batch_driver)
+PORT = dict(state=state, driver=driver, batch_driver=batch_driver,
+            fakes=fakes)
+JAX = dict(state=jax_state, driver=jax_driver, batch_driver=jax_batch_driver,
+           fakes=jax_fakes)
 
 
 def comparable(final: dict) -> dict:
@@ -130,8 +132,8 @@ def run_scenario(pkg: dict, reads: dict, answers: list, overrides: dict,
         ocr_prompt="read", ocr_max_new_tokens=64)
     s = pkg["state"].initial_state("/img.png", config=cfg.as_state_dict(),
                                    max_iterations=max_iterations)
-    ocr = ScriptedOCRBackend(by_key=reads)
-    llm = ScriptedReasoningBackend(list(answers))
+    ocr = pkg["fakes"].ScriptedOCRBackend(by_key=reads)
+    llm = pkg["fakes"].ScriptedReasoningBackend(list(answers))
     final = pkg["driver"].OCRPipeline(ocr, llm, quiet=True).run(
         s, snapshot_path=snapshot_path, resume=resume)
     reads_seen = [(c["image"].strategy_label, c["image"].source_path,
@@ -156,7 +158,7 @@ def test_snapshot_and_resume_match_jax(tmp_path):
         snap = str(tmp_path / f"{name}.json")
         reads = dict(a="draft", b="draft")
 
-        class Exploding(ScriptedReasoningBackend):
+        class Exploding(pkg["fakes"].ScriptedReasoningBackend):
             def chat(self, *args, **kwargs):
                 if len(self.calls) == 2:
                     raise RuntimeError("simulated crash")
@@ -167,11 +169,13 @@ def test_snapshot_and_resume_match_jax(tmp_path):
                                        max_iterations=10)
         llm = Exploding([critic_json(50), editor_json("edited")])
         with pytest.raises(RuntimeError, match="simulated crash"):
-            pkg["driver"].OCRPipeline(ScriptedOCRBackend(by_key=reads), llm,
-                                      quiet=True).run(s, snapshot_path=snap)
+            pkg["driver"].OCRPipeline(
+                pkg["fakes"].ScriptedOCRBackend(by_key=reads), llm,
+                quiet=True).run(s, snapshot_path=snap)
         saved = json.loads(open(snap).read())
         final = pkg["driver"].OCRPipeline(
-            ScriptedOCRBackend(), ScriptedReasoningBackend(
+            pkg["fakes"].ScriptedOCRBackend(),
+            pkg["fakes"].ScriptedReasoningBackend(
                 [critic_json(95, "accept")]), quiet=True).run(
             s, snapshot_path=snap, resume=True)
         out[name] = (saved["next_node"], comparable(saved["state"]),
