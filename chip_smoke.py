@@ -2,6 +2,12 @@
 
     python3 chip_smoke.py
 
+The read, reasoning, pool_plan and train phases and every kernel row run
+at full size; the other phases run at the depths (and, where listed, the
+token counts) of ``REDUCED``, the table at the top, at every published
+width, and print their cut as ``reduced``. On an NVIDIA H100 80GB HBM3 at
+700 W the whole run takes six to eight minutes of its 1200 s limit.
+
 Phases, each printing one JSON line:
   1. the device, and ``nvidia-smi``'s name and power limit of the card;
   2. build the CUDA kernels from ``handwritten_ocr_tpu_torch/csrc`` (one
@@ -34,12 +40,13 @@ Phases, each printing one JSON line:
      ``TorchReasoningBackend.chat_batch`` on 8 editor-style turns of ~1k
      tokens, 128 new tokens, over the int8 KV cache; counts set to 0
      before and read after as in 4, then two traced calls;
-  6. guided: qwen3:32b at int8 (as 5, built anew and kept) answers the
-     critic's and the editor's prompts for 8 transcriptions through
+  6. guided: qwen3:32b at int8 (as 5, drawn anew with the published EOS
+     id; resident from here to phase 9c) cut to its first layers answers
+     the critic's and the editor's prompts for 8 transcriptions through
      schema-guided ``chat_batch`` at a 256-token budget; every text must
      parse and validate against its contract; counts set to 0 before and
      read after;
-  6b. speculative: prompt-lookup speculative decoding on that resident
+  6b. speculative: prompt-lookup speculative decoding on that depth-cut
      qwen3:32b (a second backend on the same weights, no EOS id): 8
      editor turns x 128 tokens plain, then with drafts read from the
      plain streams (``GenRequest.draft_oracle``; counts set to 0 before
@@ -48,7 +55,7 @@ Phases, each printing one JSON line:
      stream must equal the plain one up to a near-tie (``TIE_GAP``); a
      verify round against a decode step (wall and device ms); one guided
      editor round with ``HOCR_SPEC=1`` beside phase 6's;
-  7. pool_plan: olmOCR-2-7B (bf16) joins the resident qwen3:32b; one
+  7. pool_plan: olmOCR-2-7B (bf16) joins the whole resident qwen3:32b; one
      ``coresident_plan`` for the card (``plan_pools``: both resident
      trees, the card's memory, ``config.ACTIVATION_RESERVE_BYTES``) hands
      each engine its pool budget, and both batchers are built at the
@@ -58,8 +65,10 @@ Phases, each printing one JSON line:
      also the full pools' plan at the same bounds (``pipeline_plan``),
      which does not fit;
   8. cli: the port's CLI (``cli.transcribe.main(argv, pipeline=...)``)
-     with those engines and pools over a folder of the four contract
-     pages (PNG files read without PIL through ``TorchPreprocessor``),
+     with depth-cut engines over those two resident models, their pools
+     holding the plan's blocks (``cut_engines``), over a folder of the
+     four contract pages (PNG files read without PIL through
+     ``TorchPreprocessor``),
      128 OCR and 256 agent tokens: ``--lockstep --max-iterations 2``
      (also the pipeline path's ``LockstepPipeline.run_many``: every page
      must end at a terminal node by a legal walk of ``graph/routing.py``
@@ -70,8 +79,8 @@ Phases, each printing one JSON line:
      counts are set to 0 before the CLI calls and read after them;
   9. pipeline: ``OCRPipeline.run`` resumes one page from a snapshot at
      its re-OCR node (re-OCR read, arbitrator, critic again) with the
-     same engines and pools; the walk must pass through reocr;
-  9a. parity: the same resident olmOCR-2-7B reads one contract page
+     cli phase's engines; the walk must pass through reocr;
+  9a. parity: the whole resident olmOCR-2-7B reads one contract page
      through ``OCRPipeline(ocr, OllamaBackend(host=stub))``: every agent
      call goes over HTTP to an in-process ``/api/chat`` stub
      (``OllamaStub``) that the port's ``ScriptedReasoningBackend``
@@ -86,24 +95,26 @@ Phases, each printing one JSON line:
      first read raises the ImportError that names it (where it is
      installed, phase 9d reads through ``HFTorchOCRBackend`` on the
      card);
-  9b. dense: both resident models with their pools dropped, through
+  9b. dense: both resident models, cut to their first layers, with the
+     pools dropped, through
      ``serving="dense"`` engines: the read phase's 8 reads, the 8 editor
      turns left-padded, one critic call through ``generate_json``; wall
      s, peak memory and launches per call (flash, window and the int8
      matmul must launch), finite ``forward_logits``, and the first token
      where each row leaves the paged fp-KV path's;
-  9c. fp_kv: the same reads and turns through paged engines built with
+  9c. fp_kv: the same reads and turns through paged engines over the
+     dense phase's depth-cut models, built with
      ``HOCR_KV_INT8=0`` (bf16 pools, the paged kernel's tensor-core fp-KV
      body): the first call's tokens against the dense path's, then a
      timed call counted from 0 (the bf16 body must launch, the fp32 body
      and the int8 branch must not), wall, prefill, decode and ms per
      decode step, two traced calls, beside the int8 path's figures from
-     phases 4 and 5;
+     phases 4 and 5 (full depth);
   9d. convert (after both resident models are dropped): full-width
      random snapshots (olmOCR-2-7B widths at 1 text layer and 8 vision
      blocks, qwen3:32b widths at 1 layer) converted on the card by
-     ``python -m handwritten_ocr_tpu_torch.cli.convert`` in a subprocess
-     (``vl`` bf16, ``qwen3 --quantize int8``); each engine loaded from
+     ``python -m handwritten_ocr_tpu_torch.cli.convert``, two subprocesses
+     at once (``vl`` bf16, ``qwen3 --quantize int8``); each engine loaded from
      the snapshot and from the checkpoint (``load_s`` each): equal trees
      and equal greedy tokens (two reads of page0, 32 tokens; 8 editor
      turns, 16 tokens); convert seconds, snapshot and checkpoint bytes;
@@ -112,10 +123,12 @@ Phases, each printing one JSON line:
      must give the tokens of ``TorchOCRBackend`` on the same snapshot
      (both fp32); counts set to 0 before the engine calls and read
      after;
-  9e. tp: two spawned ranks
+  9e. tp: both models whole on the card at 4 layers (the VL with 8
+     vision blocks) and full width, 32 new tokens: the single-card
+     streams; then two spawned ranks
      join one process group through ``initialize_from_env``
      (HOCR_DIST_*): a card each over NCCL where there are two cards,
-     else both on cuda:0 over gloo. Each rank draws the full models from
+     else both on cuda:0 over gloo. Each rank draws the same models from
      the single-card phases' seeds one matrix at a time and keeps its
      tensor-parallel slices (``init_*(mesh=...)``), then serves through
      ``shard(mesh)``: qwen3:32b at int8 (the reasoning cell's 8 turns)
@@ -123,7 +136,7 @@ Phases, each printing one JSON line:
      each, pools for a 2048-token bound, counted from 0 (flash, window,
      the int8 paged kernel and the int8 matmul must launch); the ranks'
      ids must be equal, and each row's first token that differs from the
-     single-card phases' stream is reported (bf16 / int8 partial sums
+     single-card streams is reported (bf16 / int8 partial sums
      round otherwise). call_s, ms a decode step, all-reduces a step and
      the time of one at the step's shapes, each rank's peak memory. Then
      the reference phase's narrow fp32 models with doubled head counts,
@@ -173,26 +186,34 @@ Phases, each printing one JSON line:
      and in bf16; and, last, flash and window at the train shapes with
      their backward's time beside SDPA's backward and the backward's
      bound;
- 13b. train_sharded (right after train): two spawned ranks (NCCL with
+ 13b. train_sharded (right after train): the single-card first-step
+     loss of olmOCR-2-7B at 4 text layers and 8 vision blocks; then two
+     spawned ranks (NCCL with
      a card each where there are two cards, else both on cuda:0 over
      gloo): the narrow fp32 VL's step at TP = 2 and at FSDP over 2 data
      ranks against its single-card step on the card (loss, every
-     gradient, every updated leaf within 2e-4); then olmOCR-2-7B at full
-     width and depth in bf16, TP = 2 (two steps) and FSDP (2, 1) (one
+     gradient, every updated leaf within 2e-4); then that olmOCR-2-7B at
+     full width in bf16, TP = 2 (two steps) and FSDP (2, 1) (one
      step), one 448x448 page per data rank: each rank's planned bytes
      (printed before it allocates), peak, step ms, all-reduces with
-     bytes and ms, flash 32 / window 28 launches a rank and step, and
-     the first step's loss within 1e-2 of the train phase's;
+     bytes and ms, flash 5 / window 7 launches a rank and step, and
+     the first step's loss within 1e-2 of the single card's;
  13c. fsdp_serving: the read cell's 8 reads and the reasoning cell's 8
      turns (int8) through engines built with ``shard(mesh, fsdp=True)``
-     over 2 data ranks, at full width and depth 2 (each decode step
-     gathers the whole model through gloo), 4 new tokens, beside the
+     over 2 data ranks, at full width, 1 text layer and 2 vision blocks
+     (each decode step gathers the whole model through gloo), 4 new
+     tokens, beside the
      same models' single-card streams; flash, window, the int8 paged
      kernel and the int8 matmul must launch;
  14. kernels_tp: each kernel at the shapes one rank of TP = 2 and of
      TP = 4 gives it (heads and channels split; the int8 lm_head at
      75968 and 37984 channels), against its plain version; flash and
-     window at a TP = 2 rank's train shapes (path train_sharded).
+     window at a TP = 2 rank's train shapes (path train_sharded);
+ 15. kernels_fp32: every fp32 body at full width: flash, window and paged
+     attention at the shapes the convert phase's fp32 read gives them
+     (path convert_fp32), the int8 matmul with fp32 x at a 24-row
+     qwen3:32b gate projection (path reference: the reference phase's
+     fp32 Qwen3 runs it).
 
 Phases 6-9 and 11 decode through ``DenseTokenizer``: every id decodes to one
 character, so random weights write texts of their budget's length (with
@@ -203,9 +224,9 @@ Every failed check raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
 ``{"ok": true, "device": {...}}``; the kernels line (each kernel's
 launches on its own path and on the guided, pipeline, cli, parity,
-speculative, dense, fp-KV read and chat, convert, train, tp,
-train_sharded and fsdp_serving paths) and the card's name and
-power limit come before it.
+speculative, dense, fp-KV read and chat, convert, the convert phase's
+fp32 read, train, tp, train_sharded, fsdp_serving and reference paths)
+and the card's name and power limit come before it.
 
 ``HOCR_SPEC`` is set only inside the speculative phase and
 ``HOCR_KV_INT8=0`` only while phase 9c builds its engines; every other
@@ -233,12 +254,87 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12           # float32 outside the tensor cores
 SEED = 0
 # A kernel agrees with its plain version when its largest error is within
 # BF16_ULPS bf16 ulps of the plain output's largest magnitude, and the RMS
 # of its error within REL_RMS_TOL of the plain output's RMS.
 BF16_ULPS = 2
 REL_RMS_TOL = 1e-2
+
+# Every cut below the cell a phase drives: phase function -> {what: [used,
+# full]}. Depth, which brings the phases inside half the script's limit,
+# and the token counts listed (each from an earlier PR); every width (hidden
+# sizes, heads, head_dim, vocab, intermediate sizes) stays as published.
+# A cut VL keeps its first text layers and its first vision blocks with
+# the global blocks among them (8 where it can: 7 windowed and the global
+# block 7, the tower's repeating unit); a cut qwen3:32b its first layers.
+# Phases that run in this process build their engines over the resident
+# weights (``depth_cut``); spawned ranks draw the cut model from the same
+# seed.
+# The read, reasoning, train and pool_plan phases and every kernel row
+# run at full size and are not listed. The narrow fp32 models of the
+# reference, loaders, tp and train_sharded checks are small models the
+# card and the CPU (or one card and two ranks) must agree on, not cuts of
+# a cell. Each listed phase prints its entry as ``reduced``.
+_VL_UNIT = {"vl_vision_blocks": [8, 32],
+            "vl_global_blocks": [[7], [7, 15, 23, 31]]}
+_DEPTH_8 = {"qwen3_layers": [8, 64], "vl_text_layers": [8, 28], **_VL_UNIT}
+REDUCED = {
+    "phase_guided": {"qwen3_layers": [16, 64]},
+    "phase_speculative": {"qwen3_layers": [16, 64]},
+    "phase_cli": _DEPTH_8,
+    "phase_pipeline": _DEPTH_8,            # the cli phase's engines
+    "phase_dense": _DEPTH_8,
+    "phase_fp_kv": _DEPTH_8,               # the dense phase's models
+    "phase_convert": {"qwen3_layers": [1, 64], "vl_text_layers": [1, 28],
+                      **_VL_UNIT, "read_tokens": [32, 128],
+                      "chat_tokens": [16, 128]},
+    "phase_tp": {"qwen3_layers": [4, 64], "vl_text_layers": [4, 28],
+                 **_VL_UNIT, "new_tokens": [32, 128]},
+    "phase_train_sharded": {"vl_text_layers": [4, 28], **_VL_UNIT},
+    # every decode step gathers the whole model through gloo's host copies
+    "phase_fsdp_serving": {"qwen3_layers": [1, 64], "vl_text_layers": [1, 28],
+                           "vl_vision_blocks": [2, 32],
+                           "vl_global_blocks": [[1], [7, 15, 23, 31]],
+                           "new_tokens": [4, 128]},
+    # kernels against plain versions through the backward, fp32 and bf16
+    "phase_train_grad_check": {"vl_text_layers": [2, 28],
+                               "vl_vision_blocks": [2, 32],
+                               "vl_global_blocks": [[1], [7, 15, 23, 31]]},
+}
+
+
+def reduced_configs(phase: str) -> dict:
+    """The configs ``phase`` builds: ``VLConfig()`` (key "vl") and
+    ``Qwen3Config()`` (key "qwen3") with the depths REDUCED lists for it,
+    every other field as published."""
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    cut, out = REDUCED[phase], {}
+    if "vl_text_layers" in cut:
+        full = VLConfig()
+        out["vl"] = dataclasses.replace(
+            full, text=dataclasses.replace(
+                full.text, num_hidden_layers=cut["vl_text_layers"][0]),
+            vision=dataclasses.replace(
+                full.vision, depth=cut["vl_vision_blocks"][0],
+                fullatt_block_indexes=tuple(cut["vl_global_blocks"][0])))
+    if "qwen3_layers" in cut:
+        out["qwen3"] = dataclasses.replace(
+            Qwen3Config(), num_hidden_layers=cut["qwen3_layers"][0])
+    return out
+
+
+def depth_cut(params: dict, cfg) -> dict:
+    """The first layers (and, for a VL tree, vision blocks) of a resident
+    parameter tree that ``cfg`` names: the same tensors, no copy, so a
+    depth-cut engine adds only its KV pools to the card."""
+    if hasattr(cfg, "vision"):
+        return {"vision": {**params["vision"], "blocks": params["vision"][
+                    "blocks"][:cfg.vision.depth]},
+                "text": depth_cut(params["text"], cfg.text)}
+    return {**params, "layers": params["layers"][:cfg.num_hidden_layers]}
 
 
 T_START = time.perf_counter()
@@ -299,6 +395,21 @@ def with_ratio(row: dict) -> dict:
     """The kernel's time over the library call's, in the same run."""
     lib = row.get("library_ms")
     return row | {"library_ratio": row["ms"] / lib if lib else None}
+
+
+def _dtype_terms(dtype) -> tuple:
+    """(bytes an element, the card's peak operations a second, name) of
+    a kernel case's dtype: bf16 on the tensor cores, fp32 outside them
+    (the kernels' fp32 bodies run FMAs)."""
+    if dtype == torch.float32:
+        return 4, FP32_FLOPS_PER_S, "fp32"
+    return 2, BF16_FLOPS_PER_S, "bf16"
+
+
+def _body(dtype) -> dict:
+    """The ``body`` key of an fp32 case (bf16 cases name theirs only where
+    a kernel has several bf16 bodies)."""
+    return {"body": "fp32"} if dtype == torch.float32 else {}
 
 
 def synthetic_pages(n_pages: int, height: int = 924, width: int = 672):
@@ -401,9 +512,11 @@ def _backward_bound(n_bytes: float, flops: float) -> dict:
 
 def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
                 hkv: int, hd: int, gen, *, causal: bool = False,
-                valid=None, backward: bool = False) -> dict:
+                valid=None, backward: bool = False,
+                dtype=torch.bfloat16) -> dict:
     """Flash attention at q ``[batch, t, hq, hd]``, k/v ``[batch, t, hkv,
-    hd]`` (bf16) against its plain version: ``valid`` ``[t]`` masks the
+    hd]`` (bf16, or fp32: the fp32 body) against its plain version:
+    ``valid`` ``[t]`` masks the
     vision tower's dead slots, ``causal`` is the prefill. The plain
     version holds several fp32 copies of the scores, so it runs a few
     batch rows at a time (at most 2 GiB of scores per call); its output
@@ -413,10 +526,11 @@ def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
 
     from handwritten_ocr_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
-    dev, bf16 = "cuda", torch.bfloat16
+    dev = "cuda"
+    size, peak, name = _dtype_terms(dtype)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     q, k, v = randn(batch, t, hq, hd), randn(batch, t, hkv, hd), \
         randn(batch, t, hkv, hd)
@@ -432,7 +546,7 @@ def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
     got = flash_attention(q, k, v, valid, **kw)
     cmp = _compare(f"flash_attention {case}", got, plain())
     del got
-    n_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+    n_bytes = 2 * q.numel() * size + 2 * k.numel() * size
     if valid is not None:
         live = int(valid.sum())
         n_bytes += t
@@ -441,7 +555,7 @@ def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
         flops = 4 * batch * hq * hd * t * (t + 1) / 2
     else:
         flops = 4 * batch * hq * hd * t * t
-    bound, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+    bound, by = bound_ms(n_bytes, flops, peak)
     q_t, k_t, v_t = (x.transpose(1, 2) for x in (q, k, v))
     if valid is not None:
         library = "F.scaled_dot_product_attention (bool key mask)"
@@ -454,7 +568,8 @@ def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
         counter="flash_attention",
         source="handwritten_ocr_tpu_torch/csrc/flash_attention.cu",
         replaces="handwritten_ocr_tpu/ops/flash_attention.py:30",
-        shape=[batch, t, hq, hd], kv_heads=hkv, dtype="bf16", **cmp,
+        shape=[batch, t, hq, hd], kv_heads=hkv, dtype=name, **_body(dtype),
+        **cmp,
         ms=time_ms(lambda: flash_attention(q, k, v, valid, **kw)),
         plain_ms=time_ms(plain, iters=3), plain_rows_per_call=step,
         library=library,
@@ -473,9 +588,11 @@ def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
 
 
 def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
-                 head_dim: int, gen, backward: bool = False) -> dict:
+                 head_dim: int, gen, backward: bool = False,
+                 dtype=torch.bfloat16) -> dict:
     """Window attention at qkv ``[batch, P, 3 * heads * head_dim]`` (bf16,
-    the vision tower's window layers, rope on load) against its plain
+    or fp32: the fp32 body; the vision tower's window layers, rope on
+    load) against its plain
     version; the library yardstick is SDPA per window over q/k that are
     not roped. ``backward``: also the training backward's time."""
     import torch.nn.functional as F
@@ -486,8 +603,9 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
     valid = torch.as_tensor(plan.valid, device=dev)
     p_len, d = len(plan.valid), num_heads * head_dim
     scale = head_dim ** -0.5
+    size, peak, name = _dtype_terms(dtype)
     qkv = torch.randn((batch, p_len, 3 * d), generator=gen,
-                      device=dev).to(torch.bfloat16)
+                      device=dev).to(dtype)
     cos = torch.as_tensor(plan.cos_pad, device=dev)
     sin = torch.as_tensor(plan.sin_pad, device=dev)
     kw = dict(num_heads=num_heads, window_len=plan.window_len, scale=scale)
@@ -498,8 +616,9 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
     n_win, wl = plan.n_windows, plan.window_len
     live_per_win = plan.valid.reshape(n_win, wl).sum(axis=1)
     flops = 4 * batch * num_heads * head_dim * float((live_per_win ** 2).sum())
-    n_bytes = qkv.numel() * 2 + batch * p_len * d * 2 + 2 * cos.numel() * 4 + p_len
-    bound, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+    n_bytes = (qkv.numel() * size + batch * p_len * d * size
+               + 2 * cos.numel() * 4 + p_len)
+    bound, by = bound_ms(n_bytes, flops, peak)
     qw = qkv.reshape(batch, n_win, wl, 3, num_heads, head_dim)
     qw = qw.permute(3, 0, 1, 4, 2, 5).reshape(3, batch * n_win, num_heads,
                                               wl, head_dim)
@@ -509,7 +628,7 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
         counter="window_attention",
         source="handwritten_ocr_tpu_torch/csrc/window_attention.cu",
         replaces="handwritten_ocr_tpu/ops/window_attention.py:194",
-        shape=[batch, p_len, 3 * d], dtype="bf16", **cmp,
+        shape=[batch, p_len, 3 * d], dtype=name, **_body(dtype), **cmp,
         ms=time_ms(lambda: window_attention(qkv, cos, sin, valid, **kw)),
         plain_ms=time_ms(lambda: window_attention_plain(qkv, cos, sin, valid,
                                                         **kw), iters=3),
@@ -536,9 +655,10 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
 
 def _paged_case(name: str, case: str, slots: int, live: int, context: int,
                 layers: int, hq: int, hkv: int, hd: int, kv_quant: bool,
-                gen, path: str, t: int = 1) -> dict:
+                gen, path: str, t: int = 1, dtype=torch.bfloat16) -> dict:
     """One call of the paged kernel (``live`` of ``slots`` slots at
-    ``context`` cached tokens, ``t`` new tokens a slot) against its plain
+    ``context`` cached tokens, ``t`` new tokens a slot; q, new rows and fp
+    pools in ``dtype``: fp32 q runs the fp32 body) against its plain
     version: outputs within tolerance, pools (and scale pools) bit-equal
     after the append. With ``t`` > 1 (a speculative verify round) slot s
     starts 1 + s rows before a page boundary and appends t - s rows, so
@@ -549,7 +669,8 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
     from handwritten_ocr_tpu_torch import config as cfg_mod
     from handwritten_ocr_tpu_torch.ops.paged_decode_attention import (
         paged_append_attention, paged_append_attention_plain)
-    dev, bf16 = "cuda", torch.bfloat16
+    dev = "cuda"
+    size, peak, type_name = _dtype_terms(dtype)
     bs = cfg_mod.SERVE_BLOCK_SIZE
     if t > 1:
         context = -(-context // bs) * bs       # the next page boundary
@@ -568,8 +689,8 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
         scales = [torch.rand(scale_shape, generator=gen, device=dev) * 0.02
                   + 0.001 for _ in range(2)]
     else:
-        k_pool = torch.randn(shape, generator=gen, device=dev).to(bf16)
-        v_pool = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        k_pool = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        v_pool = torch.randn(shape, generator=gen, device=dev).to(dtype)
         scales = []
     tables = torch.zeros((slots, width), dtype=torch.int32, device=dev)
     start = torch.zeros(slots, dtype=torch.int32, device=dev)
@@ -580,7 +701,7 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
         n_valid[s] = 1 if t == 1 else t - s
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     q = randn(slots, t, hq, hd)
     k_new, v_new = randn(slots, t, hkv, hd), randn(slots, t, hkv, hd)
@@ -602,22 +723,22 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
         raise AssertionError(f"{name} {case}: dead slots or rows not zero")
     del refs, want, got
     library = _sdpa_yardstick(q, k_pool, v_pool, tables, start, n_valid,
-                              live, layers, *scales)
+                              live, layers, *scales, dtype=dtype)
     ctx = int(start[:live].sum())
     new = int(n_valid.sum())                 # real new rows
     # bytes of one token's K (or V) row of one layer, with its scales
-    row = hkv * hd * (1 if kv_quant else 2) + (hkv * 4 if kv_quant else 0)
+    row = hkv * hd * (1 if kv_quant else size) + (hkv * 4 if kv_quant else 0)
     n_bytes = (2 * ctx * row                 # cached K and V of live slots
-               + 2 * new * hkv * hd * 2      # new rows read (bf16)
+               + 2 * new * hkv * hd * size   # new rows read
                + 2 * new * row               # new rows written
-               + new * hq * hd * 2           # q of the real rows
-               + slots * t * hq * hd * 2     # every slot's output
+               + new * hq * hd * size        # q of the real rows
+               + slots * t * hq * hd * size  # every slot's output
                + tables.numel() * 4 + 2 * slots * 4)
     # query row i of a slot attends start + i + 1 cols (causal)
     attended = sum(int(n) * int(st) + int(n) * (int(n) + 1) // 2
                    for st, n in zip(start[:live], n_valid[:live]))
     flops = 4 * hq * hd * attended
-    bound, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+    bound, by = bound_ms(n_bytes, flops, peak)
     layer_cycle = iter(range(10 ** 9))
 
     def step(fn):   # a new layer each call: cold pages, as in decode
@@ -625,17 +746,20 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
                           n_valid, *scales, layer=next(layer_cycle) % layers,
                           scale=tscale)
 
+    body = ("fp32" if dtype == torch.float32 else "int8" if kv_quant
+            else "bf16")
     row_out = dict(
-        name=name, case=case, route="cuda", path=path,
-        body="int8" if kv_quant else "bf16",
-        counter=("paged_append_attention_int8" if kv_quant
-                 else "paged_append_attention"),
+        name=name, case=case, route="cuda", path=path, body=body,
+        counter={"fp32": "paged_append_attention_fp32",
+                 "int8": "paged_append_attention_int8",
+                 "bf16": "paged_append_attention"}[body],
         source="handwritten_ocr_tpu_torch/csrc/paged_decode_attention.cu",
         replaces="handwritten_ocr_tpu/ops/paged_decode_attention.py:64",
         shape=[slots, t, hq, hd], live_slots=live, context=context,
         starts=start[:live].tolist(), new_rows=n_valid[:live].tolist(),
         pool=list(k_pool.shape),
-        dtype="int8 KV, bf16 q" if kv_quant else "bf16 KV, bf16 q",
+        dtype=(f"int8 KV, {type_name} q" if kv_quant
+               else f"{type_name} KV, {type_name} q"),
         **cmp, ms=time_ms(step(paged_append_attention), iters=56),
         graph_ms=graph_ms([step(paged_append_attention)]),
         plain_ms=time_ms(step(paged_append_attention_plain), iters=10),
@@ -646,11 +770,11 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
 
 
 def _sdpa_yardstick(q, k_pool, v_pool, tables, start, n_valid, live: int,
-                    layers: int, *scales) -> dict:
+                    layers: int, *scales, dtype=torch.bfloat16) -> dict:
     """One ``F.scaled_dot_product_attention(..., enable_gqa=True)`` call
-    over the live slots' K and V already gathered into contiguous bf16
-    ``[live, Hkv, C, D]`` (C: the longest slot's cols after the append; a
-    boolean mask gives each query token its own cols when T > 1), int8
+    over the live slots' K and V already gathered into contiguous
+    ``dtype`` ``[live, Hkv, C, D]`` (C: the longest slot's cols after the
+    append; a boolean mask gives each query token its own cols when T > 1), int8
     pools dequantised first: the library's time for the attention alone,
     without the gather or the append. Cycles over copies from successive
     layers (>= 64 MB together), so every call finds its K and V cold, as
@@ -669,9 +793,9 @@ def _sdpa_yardstick(q, k_pool, v_pool, tables, start, n_valid, live: int,
             sc = scale_pool[layer][idx].permute(0, 1, 3, 2).reshape(
                 live, width, hkv)[:, :cols]
             x = x.float() * sc[..., None]
-        return x.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+        return x.to(dtype).permute(0, 2, 1, 3).contiguous()
 
-    per_copy = 2 * live * hkv * cols * hd * 2
+    per_copy = 2 * live * hkv * cols * hd * _dtype_terms(dtype)[0]
     copies = min(layers, max(2, -(-64 * 2 ** 20 // per_copy)))
     k_scale, v_scale = scales if scales else (None, None)
     kv = [(gather(k_pool, k_scale, layer), gather(v_pool, v_scale, layer))
@@ -692,19 +816,22 @@ def _sdpa_yardstick(q, k_pool, v_pool, tables, start, n_valid, live: int,
                                               enable_gqa=True)
 
     record = dict(
-        library="SDPA, enable_gqa, K/V pre-gathered contiguous bf16 "
-                "[live, Hkv, C, D] (gather and append not timed)",
+        library=f"SDPA, enable_gqa, K/V pre-gathered contiguous "
+                f"{_dtype_terms(dtype)[2]} [live, Hkv, C, D] (gather and "
+                "append not timed)",
         library_ms=time_ms(call, iters=56), library_graph_ms=graph_ms([call]))
     del kv
     return record
 
 
 def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
-                      out_dtype, gen, path: str) -> dict:
-    """The int8 matmul at a decode shape against its plain version; the
-    library yardstick is ``torch.mm`` on the bf16 dequantised weight (it
-    reads 2 bytes per weight where the kernel reads 1). ``ms`` times a
-    back-to-back loop of wrapper calls, which the host can set at small N;
+                      out_dtype, gen, path: str,
+                      x_dtype=torch.bfloat16) -> dict:
+    """The int8 matmul at a decode shape against its plain version (x in
+    ``x_dtype``: fp32 x runs the fp32-x body); the
+    library yardstick is ``torch.mm`` on the weight dequantised to
+    ``x_dtype`` (it reads 2 or 4 bytes per weight where the kernel reads
+    1). ``ms`` times a back-to-back loop of wrapper calls, which the host can set at small N;
     ``graph_ms`` is the kernel's device time alone, from a CUDA graph of
     launches cycling through enough copies of the weight (>= 60 MB) that
     each launch reads it from device memory, as a decode step does;
@@ -713,7 +840,8 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
     from handwritten_ocr_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                            int8_matmul_plain)
     dev = "cuda"
-    x = torch.randn((m, d_in), generator=gen, device=dev).to(torch.bfloat16)
+    size, peak, x_name = _dtype_terms(x_dtype)
+    x = torch.randn((m, d_in), generator=gen, device=dev).to(x_dtype)
     w_q = torch.randint(-127, 128, (d_out, d_in), generator=gen, device=dev,
                         dtype=torch.int8)
     scale = torch.rand(d_out, generator=gen, device=dev) * 1e-3 + 1e-4
@@ -722,16 +850,17 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
     cmp = _compare(f"int8_matmul {case}", got, want)
     del got, want
     out_bytes = 4 if out_dtype == torch.float32 else 2
-    n_bytes = d_in * d_out + m * d_in * 2 + d_out * 4 + m * d_out * out_bytes
-    bound, by = bound_ms(n_bytes, 2 * m * d_in * d_out, BF16_FLOPS_PER_S)
-    w_deq = (w_q.to(torch.bfloat16) * scale[:, None].to(torch.bfloat16))
+    n_bytes = (d_in * d_out + m * d_in * size + d_out * 4
+               + m * d_out * out_bytes)
+    bound, by = bound_ms(n_bytes, 2 * m * d_in * d_out, peak)
+    w_deq = (w_q.to(x_dtype) * scale[:, None].to(x_dtype))
     copies = [w_q] + [w_q.clone() for _ in range(
         min(23, math.ceil(60e6 / w_q.numel()) - 1))]
     device_ms = graph_ms([lambda w=w: int8_matmul(x, w, scale, out_dtype=out_dtype)
                           for w in copies])
     del copies
     deq_copies = [w_deq] + [w_deq.clone() for _ in range(
-        min(23, math.ceil(60e6 / (2 * w_deq.numel())) - 1))]
+        min(23, math.ceil(60e6 / (size * w_deq.numel())) - 1))]
     library_device_ms = graph_ms([lambda w=w: torch.mm(x, w.t())
                                   for w in deq_copies])
     del deq_copies
@@ -740,14 +869,15 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
         counter="int8_matmul",
         source="handwritten_ocr_tpu_torch/csrc/int8_matmul.cu",
         replaces="handwritten_ocr_tpu/ops/int8_matmul.py:25",
-        shape=[m, d_in, d_out], dtype=f"bf16 x, int8 W, "
-        f"{'fp32' if out_dtype == torch.float32 else 'bf16'} out", **cmp,
+        shape=[m, d_in, d_out], dtype=f"{x_name} x, int8 W, "
+        f"{'fp32' if out_dtype == torch.float32 else 'bf16'} out",
+        **_body(x_dtype), **cmp,
         ms=time_ms(lambda: int8_matmul(x, w_q, scale, out_dtype=out_dtype),
                    iters=20),
         graph_ms=device_ms,
         plain_ms=time_ms(lambda: int8_matmul_plain(x, w_q, scale, out_dtype),
                          iters=3),
-        library="torch.mm on the bf16 dequantised weight",
+        library=f"torch.mm on the {x_name} dequantised weight",
         library_ms=time_ms(lambda: torch.mm(x, w_deq.t()), iters=20),
         library_graph_ms=library_device_ms,
         bound_ms=bound, bound_by=by)
@@ -1306,29 +1436,29 @@ def _reset_stats(batcher) -> None:
     batcher._spec_cooldown = 0
 
 
-def phase_guided(qcfg, turns: list[Turn], card: str,
+def phase_guided(params: dict, turns: list[Turn], card: str,
                  max_new_tokens: int = 256):
-    """qwen3:32b (published widths and depth, int8 weights from a seed,
-    int8 KV) answers the critic's and then the editor's prompts for the 8
-    transcriptions through schema-guided ``chat_batch``; each text must
-    parse and validate against its contract. One short warm-up call
-    first; the launch counts are set to 0 before the two timed calls and
-    read after them. ``card`` (nvidia-smi's name and power limit) goes
-    into every record. Returns (the backend, kept for the pipeline; the
-    path's launches; its prompt lengths per agent call and budget, for
+    """qwen3:32b (published widths, int8 weights from a seed, int8 KV; the
+    first layers of the resident tree, ``REDUCED``) answers the critic's
+    and then the editor's prompts for the 8 transcriptions through
+    schema-guided ``chat_batch``; each text must parse and validate
+    against its contract. One short warm-up call first; the launch counts
+    are set to 0 before the two timed calls and read after them. ``card``
+    (nvidia-smi's name and power limit) goes into every record. Returns
+    (the backend, kept for the speculative phase; the path's launches;
+    its prompt lengths per agent call and budget, for
     ``phase_kernels_paths``, and each agent's texts and stats, for
     ``phase_speculative``)."""
     from handwritten_ocr_tpu_torch.agents.schemas import (CriticResult,
                                                           EditorResult)
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchReasoningBackend)
-    from handwritten_ocr_tpu_torch.models.init import init_qwen3
     from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
     from handwritten_ocr_tpu_torch.utils.jsonio import extract_json
 
-    params = init_qwen3(qcfg, dtype=torch.bfloat16, device="cuda", seed=SEED,
-                        quantize="int8")
-    backend = TorchReasoningBackend(Qwen3Model(params, qcfg),
+    qcfg = reduced_configs("phase_guided")["qwen3"]
+    reduced = REDUCED["phase_guided"]
+    backend = TorchReasoningBackend(Qwen3Model(depth_cut(params, qcfg), qcfg),
                                     dense_tokenizer(), kv_quant=True)
     requests = guided_requests(turns)
     contracts = {"critic": CriticResult, "editor": EditorResult}
@@ -1360,7 +1490,7 @@ def phase_guided(qcfg, turns: list[Turn], card: str,
         agents[agent] = dict(texts=texts, stats=stats,
                              max_new_tokens=max_new_tokens)
         emit(phase="guided", card=card, agent=agent,
-             model="qwen3:32b (Qwen3Config())",
+             model="qwen3:32b (Qwen3Config() widths)", reduced=reduced,
              weights="int8", kv_cache="int8", tokenizer="DenseTokenizer",
              turns=len(batch), max_new_tokens=max_new_tokens,
              prompt_tokens=prompts[agent][0],
@@ -1374,7 +1504,7 @@ def phase_guided(qcfg, turns: list[Turn], card: str,
         "flash_attention", "paged_append_attention_int8", "int8_matmul"))
     if total["sessions_complete"] != total["sessions"]:
         raise AssertionError(f"guided sessions not complete: {total}")
-    emit(phase="guided_path", card=card, **total,
+    emit(phase="guided_path", card=card, reduced=reduced, **total,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          launches=launches)
     return backend, launches, dict(agent_prompt_tokens=prompts,
@@ -1648,8 +1778,9 @@ def _pool_bytes(cache) -> int:
 
 
 def phase_pool_plan(cfg, reasoner, prompt_len: int, card: str):
-    """olmOCR-2-7B (bf16, random from a seed) joins the guided phase's
-    resident qwen3:32b. One ``coresident_plan`` for the card hands each
+    """olmOCR-2-7B (bf16, random from a seed) joins the resident
+    qwen3:32b (``reasoner``: the whole model, whose first layers the
+    guided phase ran). One ``coresident_plan`` for the card hands each
     engine its pool budget (``plan_pools``); then both batchers are built
     at the default budgets' context bounds: the OCR read's prompt +
     OCR_MAX_NEW_TOKENS, and the agents' prompts + LLM_MAX_TOKENS (the
@@ -1763,10 +1894,55 @@ def _check_artifacts(out_dir, stems, finals=None) -> None:
                                      "final state")
 
 
+def cut_engines(ocr, reasoner, phase: str) -> tuple:
+    """Depth-cut engines over ``pool_plan``'s resident weights
+    (``REDUCED[phase]``), with their tokenizers and KV form: each pool
+    holds the blocks its full engine's planned budget holds, at the cut
+    depth's bytes a block, so requests are admitted as in the planned
+    deployment. The full engines' pools are dropped first."""
+    from handwritten_ocr_tpu_torch import config as cfg_mod
+    from handwritten_ocr_tpu_torch.models.paged import PagedKVCache
+
+    def per_block(text_cfg, kv_quant: bool) -> int:
+        return PagedKVCache.block_bytes(
+            text_cfg.num_hidden_layers, cfg_mod.SERVE_BLOCK_SIZE,
+            text_cfg.num_key_value_heads, text_cfg.head_dim, kv_quant=kv_quant)
+
+    cfgs = reduced_configs(phase)
+    cut = []
+    for engine, cfg in ((ocr, cfgs["vl"]), (reasoner, cfgs["qwen3"])):
+        engine._batcher = None
+        full_text = getattr(engine.model.config, "text", engine.model.config)
+        blocks = engine.pool_bytes // per_block(full_text, engine.kv_quant)
+        cut.append(type(engine)(
+            type(engine.model)(depth_cut(engine.model.params, cfg), cfg),
+            engine.tokenizer, kv_quant=engine.kv_quant,
+            pool_bytes=blocks * per_block(getattr(cfg, "text", cfg),
+                                          engine.kv_quant)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tuple(cut)
+
+
+def _require_depth(phase: str, *models) -> None:
+    """The models run the depths ``REDUCED[phase]`` names."""
+    for model in models:
+        cfg = model.config
+        got = (dict(vl_text_layers=cfg.text.num_hidden_layers,
+                    vl_vision_blocks=cfg.vision.depth,
+                    vl_global_blocks=list(cfg.vision.fullatt_block_indexes))
+               if hasattr(cfg, "vision")
+               else dict(qwen3_layers=cfg.num_hidden_layers))
+        want = {what: REDUCED[phase][what][0] for what in got}
+        if got != want:
+            raise AssertionError(f"{phase} runs {got}, REDUCED names {want}")
+
+
 def phase_cli(ocr, reasoner, card: str) -> dict:
     """The port's CLI (``cli.transcribe.main(argv, pipeline=...)``) over
     a folder of the four contract pages (924x672 PNG files, the pixels of
-    ``synthetic_pages(4)``), with the engines and pools of ``pool_plan``
+    ``synthetic_pages(4)``), with depth-cut engines over ``pool_plan``'s
+    weights and its pools' block counts (``cut_engines``, ``REDUCED``)
     and the pipeline phase's budgets (``BudgetCap``): the pages are read
     from the files through ``TorchPreprocessor``, so the PNG reader and
     the card's resize path run. In order:
@@ -1793,6 +1969,7 @@ def phase_cli(ocr, reasoner, card: str) -> dict:
     from handwritten_ocr_tpu_torch.graph.driver import OCRPipeline
     from handwritten_ocr_tpu_torch.models.processor import load_image_rgb
 
+    _require_depth("phase_cli", ocr.model, reasoner.model)
     work = tempfile.TemporaryDirectory()
     root = Path(work.name)
     pages, gt, out, single = (root / d for d in ("pages", "gt", "out",
@@ -1852,7 +2029,7 @@ def phase_cli(ocr, reasoner, card: str) -> dict:
         launches=lockstep_launches)
     emit(phase="pipeline", card=card, run="run_many", max_iterations=2,
          accept_threshold=finals[0]["config"]["accept_threshold"], **BUDGETS,
-         driven_by="cli --lockstep",
+         driven_by="cli --lockstep", reduced=REDUCED["phase_cli"],
          **run_many)
 
     # 2. --skip-existing: every page's transcription exists
@@ -1903,7 +2080,8 @@ def phase_cli(ocr, reasoner, card: str) -> dict:
     work.cleanup()
     launches = {name: lockstep_launches[name] + skip_launches[name]
                 + single_launches[name] for name in lockstep_launches}
-    cli = dict(phase="cli", card=card, pages=len(stems), **BUDGETS,
+    cli = dict(phase="cli", card=card, reduced=REDUCED["phase_cli"],
+               pages=len(stems), **BUDGETS,
                lockstep_s=lockstep_s, seconds_per_page=lockstep_s / len(stems),
                skip_existing_s=skip_s, single_page_s=single_s,
                png_decode_ms=decode_ms, artifacts_per_page=4,
@@ -1921,8 +2099,8 @@ def phase_cli(ocr, reasoner, card: str) -> dict:
 
 
 def phase_pipeline(ocr, reasoner, card: str, seen: dict) -> dict:
-    """Both models resident, with the pools of ``pool_plan``:
-    ``OCRPipeline.run`` on one page resumed at its re-OCR node
+    """The cli phase's depth-cut engines (``REDUCED``) over both resident
+    models: ``OCRPipeline.run`` on one page resumed at its re-OCR node
     (``run_from_reocr``; max_iterations 2, no accept by confidence alone,
     128 OCR and 256 agent tokens), so the re-OCR read, the arbitrator and
     the re-OCR strategies run at full width. (The pipeline path's
@@ -1937,6 +2115,7 @@ def phase_pipeline(ocr, reasoner, card: str, seen: dict) -> dict:
     from handwritten_ocr_tpu_torch.graph.driver import OCRPipeline
     from handwritten_ocr_tpu_torch.state import initial_state
 
+    _require_depth("phase_pipeline", ocr.model, reasoner.model)
     pages = {f"page{i}": p for i, p in enumerate(synthetic_pages(4))}
     prep = PagePreprocessor(pages)
     # 101: no confidence accepts on its own, only the verdict does
@@ -1976,6 +2155,7 @@ def phase_pipeline(ocr, reasoner, card: str, seen: dict) -> dict:
                peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                launches=launches)
     emit(phase="pipeline", card=card, run="run",
+         reduced=REDUCED["phase_pipeline"],
          max_iterations=run_cfg.max_iterations,
          accept_threshold=run_cfg.accept_threshold, **BUDGETS, **run)
     return run
@@ -2576,9 +2756,11 @@ def _hf_read(snapshot, page, new_tokens: int) -> dict:
                                                  new_tokens)
         placed = {str(p.device) for p in backend._model.parameters()}
         dtypes = {str(p.dtype) for p in backend._model.parameters()}
+        before = read_launches()
         want = port.read_batch([load_image_rgb(page)], OCR_PROMPT,
                                new_tokens)[0]
         torch.cuda.synchronize()
+        port_launches = {k: v - before[k] for k, v in read_launches().items()}
     finally:
         with contextlib.redirect_stdout(io.StringIO()):
             backend.release()
@@ -2590,7 +2772,7 @@ def _hf_read(snapshot, page, new_tokens: int) -> dict:
     record = dict(transformers=transformers.__version__, asked=asked,
                   device=sorted(placed), load_s=load_s, read_s=read_s,
                   rope_index_equal=rope_equal, tokens=len(want.split()),
-                  tokens_equal=got == want)
+                  tokens_equal=got == want, port_launches=port_launches)
     if rope_equal:
         if got != want or not want:
             raise AssertionError(f"HF read {got!r}, the port read {want!r}")
@@ -2614,23 +2796,24 @@ def _hf_read(snapshot, page, new_tokens: int) -> dict:
 def phase_convert(card: str) -> dict:
     """``python -m handwritten_ocr_tpu_torch.cli.convert`` at full width.
     Random-weight HF snapshots (bf16, 4 shards + index, the byte-level
-    ``tokenizer.json``) written with ``save_snapshot``: olmOCR-2-7B's
-    widths (``VLConfig()``) cut to 1 text layer and 8 vision blocks (the
-    last, block 7, global), and qwen3:32b's widths (``Qwen3Config()``, 64
-    x 5120) cut to 1 layer, the depth the script's time forces. The CLI
-    converts each in a subprocess on the card, its default device
-    (``vl`` in bf16, ``qwen3 --quantize int8``). Each engine is then
-    loaded twice on the card, from the snapshot (the reasoner quantised
-    at load) and from the checkpoint, with ``load_s`` for each way: the
-    trees must be equal, and the greedy tokens too: two reads of page0
-    (the two initial strategies, 32 new tokens) and the 8 editor turns
-    (16 new tokens). Where transformers is installed, the VL snapshot is
-    also read through ``HFTorchOCRBackend`` (``_hf_read``: 32 tokens,
-    equal to the port's in fp32). Launch counts set to 0 before the
-    phase and read after it (flash, window, the int8 paged kernel, the
-    int8 matmul and, with the fp32 read, the fp32 paged body must
-    launch; writing, converting, loading and transformers' model launch
-    none)."""
+    ``tokenizer.json``) written with ``save_snapshot``: olmOCR-2-7B's and
+    qwen3:32b's widths at the depths ``REDUCED`` names (the VL's 8
+    vision blocks end with the global block 7). The CLI converts each in
+    a subprocess on the card, its default device (``vl`` in bf16,
+    ``qwen3 --quantize int8``); the two converters run at once, each
+    ``convert_s`` its own wall, CUDA start-up included. Each engine is
+    then loaded twice on the card, from the snapshot (the reasoner
+    quantised at load) and from the checkpoint, with ``load_s`` for each
+    way: the trees must be equal, and the greedy tokens too: two reads of
+    page0 (the two initial strategies) and the 8 editor turns, at the
+    token counts ``REDUCED`` names. Where transformers is installed, the
+    VL snapshot is also read through ``HFTorchOCRBackend`` (``_hf_read``:
+    32 tokens, equal to the port's in fp32). Launch counts set to 0
+    before the phase and read after it (flash, window, the int8 paged
+    kernel, the int8 matmul and, with the fp32 read, the fp32 paged body
+    must launch; writing, converting, loading and transformers' model
+    launch none); the fp32 read's own launches are kept apart
+    (``fp32_launches``: the fp32 bodies' path)."""
     import importlib.util
     import tempfile
     from pathlib import Path
@@ -2640,22 +2823,10 @@ def phase_convert(card: str) -> dict:
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
     from handwritten_ocr_tpu_torch.models.init import init_qwen3, init_vl
-    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
-    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
     from handwritten_ocr_tpu_torch.models.weights import save_snapshot
 
     repo = Path(__file__).resolve().parent
-    full_vl, full_q = VLConfig(), Qwen3Config()
-    vl_cfg = dataclasses.replace(
-        full_vl, text=dataclasses.replace(full_vl.text, num_hidden_layers=1),
-        vision=dataclasses.replace(full_vl.vision, depth=8,
-                                   fullatt_block_indexes=(7,)))
-    q_cfg = dataclasses.replace(full_q, num_hidden_layers=1)
-    cuts = {"vl": {"text_layers": [1, full_vl.text.num_hidden_layers],
-                   "vision_blocks": [8, full_vl.vision.depth],
-                   "global_blocks": [[7], list(
-                       full_vl.vision.fullatt_block_indexes)]},
-            "qwen3": {"layers": [1, full_q.num_hidden_layers]}}
+    cfgs, reduced = reduced_configs("phase_convert"), REDUCED["phase_convert"]
     spec = json.dumps(byte_level_tokenizer_json())
     prep = TorchPreprocessor()
     page = repo / ".contract_pages" / "page0.png"
@@ -2663,37 +2834,60 @@ def phase_convert(card: str) -> dict:
     turns = editor_turns(8)
     with_hf = importlib.util.find_spec("transformers") is not None
     families = {
-        "vl": (vl_cfg, init_vl, TorchOCRBackend, [], {},
-               lambda e: e.read_batch(images, OCR_PROMPT, 32)),
-        "qwen3": (q_cfg, init_qwen3, TorchReasoningBackend,
+        "vl": (cfgs["vl"], init_vl, TorchOCRBackend, [], {},
+               lambda e: e.read_batch(images, OCR_PROMPT,
+                                      reduced["read_tokens"][0])),
+        "qwen3": (cfgs["qwen3"], init_qwen3, TorchReasoningBackend,
                   ["--quantize", "int8"], {"quantize": "int8"},
                   lambda e: e.chat_batch(turns, temperature=0.1,
-                                         max_tokens=16))}
-    record = dict(phase="convert", card=card, cuts=cuts, reduced=(
-        "depth only: VL 1 of 28 text layers and 8 of 32 vision blocks, "
-        "qwen3 1 of 64 layers; every width as published"))
+                                         max_tokens=reduced["chat_tokens"][0]))}
+    record = dict(phase="convert", card=card, reduced=reduced)
     torch.cuda.synchronize()
     reset_launches()
     t_phase = time.perf_counter()
-    for seed, (family, (cfg, init, engine_cls, flags, at_load, run)) in \
-            enumerate(families.items(), start=SEED + 20):
-        with tempfile.TemporaryDirectory() as work:
-            snapshot, checkpoint = Path(work) / "snapshot", Path(work) / "ckpt"
-            t0 = time.perf_counter()
-            tree = init(cfg, dtype=torch.bfloat16, device="cuda", seed=seed)
-            save_snapshot(snapshot, tree, cfg, shards=4)
-            (snapshot / "tokenizer.json").write_text(spec, encoding="utf-8")
-            del tree
-            write_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            done = subprocess.run(
-                [sys.executable, "-m", "handwritten_ocr_tpu_torch.cli.convert",
-                 family, str(snapshot), str(checkpoint), *flags],
-                cwd=repo, capture_output=True, text=True, timeout=600)
-            convert_s = time.perf_counter() - t0
-            if done.returncode != 0:
+    with tempfile.TemporaryDirectory() as work:
+        converters = {}
+        try:
+            for seed, (family, (cfg, init, _, flags, _, _)) in enumerate(
+                    families.items(), start=SEED + 20):
+                root = Path(work) / family
+                snapshot = root / "snapshot"
+                t0 = time.perf_counter()
+                tree = init(cfg, dtype=torch.bfloat16, device="cuda", seed=seed)
+                save_snapshot(snapshot, tree, cfg, shards=4)
+                (snapshot / "tokenizer.json").write_text(spec, encoding="utf-8")
+                del tree
+                write_s = time.perf_counter() - t0
+                c = converters[family] = dict(write_s=write_s, logs=[])
+                c["logs"] = [open(root / name, "w") for name in ("out", "err")]
+                c["t0"] = time.perf_counter()
+                c["proc"] = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "handwritten_ocr_tpu_torch.cli.convert", family,
+                     str(snapshot), str(root / "ckpt"), *flags],
+                    cwd=repo, stdout=c["logs"][0], stderr=c["logs"][1])
+            deadline = time.perf_counter() + 600
+            while any("convert_s" not in c for c in converters.values()):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("cli.convert gave no exit in 600 s")
+                for c in converters.values():
+                    if "convert_s" not in c and c["proc"].poll() is not None:
+                        c["convert_s"] = time.perf_counter() - c["t0"]
+                time.sleep(0.05)
+        finally:
+            for c in converters.values():
+                if "proc" in c and c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait(timeout=60)
+                for log in c["logs"]:
+                    log.close()
+        for family, (cfg, init, engine_cls, flags, at_load, run) in \
+                families.items():
+            root, c = Path(work) / family, converters[family]
+            snapshot, checkpoint = root / "snapshot", root / "ckpt"
+            if c["proc"].returncode != 0:
                 raise AssertionError(f"convert {family} failed:\n"
-                                     f"{done.stderr[-4000:]}")
+                                     f"{(root / 'err').read_text()[-4000:]}")
             meta = json.loads((checkpoint / "meta.json").read_text())
             if meta["family"] != family or \
                     meta["quantize"] != (flags[1] if flags else None) or \
@@ -2719,8 +2913,9 @@ def phase_convert(card: str) -> dict:
                 raise AssertionError(f"{family}: snapshot and checkpoint "
                                      f"engines differ: {streams}")
             record[family] = dict(
-                write_s=write_s, convert_s=convert_s,
-                converter_said=done.stdout.strip().splitlines()[-1],
+                write_s=c["write_s"], convert_s=c["convert_s"],
+                converter_said=(root / "out").read_text().strip()
+                .splitlines()[-1],
                 snapshot_bytes=_dir_bytes(snapshot),
                 checkpoint_bytes=_dir_bytes(checkpoint), load_s=load_s,
                 calls=len(streams["snapshot"]), tokens_equal=True,
@@ -2734,7 +2929,9 @@ def phase_convert(card: str) -> dict:
                 gc.collect()
                 torch.cuda.empty_cache()
     launches = read_launches()
-    record.update(seconds=time.perf_counter() - t_phase, launches=launches)
+    record.update(seconds=time.perf_counter() - t_phase, launches=launches,
+                  fp32_launches=(record["hf_read"] or {}).get(
+                      "port_launches", {name: 0 for name in launches}))
     require_launches("convert", launches, (
         "flash_attention", "window_attention", "paged_append_attention_int8",
         "int8_matmul") + (("paged_append_attention_fp32",) if with_hf else ()))
@@ -2868,6 +3065,11 @@ def phase_reference(card: str) -> dict:
                          ("paged_append_attention_int8", "int8_matmul"))
     record["guided"] = guided["record"]
     launches["guided"] = guided["launches"]
+    runs = [c for key, c in launches.items() if key != "guided"] + list(
+        guided["launches"].values())
+    # every card run here is fp32: an int8_matmul launch is the fp32-x body
+    record["launches_all"] = {name: sum(c[name] for c in runs)
+                              for name in runs[0]}
     record["transforms"] = _reference_transforms()
     record["launches"] = launches
     emit(**record)
@@ -2996,8 +3198,9 @@ def _verify_vs_step(batcher, encoded: list[list[int]], repeats: int = 3):
 
 def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
                       max_new_tokens: int = 128) -> dict:
-    """Prompt-lookup speculative decoding on the guided phase's resident
-    qwen3:32b (int8 weights and KV, 24 slots, draft_k 16), through a
+    """Prompt-lookup speculative decoding on the guided phase's qwen3:32b
+    (its depth-cut engine over the resident weights, ``REDUCED``; int8
+    weights and KV, 24 slots, draft_k 16), through a
     second backend on the same weights with ``eos_token_id=-1`` (random
     weights then decode to the budget) and a tokenizer that spells every
     id: 8 editor turns of ~1.2k tokens, 128 new tokens.
@@ -3215,9 +3418,11 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
         same_texts_as_plain=sum(a == b for a, b in zip(gtexts,
                                                        guided["texts"])),
         plain=guided["stats"])
+    _require_depth("phase_speculative", reasoner.model)
     record = dict(phase="speculative", card=card,
-                  model="qwen3:32b (Qwen3Config(eos_token_id=-1))",
-                  weights="int8", kv_cache="int8", turns=len(turns),
+                  model="qwen3:32b (Qwen3Config(eos_token_id=-1) widths)",
+                  reduced=REDUCED["phase_speculative"], weights="int8",
+                  kv_cache="int8", turns=len(turns),
                   prompt_tokens=[len(ids) for ids in encoded],
                   max_new_tokens=max_new_tokens, draft_k=16, tie_gap=TIE_GAP,
                   plain_top2_gap_median=float(torch.cat(gaps).median()),
@@ -3234,7 +3439,8 @@ def phase_speculative(reasoner, turns: list[Turn], card: str, guided: dict,
 def phase_dense(ocr, reasoner, turns: list[Turn], card: str, int8: dict,
                 max_new_tokens: int = 128, json_tokens: int = 256) -> dict:
     """The dense (contiguous-cache) path of both engines at full width, on
-    the resident models once their KV pools are dropped:
+    depth-cut models over the resident weights (``REDUCED``) once the KV
+    pools are dropped:
     ``TorchOCRBackend(serving="dense").read_batch`` on the read phase's 4
     pages x 2 strategies (128 tokens), ``TorchReasoningBackend(serving=
     "dense")``: ``chat_batch`` on the 8 left-padded editor turns (128
@@ -3252,6 +3458,8 @@ def phase_dense(ocr, reasoner, turns: list[Turn], card: str, int8: dict,
         TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
     from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
 
+    from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
+
     ocr._batcher = reasoner._batcher = None     # the pools go first
     gc.collect()
     torch.cuda.empty_cache()
@@ -3259,17 +3467,21 @@ def phase_dense(ocr, reasoner, turns: list[Turn], card: str, int8: dict,
     prep = TorchPreprocessor()
     images = [prep.apply(page, s) for page in synthetic_pages(4)
               for s in PREPROCESSING_STRATEGIES[:2]]
-    free = Qwen3Model(reasoner.model.params,
-                      dataclasses.replace(reasoner.model.config, eos_token_id=-1))
+    cfgs = reduced_configs("phase_dense")
+    vl_model = VLModel(depth_cut(ocr.model.params, cfgs["vl"]), cfgs["vl"])
+    q_params = depth_cut(reasoner.model.params, cfgs["qwen3"])
+    free = Qwen3Model(q_params,
+                      dataclasses.replace(cfgs["qwen3"], eos_token_id=-1))
     critic = guided_requests(turns[:1])["critic"][0]
     engines = {
-        "read_batch": (TorchOCRBackend(ocr.model, tokenizer, serving="dense"),
+        "read_batch": (TorchOCRBackend(vl_model, tokenizer, serving="dense"),
                        lambda e: e.read_batch(images, OCR_PROMPT,
                                               max_new_tokens)),
         "chat_batch": (TorchReasoningBackend(free, tokenizer, serving="dense"),
                        lambda e: e.chat_batch(turns, temperature=0.1,
                                               max_tokens=max_new_tokens)),
-        "chat_json": (TorchReasoningBackend(reasoner.model, dense_tokenizer(),
+        "chat_json": (TorchReasoningBackend(Qwen3Model(q_params, cfgs["qwen3"]),
+                                            dense_tokenizer(),
                                             serving="dense"),
                       lambda e: [e.chat(critic.system, critic.user,
                                         temperature=0.1, max_tokens=json_tokens,
@@ -3299,16 +3511,16 @@ def phase_dense(ocr, reasoner, turns: list[Turn], card: str, int8: dict,
     ids = [engines["chat_batch"][0]._encode(t.system, t.user) for t in turns]
     logits = free.forward_logits([ids[0][:512]])
     vl_ids = engines["read_batch"][0]._prompt_ids(OCR_PROMPT, 0)
-    vl_logits = ocr.model.forward_logits([vl_ids])
+    vl_logits = vl_model.forward_logits([vl_ids])
     for name, out in (("qwen3", logits), ("vl", vl_logits)):
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"non-finite {name} forward_logits")
     del logits, vl_logits
-    fp_kv = phase_fp_kv(ocr.model, free, tokenizer, images, turns, outputs,
+    fp_kv = phase_fp_kv(vl_model, free, tokenizer, images, turns, outputs,
                         int8, card, max_new_tokens)
-    record = dict(phase="dense", card=card,
-                  models=["olmOCR-2-7B (VLConfig()), bf16",
-                          "qwen3:32b (Qwen3Config()), int8 weights"],
+    record = dict(phase="dense", card=card, reduced=REDUCED["phase_dense"],
+                  models=["olmOCR-2-7B (VLConfig() widths), bf16",
+                          "qwen3:32b (Qwen3Config() widths), int8 weights"],
                   kv_cache="bf16, contiguous, per call", reads=len(images),
                   turns=len(turns), prompt_tokens=[len(i) for i in ids],
                   json_prompt_tokens=len(engines["chat_json"][0]._encode(
@@ -3324,8 +3536,9 @@ def phase_dense(ocr, reasoner, turns: list[Turn], card: str, int8: dict,
 def phase_fp_kv(vl_model, llm_model, tokenizer, images, turns: list[Turn],
                 dense_out: dict, int8: dict, card: str,
                 max_new_tokens: int = 128) -> dict:
-    """The fp-KV paged path at full width on the dense phase's resident
-    models: ``TorchOCRBackend`` and ``TorchReasoningBackend`` built with
+    """The fp-KV paged path at full width on the dense phase's depth-cut
+    models (``REDUCED``): ``TorchOCRBackend`` and
+    ``TorchReasoningBackend`` built with
     ``HOCR_KV_INT8=0`` and no ``kv_quant`` (bf16 pools, the paged kernel's
     tensor-core fp-KV body), over the read phase's 8 reads (``VLConfig()``
     bf16) and the 8 editor turns (qwen3:32b int8 weights), 128 tokens.
@@ -3335,10 +3548,11 @@ def phase_fp_kv(vl_model, llm_model, tokenizer, images, turns: list[Turn],
     launch, the fp32 body and the int8 branch must not); wall, prefill and
     decode s and ms per decode step; then two traced calls
     (``phase_trace``). Beside each, the int8 path's figures from this
-    run's read and reasoning phases (``int8``)."""
+    run's read and reasoning phases (``int8``: full depth)."""
     from handwritten_ocr_tpu_torch.config import OCR_PROMPT
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchOCRBackend, TorchReasoningBackend)
+    _require_depth("phase_fp_kv", vl_model, llm_model)
     with _env("HOCR_KV_INT8", "0"):
         engines = {"read_batch": TorchOCRBackend(vl_model, tokenizer),
                    "chat_batch": TorchReasoningBackend(llm_model, tokenizer)}
@@ -3413,10 +3627,12 @@ def phase_fp_kv(vl_model, llm_model, tokenizer, images, turns: list[Turn],
             traced_step_wall_ms=chat["trace"]["decode_step_wall_ms"],
             launches=chat["launches"])}
     record = dict(phase="fp_kv", card=card, env="HOCR_KV_INT8=0",
+                  reduced=REDUCED["phase_fp_kv"],
                   kv_cache="bf16, paged", max_new_tokens=max_new_tokens,
-                  models=["olmOCR-2-7B (VLConfig()), bf16",
-                          "qwen3:32b (Qwen3Config()), int8 weights"],
-                  calls=calls, int8_same_run=same_run_int8,
+                  models=["olmOCR-2-7B (VLConfig() widths), bf16",
+                          "qwen3:32b (Qwen3Config() widths), int8 weights"],
+                  calls=calls, int8_same_run_at="full depth",
+                  int8_same_run=same_run_int8,
                   agreement_with_dense=agreement)
     emit(**record)
     return record
@@ -3470,10 +3686,45 @@ def phase_kernels_decode_modes(cfg, qcfg, prompt_len: int, q_prompt_len: int,
     return rows
 
 
+def phase_kernels_fp32(cfg, qcfg, prompt_len: int) -> list[dict]:
+    """The kernels' fp32 bodies at full width: flash, window and paged
+    attention at the shapes the convert phase's fp32 read gives them
+    (``TorchOCRBackend`` on the VL snapshot in fp32, fp32 pools: one
+    924x672 page, 1 of 24 slots live, 32 new tokens; path convert_fp32),
+    and the int8 matmul's fp32-x body at a qwen3:32b gate projection of
+    24 rows (path reference: the reference phase's fp32 Qwen3, whose
+    every int8 launch takes this body, at narrow width). Runs when no
+    model is resident."""
+    from handwritten_ocr_tpu_torch import config as cfg_mod
+    from handwritten_ocr_tpu_torch.models.qwen25vl.vision import plan_grid
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    vis, txt, f32 = cfg.vision, cfg.text, torch.float32
+    plan = plan_grid(vis, (1, 924 // 14, 672 // 14))
+    valid = torch.as_tensor(plan.valid, device="cuda")
+    rows = [
+        _flash_case("vision_global_fp32", "convert_fp32", 1, len(plan.valid),
+                    vis.num_heads, vis.num_heads, vis.head_dim, gen,
+                    valid=valid, dtype=f32),
+        _window_case("vision_window_fp32", "convert_fp32", 1, plan,
+                     vis.num_heads, vis.head_dim, gen, dtype=f32),
+        _paged_case("paged_append_attention", "decode_step_fp32",
+                    cfg_mod.SERVE_SLOTS, 1, prompt_len + 16,
+                    txt.num_hidden_layers, txt.num_attention_heads,
+                    txt.num_key_value_heads, txt.head_dim, False, gen,
+                    "convert_fp32", dtype=f32),
+        _int8_matmul_case("gate_m24_fp32", cfg_mod.SERVE_SLOTS,
+                          qcfg.hidden_size, qcfg.intermediate_size, f32, gen,
+                          "reference", x_dtype=f32)]
+    rows = [with_ratio(r) for r in rows]
+    for r in rows:
+        emit(phase="kernel", **r)
+    return rows
+
+
 # ── tp: both engines over two ranks (tensor parallelism) ────────────
 
 TP_WORLD = 2
-TP_NEW_TOKENS = 32
+TP_NEW_TOKENS = REDUCED["phase_tp"]["new_tokens"][0]
 TP_CONTEXT = 2048          # the tp pools' token bound
 TP_TIMEOUT_S = 900
 ONE_CARD_RING = ("one card; NCCL needs a card per rank and gloo sends no "
@@ -3602,23 +3853,25 @@ def _tp_timed(backend, warm, call, counts: dict, what: str,
 
 
 def _tp_qwen3(mesh, counts: dict) -> dict:
-    """qwen3:32b at int8, full width and depth, drawn whole one matrix
-    at a time from the reasoning phase's seed, the rank keeping its
-    slices: the reasoning cell's 8 editor turns, TP_NEW_TOKENS tokens."""
+    """qwen3:32b at int8, full width at the depth ``REDUCED`` names, drawn
+    whole one matrix at a time from the reasoning phase's seed, the rank
+    keeping its slices: the reasoning cell's 8 editor turns,
+    TP_NEW_TOKENS tokens."""
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchReasoningBackend)
     from handwritten_ocr_tpu_torch.models.init import init_qwen3
     from handwritten_ocr_tpu_torch.models.quant import quantized_bytes
-    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
 
-    qcfg = Qwen3Config(eos_token_id=-1)
+    qcfg = dataclasses.replace(reduced_configs("phase_tp")["qwen3"],
+                               eos_token_id=-1)
     tp = mesh.size(1)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_qwen3(qcfg, dtype=torch.bfloat16, device="cuda", seed=SEED,
                         quantize="int8", mesh=mesh)
     torch.cuda.synchronize()
-    record = dict(model="qwen3:32b (Qwen3Config())", weights="int8",
+    record = dict(model="qwen3:32b (Qwen3Config() widths)", weights="int8",
                   init_s=time.perf_counter() - t0,
                   init_peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                   weight_bytes=quantized_bytes(params))
@@ -3641,26 +3894,26 @@ def _tp_qwen3(mesh, counts: dict) -> dict:
 
 
 def _tp_vl(mesh, counts: dict) -> dict:
-    """olmOCR-2-7B (``VLConfig()``) in bf16, drawn from the read phase's
-    seed, the rank keeping its slices: the read cell's 8 reads (4 pages x
-    2 strategies), TP_NEW_TOKENS tokens."""
+    """olmOCR-2-7B (``VLConfig()`` widths at the depth ``REDUCED`` names)
+    in bf16, drawn from the read phase's seed, the rank keeping its
+    slices: the read cell's 8 reads (4 pages x 2 strategies),
+    TP_NEW_TOKENS tokens."""
     from handwritten_ocr_tpu_torch.config import (OCR_PROMPT,
                                                   PREPROCESSING_STRATEGIES)
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchOCRBackend, TorchPreprocessor)
     from handwritten_ocr_tpu_torch.models.init import init_vl
-    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
     from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
     from handwritten_ocr_tpu_torch.parallel.budget import tree_bytes
 
-    cfg = VLConfig()
+    cfg = reduced_configs("phase_tp")["vl"]
     tp = mesh.size(1)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_vl(cfg, dtype=torch.bfloat16, device="cuda", seed=SEED,
                      mesh=mesh)
     torch.cuda.synchronize()
-    record = dict(model="olmOCR-2-7B (VLConfig())", weights="bf16",
+    record = dict(model="olmOCR-2-7B (VLConfig() widths)", weights="bf16",
                   init_s=time.perf_counter() - t0,
                   weight_bytes=tree_bytes(params))
     backend = TorchOCRBackend(VLModel(params, cfg, mesh), spelling_tokenizer(),
@@ -3820,31 +4073,72 @@ def _tp_rank(rank: int, world: int) -> dict:
     return record
 
 
-def phase_tp(card: str, single: dict) -> dict:
+def _tp_single() -> dict:
+    """The tp phase's two models whole on this card, drawn from the same
+    seeds at the same depths, through the same calls: the single-card
+    streams a TP rank's are held against."""
+    from handwritten_ocr_tpu_torch.config import (OCR_PROMPT,
+                                                  PREPROCESSING_STRATEGIES)
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3, init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
+
+    cfgs = reduced_configs("phase_tp")
+    qcfg = dataclasses.replace(cfgs["qwen3"], eos_token_id=-1)
+    chat = TorchReasoningBackend(
+        Qwen3Model(init_qwen3(qcfg, dtype=torch.bfloat16, device="cuda",
+                              seed=SEED, quantize="int8"), qcfg),
+        spelling_tokenizer(), kv_quant=True,
+        pool_bytes=_tp_pool_bytes(qcfg, 1)).chat_batch(
+        editor_turns(8), temperature=0.1, max_tokens=TP_NEW_TOKENS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prep = TorchPreprocessor()
+    images = [prep.apply(page, s) for page in synthetic_pages(4)
+              for s in PREPROCESSING_STRATEGIES[:2]]
+    read = TorchOCRBackend(
+        VLModel(init_vl(cfgs["vl"], dtype=torch.bfloat16, device="cuda",
+                        seed=SEED), cfgs["vl"]),
+        spelling_tokenizer(), kv_quant=True,
+        pool_bytes=_tp_pool_bytes(cfgs["vl"].text, 1)).read_batch(
+        images, OCR_PROMPT, TP_NEW_TOKENS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {path: [[int(t) for t in text.split()] for text in texts]
+            for path, texts in (("chat", chat), ("read", read))}
+
+
+def phase_tp(card: str) -> dict:
     """Both engines over TP_WORLD ranks (``shard(mesh)``, TP over
-    "model"): a card per rank over NCCL where there are enough cards,
-    else every rank on cuda:0 over gloo. Prints each rank's line, then
-    the phase's: the backend, the ranks per card, each model's call_s,
-    decode ms a step and all-reduces a step with their ms, and each
-    row's first token that differs from the single-card stream of the
-    same seed (``single``: the read and reasoning phases' streams; bf16
-    and int8 products round otherwise in a rank's partial sums, so rows
-    may leave at near-ties). The ranks' ids must be equal, and the narrow
-    fp32 models' tokens equal to their single-card tokens."""
+    "model"), at the depths ``REDUCED`` names: a card per rank over NCCL
+    where there are enough cards, else every rank on cuda:0 over gloo.
+    Prints each rank's line, then the phase's: the backend, the ranks per
+    card, each model's call_s, decode ms a step and all-reduces a step
+    with their ms, and each row's first token that differs from the
+    single-card stream of the same seed and depth (``_tp_single``, run
+    first; bf16 and int8 products round otherwise in a rank's partial
+    sums, so rows may leave at near-ties). The ranks' ids must be equal,
+    and the narrow fp32 models' tokens equal to their single-card
+    tokens."""
     gc.collect()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
+    single = _tp_single()
+    single_s = time.perf_counter() - t0
     ranks = _spawn_ranks(TP_WORLD, _tp_rank, TP_TIMEOUT_S)
     phase_s = time.perf_counter() - t0
     for r in ranks:
         emit(phase="tp_rank", **{k: v for k, v in r.items() if k != "reference"}
              | {m: {k: v for k, v in r[m].items() if k != "streams"}
                 for m in ("qwen3", "vl")})
-    record = dict(phase="tp", card=card, world=TP_WORLD,
-                  backend=ranks[0]["backend"],
+    record = dict(phase="tp", card=card, reduced=REDUCED["phase_tp"],
+                  world=TP_WORLD, backend=ranks[0]["backend"],
                   ranks_per_card=-(-TP_WORLD // torch.cuda.device_count()),
-                  phase_s=phase_s, parent_resident_gb=resident,
+                  phase_s=phase_s, single_card_s=single_s,
+                  parent_resident_gb=resident,
                   new_tokens=TP_NEW_TOKENS, pool_context=TP_CONTEXT,
                   peak_memory_gb=[{m: r[m]["peak_memory_gb"]
                                    for m in ("qwen3", "vl")} for r in ranks],
@@ -4305,7 +4599,7 @@ def _grads(params, cfg, batch, grid):
     return float(loss), grads
 
 
-def phase_train_grad_check(cfg, card: str) -> dict:
+def phase_train_grad_check(card: str) -> dict:
     """Gradients through the kernels against gradients through their plain
     versions, at full width and reduced depth (vision 2 blocks: one
     window, one global; text 2 layers), on the train phase's page: once
@@ -4323,10 +4617,7 @@ def phase_train_grad_check(cfg, card: str) -> dict:
     from handwritten_ocr_tpu_torch.ops.window_attention import (
         window_attention_plain)
 
-    small = dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, depth=2,
-                                        fullatt_block_indexes=(1,)),
-        text=dataclasses.replace(cfg.text, num_hidden_layers=2))
+    small = reduced_configs("phase_train_grad_check")["vl"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as work:
@@ -4385,6 +4676,7 @@ def phase_train_grad_check(cfg, card: str) -> dict:
         del params, grads_k, grads_p
         torch.cuda.empty_cache()
     record = dict(phase="train_grad_check", card=card,
+                  reduced=REDUCED["phase_train_grad_check"],
                   config="VLConfig() widths, vision 2 blocks, text 2 layers",
                   tokens=batch.input_ids.numel(), **out)
     emit(**record)
@@ -4429,8 +4721,7 @@ SHARDED_FP32_TOL = 2e-4   # abs and rel, tests/test_torch_train_sharded.py's
 # 60 layers the loss may move by this share of itself (FSDP gathers the
 # weights exactly and computes each row as one card does)
 SHARDED_BF16_LOSS_RTOL = 1e-2
-FSDP_DEPTH = 2            # layers and blocks of the fsdp_serving models
-FSDP_NEW_TOKENS = 4       # each decode step gathers the model over gloo
+FSDP_NEW_TOKENS = REDUCED["phase_fsdp_serving"]["new_tokens"][0]
 
 
 def _meta_vl(cfg) -> dict:
@@ -4569,22 +4860,25 @@ def _tree_like(tree, leaves: list):
 
 def _sharded_full_width(mesh, fsdp: bool, counter: _Collectives,
                         steps: int) -> dict:
-    """olmOCR-2-7B (``VLConfig()``, full width and depth) in bf16 over
-    ``mesh``: TP slices drawn from the train phase's seed one layer at a
-    time, or (FSDP) the whole tree drawn and this rank's "data" blocks
-    kept. The plan printed before the state is allocated; ``steps``
+    """olmOCR-2-7B (``VLConfig()`` widths at the depth ``REDUCED`` names)
+    in bf16 over ``mesh``: TP slices drawn from the train phase's seed one
+    layer at a time, or (FSDP) the whole tree drawn and this rank's "data"
+    blocks kept. The plan printed before the state is allocated; ``steps``
     steps of the train phase's page (one row per data rank), each
-    counted from 0: flash / window launches, all-reduces with bytes and
+    counted from 0: flash / window launches (a launch per global block
+    and text layer / per windowed block), all-reduces with bytes and
     ms, wall ms, peak memory; the first step's loss."""
     from handwritten_ocr_tpu_torch.models.init import init_vl
-    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
     from handwritten_ocr_tpu_torch.parallel.budget import tree_bytes
     from handwritten_ocr_tpu_torch.parallel.sharding import (param_shardings,
                                                              shard_params)
     from handwritten_ocr_tpu_torch.train.data import shard_batch
     from handwritten_ocr_tpu_torch.train.step import make_train_step
 
-    cfg = VLConfig()
+    cfg = reduced_configs("phase_train_sharded")["vl"]
+    n_global = len(cfg.vision.fullatt_block_indexes)
+    want_launches = (n_global + cfg.text.num_hidden_layers,
+                     cfg.vision.depth - n_global)
     data = mesh.size(0)
     mine = tree_bytes(shard_params(mesh, _meta_vl(cfg), fsdp=fsdp))
     plan = dict(params=mine, grads=mine, mu=mine, nu=mine,
@@ -4629,7 +4923,7 @@ def _sharded_full_width(mesh, fsdp: bool, counter: _Collectives,
         if not math.isfinite(loss):
             raise AssertionError(f"sharded step {i + 1}: loss {loss}")
         if (launches["flash_attention"], launches["window_attention"]) \
-                != (32, 28):
+                != want_launches:
             raise AssertionError(f"sharded step {i + 1}: launches {launches}")
         records.append(dict(step=i + 1, loss=loss, wall_ms=wall_ms,
                             collectives=counter.read(),
@@ -4665,25 +4959,43 @@ def _train_sharded_rank(rank: int, world: int) -> dict:
     return record
 
 
-def phase_train_sharded(card: str, single: dict) -> dict:
+def _single_card_loss(cfg) -> float:
+    """The first train step's loss of ``cfg`` on one card: the train
+    phase's loss (``next_token_loss``) on its page, over the weights the
+    train phase draws (its seed) at ``cfg``'s depth, before any update."""
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    from handwritten_ocr_tpu_torch.train.step import next_token_loss
+    params = init_vl(cfg, dtype=torch.bfloat16, device="cuda", seed=SEED)
+    batch, grid = _sharded_batch(cfg, 1)
+    with torch.no_grad():
+        loss = float(next_token_loss(params, cfg, batch, grid))
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def phase_train_sharded(card: str) -> dict:
     """Sharded fine-tuning over SHARDED_WORLD ranks (NCCL with a card
     each where there are enough cards, else both on cuda:0 over gloo):
     the narrow fp32 model's step sharded equal to its single-card step
     (loss, gradients, updated leaves within SHARDED_FP32_TOL), then
-    olmOCR-2-7B at full width and depth in bf16, TP = 2 and FSDP over 2
-    data ranks, with each rank's plan, peak, step ms, all-reduces and
-    launches, and the first step's loss beside the single-card train
-    phase's (``single``) within SHARDED_BF16_LOSS_RTOL."""
+    olmOCR-2-7B at full width in bf16 at the depth ``REDUCED`` names,
+    TP = 2 and FSDP over 2 data ranks, with each rank's plan, peak, step
+    ms, all-reduces and launches, and the first step's loss within
+    SHARDED_BF16_LOSS_RTOL of the single-card loss at the same depth
+    (``_single_card_loss``, run first)."""
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    want = _single_card_loss(reduced_configs("phase_train_sharded")["vl"])
     ranks = _spawn_ranks(SHARDED_WORLD, _train_sharded_rank,
                          SHARDED_TIMEOUT_S)
     phase_s = time.perf_counter() - t0
     for r in ranks:
         emit(phase="train_sharded_rank", **r)
-    want = single["losses"][0]
-    record = dict(phase="train_sharded", card=card, world=SHARDED_WORLD,
+    record = dict(phase="train_sharded", card=card,
+                  reduced=REDUCED["phase_train_sharded"], world=SHARDED_WORLD,
                   backend=ranks[0]["backend"],
                   ranks_per_card=-(-SHARDED_WORLD
                                    // torch.cuda.device_count()),
@@ -4716,7 +5028,7 @@ def phase_train_sharded(card: str, single: dict) -> dict:
 def _fsdp_serving_rank(rank: int, world: int) -> dict:
     """One rank of fsdp_serving: the read cell's 8 reads (olmOCR-2-7B
     widths, bf16) and the reasoning cell's 8 turns (qwen3:32b widths,
-    int8), FSDP_DEPTH layers and blocks each, FSDP_NEW_TOKENS tokens,
+    int8), at the depths ``REDUCED`` names, FSDP_NEW_TOKENS tokens,
     first through the whole model on this card, then through engines
     built with ``shard(mesh, fsdp=True)`` over a (world, 1) mesh, counted
     from 0 (flash, window, the int8 paged kernel and the int8 matmul
@@ -4727,19 +5039,14 @@ def _fsdp_serving_rank(rank: int, world: int) -> dict:
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchOCRBackend, TorchPreprocessor, TorchReasoningBackend)
     from handwritten_ocr_tpu_torch.models.init import init_qwen3, init_vl
-    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
     from handwritten_ocr_tpu_torch.models.qwen25vl.model import VLModel
-    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
     from handwritten_ocr_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(model_parallel=1)
-    full = VLConfig()
-    vl_cfg = dataclasses.replace(
-        full, vision=dataclasses.replace(full.vision, depth=FSDP_DEPTH,
-                                         fullatt_block_indexes=(1,)),
-        text=dataclasses.replace(full.text, num_hidden_layers=FSDP_DEPTH))
-    q_cfg = dataclasses.replace(Qwen3Config(eos_token_id=-1),
-                                num_hidden_layers=FSDP_DEPTH)
+    cfgs = reduced_configs("phase_fsdp_serving")
+    vl_cfg = cfgs["vl"]
+    q_cfg = dataclasses.replace(cfgs["qwen3"], eos_token_id=-1)
     prep = TorchPreprocessor()
     images = [prep.apply(page, s) for page in synthetic_pages(4)
               for s in PREPROCESSING_STRATEGIES[:2]]
@@ -4796,18 +5103,17 @@ def _fsdp_serving_rank(rank: int, world: int) -> dict:
 def phase_fsdp_serving(card: str) -> dict:
     """Both engines built with ``shard(mesh, fsdp=True)`` over
     SHARDED_WORLD data ranks (each layer gathered over "data" just before
-    it runs; every rank serves every request), at full width and
-    FSDP_DEPTH layers (every decode step gathers the whole model through
-    gloo's host copies on one card): each row's first token that leaves
+    it runs; every rank serves every request), at full width and the
+    depths ``REDUCED`` names (every decode step gathers the whole model
+    through gloo's host copies on one card): each row's first token that leaves
     the same model's single-card stream (FSDP gathers the weights
     exactly, so none should), call_s, all-reduces, peak, launches."""
     t0 = time.perf_counter()
     ranks = _spawn_ranks(SHARDED_WORLD, _fsdp_serving_rank,
                          SHARDED_TIMEOUT_S)
     record = dict(phase="fsdp_serving", card=card, world=SHARDED_WORLD,
-                  backend=ranks[0]["backend"], depth=FSDP_DEPTH,
-                  depth_cut=("every decode step gathers the whole model "
-                             "over gloo through host memory"),
+                  backend=ranks[0]["backend"],
+                  reduced=REDUCED["phase_fsdp_serving"],
                   new_tokens=FSDP_NEW_TOKENS,
                   phase_s=time.perf_counter() - t0)
     for model in ("vl", "qwen3"):
@@ -4857,11 +5163,14 @@ def phase_kernels_train_tp(cfg, tokens: int) -> list[dict]:
 
 def main() -> int:
     from handwritten_ocr_tpu_torch.config import OCR_PROMPT
+    from handwritten_ocr_tpu_torch.engine.torch_engines import (
+        TorchReasoningBackend)
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3
     from handwritten_ocr_tpu_torch.models.processor import (ByteTokenizer,
                                                             llm_chat_prompt,
                                                             vlm_chat_prompt)
     from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
-    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
 
     info = phase_device()
     for name in ("HOCR_SPEC", "HOCR_VL_SERVING", "HOCR_LLM_SERVING",
@@ -4885,15 +5194,26 @@ def main() -> int:
             "chat": phase_reasoning(qcfg, turns)}
     paths = {"ocr_read": int8["read"]["launches"],
              "reasoning": int8["chat"]["launches"]}
-    # The guided and pipeline phases decode with the published EOS id.
+    # qwen3:32b with the published EOS id stays resident from here to the
+    # dense phase; the guided, speculative, cli and pipeline phases run
+    # depth-cut engines over it (REDUCED), pool_plan the whole model.
+    qparams = init_qwen3(Qwen3Config(), dtype=torch.bfloat16, device="cuda",
+                         seed=SEED, quantize="int8")
     reasoner, paths["guided"], guided_seen = phase_guided(
-        Qwen3Config(), turns, info["smi"])
+        qparams, turns, info["smi"])
     paths["speculative"] = phase_speculative(
         reasoner, turns, info["smi"], guided_seen["agents"]["editor"])["launches"]
+    reasoner._batcher = None
+    reasoner = TorchReasoningBackend(Qwen3Model(qparams, Qwen3Config()),
+                                     dense_tokenizer(), kv_quant=True)
     ocr, _ = phase_pool_plan(cfg, reasoner, prompt_len, info["smi"])
-    cli = phase_cli(ocr, reasoner, info["smi"])
+    ocr_cut, reasoner_cut = cut_engines(ocr, reasoner, "phase_cli")
+    cli = phase_cli(ocr_cut, reasoner_cut, info["smi"])
     paths["cli"] = cli["cli"]["launches"]
-    run = phase_pipeline(ocr, reasoner, info["smi"], cli["seen"])
+    run = phase_pipeline(ocr_cut, reasoner_cut, info["smi"], cli["seen"])
+    del ocr_cut, reasoner_cut       # their pools go before parity's
+    gc.collect()
+    torch.cuda.empty_cache()
     # the pipeline path: the CLI's lockstep run and the resumed run, each
     # counted from 0
     paths["pipeline"] = {name: cli["run_many"]["launches"][name]
@@ -4903,22 +5223,21 @@ def main() -> int:
     paths["dense"] = dense["launches"]
     paths["fp_kv_read"] = dense["fp_kv"]["calls"]["read_batch"]["launches"]
     paths["fp_kv_chat"] = dense["fp_kv"]["calls"]["chat_batch"]["launches"]
-    del reasoner, ocr
+    del reasoner, ocr, qparams
     gc.collect()                # both models go before the last phases
     torch.cuda.empty_cache()
-    paths["convert"] = phase_convert(info["smi"])["launches"]
-    tp = phase_tp(info["smi"], {"read": int8["read"]["streams"],
-                                "chat": int8["chat"]["streams"]})
-    paths["tp"] = tp["launches"]
+    convert = phase_convert(info["smi"])
+    paths["convert"] = convert["launches"]
+    paths["convert_fp32"] = convert["fp32_launches"]
+    paths["tp"] = phase_tp(info["smi"])["launches"]
     phase_ring(info["smi"])
     train = phase_train(cfg, info["smi"])
     paths["train"] = train["launches"]
-    paths["train_sharded"] = phase_train_sharded(info["smi"],
-                                                 train)["launches"]
+    paths["train_sharded"] = phase_train_sharded(info["smi"])["launches"]
     paths["fsdp_serving"] = phase_fsdp_serving(info["smi"])["launches"]
-    phase_train_grad_check(cfg, info["smi"])
+    phase_train_grad_check(info["smi"])
     phase_loaders(info["smi"])
-    phase_reference(info["smi"])
+    paths["reference"] = phase_reference(info["smi"])["launches_all"]
     rows += phase_kernels_paths(cfg, Qwen3Config(), prompt_len, {
         "guided": guided_seen, "pipeline": cli["seen"]})
     rows += phase_kernels_decode_modes(cfg, Qwen3Config(), prompt_len, q_prompt_len,
@@ -4926,6 +5245,7 @@ def main() -> int:
     rows += phase_kernels_train(cfg, train["tokens"])
     rows += phase_kernels_train_tp(cfg, train["tokens"])
     rows += phase_kernels_tp(cfg, Qwen3Config(), prompt_len, q_prompt_len)
+    rows += phase_kernels_fp32(cfg, Qwen3Config(), prompt_len)
     kernels = []
     for r in rows:
         kernels.append({key: r[key] for key in (
@@ -4943,8 +5263,9 @@ def main() -> int:
             | {f"{path}_launches": paths[path][r["counter"]]
                for path in ("guided", "pipeline", "cli", "parity",
                             "speculative", "dense", "fp_kv_read",
-                            "fp_kv_chat", "convert", "train", "tp",
-                            "train_sharded", "fsdp_serving")})
+                            "fp_kv_chat", "convert", "convert_fp32", "train",
+                            "tp", "train_sharded", "fsdp_serving",
+                            "reference")})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

@@ -8,6 +8,7 @@ TPU-only knobs (mesh axes, decode block) have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Sequence
 
 # ── Reasoning-LLM configuration ─────────────────────────────────────
@@ -63,8 +64,9 @@ SERVE_PREFILL_BUCKET = 128
 # engine on every device; a caller passes kv_quant=False for fp pools.
 SERVE_KV_INT8 = True
 # Pages per vision-tower call: wider batches encode in sequential chunks,
-# which caps the tower's activation memory at one chunk.
-SERVE_VISION_CHUNK = 8
+# which caps the tower's activation memory at one chunk. Read once, at
+# import, from ``HOCR_VISION_CHUNK`` (as the JAX package does).
+SERVE_VISION_CHUNK = int(os.environ.get("HOCR_VISION_CHUNK", "8"))
 # Device memory the KV pool plan keeps back for everything but weights and
 # pools: vision-tower chunks, prefill groups (PREFILL_GROUP_TOKENS rows of
 # the 32B model's MLP), logits and kernel workspaces (parallel/budget.py;

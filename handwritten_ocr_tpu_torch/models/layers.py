@@ -2,7 +2,8 @@
 
 Numerics follow the JAX package: RMSNorm statistics in fp32 with a cast
 back, fp32 softmax, rotary embedding in fp32 (or in bf16 for bf16 inputs,
-the fast path). Parameters are plain dicts of tensors in PyTorch's layout:
+the fast path, unless ``HOCR_TPU_ROPE_FP32`` is set). Parameters are
+plain dicts of tensors in PyTorch's layout:
 
   linear:  {"w": [out, in], optional "b": [out]}   (JAX stores w as [in, out])
            or weight-only int8 {"w_q": int8 [out, in], "w_scale": f32 [out]}
@@ -22,6 +23,8 @@ training step differentiates them; serving's values are the same).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.distributed as dist
@@ -169,9 +172,15 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
 
     q/k: [..., T, H, D]; cos/sin broadcastable to [..., T, 1, D]. bf16
     inputs compute in bf16 (the fast path, within 1 bf16 ulp of the exact
-    result); every other dtype computes in fp32 (the exact path).
+    result) unless ``HOCR_TPU_ROPE_FP32`` is set and non-empty (read at
+    each call, as the JAX package does): then, as every other dtype, in
+    fp32 (the exact path). The window kernel and its plain version rope
+    in their own way whatever the variable says, as JAX's window kernel
+    does.
     """
-    compute = q.dtype if q.dtype == torch.bfloat16 else torch.float32
+    fast = (q.dtype == torch.bfloat16
+            and not os.environ.get("HOCR_TPU_ROPE_FP32"))
+    compute = q.dtype if fast else torch.float32
     qf, kf = q.to(compute), k.to(compute)
     cosf, sinf = cos.to(compute), sin.to(compute)
     q_rot = qf * cosf + rotate_half(qf) * sinf

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from handwritten_ocr_tpu_torch.config import SERVE_VISION_CHUNK
+from handwritten_ocr_tpu_torch import config as cfg_mod
 from handwritten_ocr_tpu_torch.models.layers import (argmax_ids, embed,
                                                      gather_columns,
                                                      group_size)
@@ -111,8 +111,9 @@ class VLModel:
 
     def vision_embeds(self, patches: torch.Tensor, grid) -> torch.Tensor:
         """Vision tower over ``patches [B, S, C·T·ps·ps]``, in sequential
-        chunks of SERVE_VISION_CHUNK pages (caps activation memory)."""
-        chunk = max(1, SERVE_VISION_CHUNK)
+        chunks of ``config.SERVE_VISION_CHUNK`` pages (caps activation
+        memory; read at each call, as the JAX model reads it)."""
+        chunk = max(1, cfg_mod.SERVE_VISION_CHUNK)
         gather = scoped(self.gather, "vision")
         outs = [vision_encode(self.params["vision"], self.config.vision,
                               patches[lo:lo + chunk], grid, self.group,
