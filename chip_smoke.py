@@ -166,10 +166,14 @@ Phases, each printing one JSON line:
      it, taken from those runs: flash prefill at each agent's largest
      prefill group, int8 paged attention at its longest prompt plus the
      budget, and vision flash, window, the VL prefill and the read's
-     paged attention at every read batch other than 8; then paged
-     attention over int8 and over bf16 pools at 17 query tokens (a verify
-     round, appends across a page boundary) at 64:8 and 28:4 heads, flash
-     at the dense prefills and the int8 matmul at one row;
+     paged attention at every read batch other than 8 (at the
+     pipeline's shapes over bf16 pools too); then paged attention over
+     int8 and over bf16 pools at 17 query tokens (a verify round,
+     appends across a page boundary) at 64:8 and 28:4 heads, flash at
+     the dense prefills and the int8 matmul at one row; then paged
+     attention over both pools at the qwen3:32b decode shapes of
+     PERF.md section 6 that no run fixes (``PAGED_TABLE_ROWS``); every
+     paged and int8 row also holds two calls bit-equal;
  13. train (after both serving models are dropped; less than 1 GiB may
      be resident): olmOCR-2-7B (``VLConfig()``, full width and depth) in
      bf16; the plan (params, grads, mu, nu) against the card; one
@@ -712,6 +716,12 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
     got = paged_append_attention(q, k_new, v_new, k_pool, v_pool, tables,
                                  start, n_valid, *scales, layer=layer,
                                  scale=tscale)
+    again = paged_append_attention(q, k_new, v_new, k_pool, v_pool, tables,
+                                   start, n_valid, *scales, layer=layer,
+                                   scale=tscale)
+    if not torch.equal(got, again):   # the merge's fixed order
+        raise AssertionError(f"{name} {case}: two calls differ")
+    del again
     want = paged_append_attention_plain(q, k_new, v_new, refs[0], refs[1],
                                         tables, start, n_valid, *refs[2:],
                                         layer=layer, scale=tscale)
@@ -828,7 +838,7 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
                       out_dtype, gen, path: str,
                       x_dtype=torch.bfloat16) -> dict:
     """The int8 matmul at a decode shape against its plain version (x in
-    ``x_dtype``: fp32 x runs the fp32-x body); the
+    ``x_dtype``: fp32 x runs the fp32-x body), two calls bit-equal; the
     library yardstick is ``torch.mm`` on the weight dequantised to
     ``x_dtype`` (it reads 2 or 4 bytes per weight where the kernel reads
     1). ``ms`` times a back-to-back loop of wrapper calls, which the host can set at small N;
@@ -846,6 +856,8 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
                         dtype=torch.int8)
     scale = torch.rand(d_out, generator=gen, device=dev) * 1e-3 + 1e-4
     got = int8_matmul(x, w_q, scale, out_dtype=out_dtype)
+    if not torch.equal(got, int8_matmul(x, w_q, scale, out_dtype=out_dtype)):
+        raise AssertionError(f"int8_matmul {case}: two calls differ")
     want = int8_matmul_plain(x, w_q, scale, out_dtype)
     cmp = _compare(f"int8_matmul {case}", got, want)
     del got, want
@@ -983,7 +995,10 @@ def phase_kernels_paths(cfg, qcfg, prompt_len: int, seen: dict) -> list[dict]:
     longest prompt plus the agent budget (64:8 heads); for every OCR read
     batch other than the read phase's 8, vision flash, window, the VL
     prefill and int8 paged attention (28:4 heads, prompt plus the OCR
-    budget) at that batch. Runs last, when no model is resident."""
+    budget) at that batch. At the pipeline's shapes (1-4 live slots) the
+    paged kernel also runs its bf16-pool body (path fp_kv_chat / fp_kv_read:
+    the fp-KV paths that launch it). Runs last, when no model is
+    resident."""
     from handwritten_ocr_tpu_torch import config as cfg_mod
     from handwritten_ocr_tpu_torch.models.qwen25vl.vision import plan_grid
 
@@ -1005,11 +1020,16 @@ def phase_kernels_paths(cfg, qcfg, prompt_len: int, seen: dict) -> list[dict]:
                 f"qwen3_{agent}_prefill_causal", path, n, bucket,
                 qcfg.num_attention_heads, qcfg.num_key_value_heads,
                 qcfg.head_dim, gen, causal=True))
-            rows.append(_paged_case(
-                "paged_append_attention", f"qwen3_{agent}_decode_int8", slots,
-                min(len(longest), slots), max(longest) + run["llm_budget"],
-                qcfg.num_hidden_layers, qcfg.num_attention_heads,
-                qcfg.num_key_value_heads, qcfg.head_dim, True, gen, path))
+            for kv_quant in ((True, False) if path == "pipeline" else (True,)):
+                # the pipeline's 1-4 live shapes also over bf16 pools (the
+                # fp-KV body, which the fp_kv chat path runs)
+                rows.append(_paged_case(
+                    "paged_append_attention",
+                    f"qwen3_{agent}_decode{'_int8' if kv_quant else ''}", slots,
+                    min(len(longest), slots), max(longest) + run["llm_budget"],
+                    qcfg.num_hidden_layers, qcfg.num_attention_heads,
+                    qcfg.num_key_value_heads, qcfg.head_dim, kv_quant, gen,
+                    path if kv_quant else "fp_kv_chat"))
         for b in sorted(set(run.get("read_batches", ())) - {8}):
             rows += [
                 _flash_case(f"vision_global_b{b}", path, b, len(plan.valid),
@@ -1020,11 +1040,14 @@ def phase_kernels_paths(cfg, qcfg, prompt_len: int, seen: dict) -> list[dict]:
                 _flash_case(f"prefill_causal_b{b}", path, b, vl_bucket,
                             txt.num_attention_heads, txt.num_key_value_heads,
                             txt.head_dim, gen, causal=True),
-                _paged_case("paged_append_attention", f"decode_step_int8_b{b}",
-                            slots, b, prompt_len + run["ocr_budget"],
-                            txt.num_hidden_layers, txt.num_attention_heads,
-                            txt.num_key_value_heads, txt.head_dim, True, gen,
-                            path)]
+                *[_paged_case("paged_append_attention",
+                              f"decode_step{'_int8' if kv_quant else ''}_b{b}",
+                              slots, b, prompt_len + run["ocr_budget"],
+                              txt.num_hidden_layers, txt.num_attention_heads,
+                              txt.num_key_value_heads, txt.head_dim, kv_quant,
+                              gen, path if kv_quant else "fp_kv_read")
+                  for kv_quant in ((True, False) if path == "pipeline"
+                                   else (True,))]]
     rows = [with_ratio(r) for r in rows]
     for r in rows:
         emit(phase="kernel", **r)
@@ -3686,6 +3709,40 @@ def phase_kernels_decode_modes(cfg, qcfg, prompt_len: int, q_prompt_len: int,
     return rows
 
 
+# The paged kernel's qwen3:32b decode rows of PERF.md section 6 whose
+# shapes the runs above do not fix (the pipeline's walk at its cut depth,
+# the guided path's fp-KV twin): (case, live slots of 24, cached context).
+PAGED_TABLE_ROWS = (("pipeline_critic", 3, 2609),
+                    ("pipeline_editor", 3, 1590),
+                    ("pipeline_arbitrator", 1, 1755),
+                    ("guided_critic", 8, 3080),
+                    ("guided_editor", 8, 2415))
+
+
+def phase_kernels_paged_table(qcfg) -> list[dict]:
+    """The paged kernel at the decode shapes of PERF.md section 6 that no
+    run above fixes, both tensor-core bodies (int8 pools: the path each
+    row is named after; bf16 pools: the fp-KV chat path that runs that
+    body), each held to its plain version and timed beside SDPA. Runs
+    when no model is resident."""
+    from handwritten_ocr_tpu_torch import config as cfg_mod
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    rows = []
+    for case, live, context in PAGED_TABLE_ROWS:
+        for kv_quant in (True, False):
+            rows.append(_paged_case(
+                "paged_append_attention",
+                f"table_{case}_decode{'_int8' if kv_quant else ''}",
+                cfg_mod.SERVE_SLOTS, live, context, qcfg.num_hidden_layers,
+                qcfg.num_attention_heads, qcfg.num_key_value_heads,
+                qcfg.head_dim, kv_quant, gen,
+                case.split("_")[0] if kv_quant else "fp_kv_chat"))
+    rows = [with_ratio(r) for r in rows]
+    for r in rows:
+        emit(phase="kernel", **r)
+    return rows
+
+
 def phase_kernels_fp32(cfg, qcfg, prompt_len: int) -> list[dict]:
     """The kernels' fp32 bodies at full width: flash, window and paged
     attention at the shapes the convert phase's fp32 read gives them
@@ -5242,6 +5299,7 @@ def main() -> int:
         "guided": guided_seen, "pipeline": cli["seen"]})
     rows += phase_kernels_decode_modes(cfg, Qwen3Config(), prompt_len, q_prompt_len,
                                  dense["json_prompt_tokens"])
+    rows += phase_kernels_paged_table(Qwen3Config())
     rows += phase_kernels_train(cfg, train["tokens"])
     rows += phase_kernels_train_tp(cfg, train["tokens"])
     rows += phase_kernels_tp(cfg, Qwen3Config(), prompt_len, q_prompt_len)

@@ -86,6 +86,13 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// A fence at GPU scope with acquire-release semantics: one thread releases
+// (or acquires) the block's writes around an arrival counter, after (or
+// before) a __syncthreads().
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
 // ---- int8 -> bf16 without conversion instructions ------------------------
 
 // The four int8 values of `word` as two bf16 pairs: lo = bytes 0, 1 and

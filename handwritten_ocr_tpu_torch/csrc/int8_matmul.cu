@@ -38,8 +38,8 @@
 // counter to 0 — one launch, deterministic, and capturable in a CUDA graph.
 // The ragged last k tile and ragged N are zero-filled in the loads; K not a
 // multiple of 16 or unaligned pointers take byte loads into the same ring.
-// fp32 x (tests, the fp32 reference) takes a plain FMA kernel, one warp per
-// channel.
+// fp32 x (the fp32 reference runs) takes an FMA body of its own
+// (int8_f32_kernel, described above it) with the same split-K merge.
 #include "hopper.cuh"
 
 namespace {
@@ -49,7 +49,6 @@ namespace {
 constexpr int BK = 128;           // k per tile
 constexpr int STAGES = 4;
 constexpr int MAX_M = 32;
-constexpr int SIMT_WARPS = 4;     // the fp32 kernel
 
 struct MatArgs {
   const void* x;
@@ -165,12 +164,51 @@ __device__ __forceinline__ void mma_tile(float (&acc)[TILES][4], const int8_t* s
   }
 }
 
+// After a split's block has stored its fp32 partial [M][BN] of channel
+// tile `tile`: the last block of the tile to arrive (an arrival counter in
+// a zeroed workspace) sums the partials in split order, applies the scale,
+// casts, writes and resets the counter to 0.
+template <typename OUT, int BN, int NTHREADS>
+__device__ void arrive_and_merge(const MatArgs& a, int tile, int ch0) {
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const float* part = a.partial + (size_t)tile * a.split * a.m * BN;
+  __threadfence();     // this split's partial is visible before it arrives
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(a.counters + tile, 1) == a.split - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();     // every split's partial is visible to the last block
+  // Four channels per thread and step: 16-byte loads, many in flight.
+  const float4* part4 = reinterpret_cast<const float4*>(part);
+  const size_t split_stride = (size_t)a.m * BN / 4;
+  for (int idx = tid; idx < a.m * BN / 4; idx += NTHREADS) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int y = 0; y < a.split; ++y) {   // in split order: deterministic
+      const float4 v = __ldcg(part4 + y * split_stride + idx);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int row = idx / (BN / 4), c = 4 * (idx % (BN / 4));
+    const float sums[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ch = ch0 + c + e;
+      if (ch < a.n)
+        static_cast<OUT*>(a.out)[(size_t)row * a.n + ch] = from_f<OUT>(sums[e] * a.scale[ch]);
+    }
+  }
+  if (tid == 0) a.counters[tile] = 0;   // ready for the next launch
+}
+
 template <typename OUT, int WARPS, int TILES, bool ALIGNED>
 __global__ void __launch_bounds__(32 * WARPS, 16 / WARPS)
 int8_mma_kernel(const MatArgs a) {
   constexpr int NTHREADS = 32 * WARPS, BN = 16 * WARPS;
   extern __shared__ __align__(128) uint8_t smem[];
-  __shared__ int s_last;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
@@ -230,61 +268,199 @@ int8_mma_kernel(const MatArgs a) {
       const int c = 16 * warp + g + (e < 2 ? 0 : 8);
       if (row < a.m) part[((size_t)split * a.m + row) * BN + c] = acc[j][e];
     }
-  __threadfence();     // this split's partial is visible before it arrives
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(a.counters + tile, 1) == a.split - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();     // every split's partial is visible to the last block
-  // Four channels per thread and step: 16-byte loads, many in flight.
-  const float4* part4 = reinterpret_cast<const float4*>(part);
-  const size_t split_stride = (size_t)a.m * BN / 4;
-  for (int idx = tid; idx < a.m * BN / 4; idx += NTHREADS) {
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int y = 0; y < a.split; ++y) {   // in split order: deterministic
-      const float4 v = __ldcg(part4 + y * split_stride + idx);
-      sum.x += v.x;
-      sum.y += v.y;
-      sum.z += v.z;
-      sum.w += v.w;
-    }
-    const int row = idx / (BN / 4), c = 4 * (idx % (BN / 4));
-    const float sums[4] = {sum.x, sum.y, sum.z, sum.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ch = ch0 + c + e;
-      if (ch < a.n)
-        static_cast<OUT*>(a.out)[(size_t)row * a.n + ch] = from_f<OUT>(sums[e] * a.scale[ch]);
-    }
-  }
-  if (tid == 0) a.counters[tile] = 0;   // ready for the next launch
+  arrive_and_merge<OUT, BN, NTHREADS>(a, tile, ch0);
 }
 
-// fp32 x: one warp per output channel, lanes stride over k, M fp32 sums
-// per lane reduced across the warp; scale on the fp32 sum.
-__global__ void __launch_bounds__(32 * SIMT_WARPS)
-int8_simt_kernel(const MatArgs a) {
-  const int lane = threadIdx.x % 32;
-  const int ch = blockIdx.x * SIMT_WARPS + threadIdx.x / 32;
-  if (ch >= a.n) return;
-  const float* x = static_cast<const float*>(a.x);
-  const int8_t* w = a.w + (size_t)ch * a.k;
-  float acc[MAX_M];
+// ---- fp32 x: the FMA body --------------------------------------------------
+//
+// Replaces the first fp32-x kernel (one warp per output channel, lanes
+// stepping over k one byte each), in which every warp read all of x,
+// [M, K] fp32, from L2 again: 12.6 GB of L2 reads at a qwen3:32b gate of
+// 24 rows against 131 MB of weights. Bound: operations. The products stay
+// in full fp32 (no TF32: the TPU kernel widens exactly and sums in fp32,
+// and the fp32 reference runs exist to be exact), 2*M*N*K flops at the
+// card's 67 TFLOP/s of fp32 FMAs (the gate at 24 rows: 0.094 ms), well
+// above the weight read (0.039 ms).
+//
+// A block of 8 warps owns 128 output channels and walks its k range in
+// tiles of 128: the tile's W slice (128 x 128 int8, chunk j of row r at
+// chunk j ^ (r & 7)) and x slice (M rows x 128 fp32) go by 16-byte cp.async
+// into a 4-stage ring of shared memory, so x is read from L2 once per
+// block. Warp w takes k 16w .. 16w+15 of every tile, lane l channels l +
+// 32i (i < 4): a 16-byte read of each channel's 16 k (conflict-free by the
+// swizzle), widened to fp32 exactly by a byte permute and one subtraction
+// (0x4B0000uu is 2^23 + uu), then for each row m one broadcast 16-byte read
+// of x[m] and 16 FMAs into the lane's 4 x M fp32 sums: 16 FMAs per shared
+// memory read. The eight warps' sums meet in shared memory and are added
+// in warp order; the channel scale multiplies the fp32 sum. Where the
+// channels alone do not fill the SMs, K is split over blocks (grid.y) and
+// merged in the launch as in the bf16 body (arrive_and_merge).
+constexpr int F32_WARPS = 8;
+constexpr int F32_BN = 128;   // output channels per block: 4 per lane
+constexpr int F32_STAGES = 4;
+
+template <int MT> __host__ __device__ constexpr int f32_stage_bytes() {
+  return F32_BN * BK + MT * BK * (int)sizeof(float);   // W tile, then x rows
+}
+
+// One k tile into ring stage `sw` (W) / `sx` (x): 16-byte cp.async with
+// zero fill past N, M or k_end (ALIGNED), else element loads.
+template <int MT, bool ALIGNED>
+__device__ __forceinline__ void load_f32_tile(const MatArgs& a, int8_t* sw, float* sx, int ch0,
+                                              int k0, int k_end) {
+  constexpr int NTHREADS = 32 * F32_WARPS;
+  const int tid = threadIdx.x;
 #pragma unroll
-  for (int m = 0; m < MAX_M; ++m) acc[m] = 0.f;
-  for (int kk = lane; kk < a.k; kk += 32) {
-    const float wv = static_cast<float>(w[kk]);
+  for (int it = 0; it < F32_BN * (BK / 16) / NTHREADS; ++it) {
+    const int idx = it * NTHREADS + tid, r = idx / 8, j = idx % 8;
+    const int ch = ch0 + r, kk = k0 + 16 * j;
+    int8_t* dst = sw + r * BK + 16 * (j ^ (r & 7));
+    const int8_t* src = a.w + (size_t)ch * a.k + kk;
+    if constexpr (ALIGNED) {
+      const bool ok = ch < a.n && kk < k_end;
+      cp_async16_zfill(dst, ok ? src : a.w, ok);
+    } else {
+      uint32_t words[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int m = 0; m < MAX_M; ++m)
-      if (m < a.m) acc[m] = fmaf(x[(size_t)m * a.k + kk], wv, acc[m]);
+      for (int e = 0; e < 16; ++e) {
+        const uint32_t b = (ch < a.n && kk + e < k_end) ? static_cast<uint8_t>(src[e]) : 0u;
+        words[e / 4] |= b << (8 * (e % 4));
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(words[0], words[1], words[2], words[3]);
+    }
   }
-  const float sc = a.scale[ch];
+  const float* x = static_cast<const float*>(a.x);
+  for (int idx = tid; idx < MT * (BK / 4); idx += NTHREADS) {
+    const int r = idx / (BK / 4), j = idx % (BK / 4), kk = k0 + 4 * j;
+    float* dst = sx + r * BK + 4 * j;
+    const float* src = x + (size_t)r * a.k + kk;
+    if constexpr (ALIGNED) {
+      const bool ok = r < a.m && kk < k_end;
+      cp_async16_zfill(dst, ok ? src : x, ok);
+    } else {
 #pragma unroll
-  for (int m = 0; m < MAX_M; ++m) {
-    if (m >= a.m) break;
-    const float total = group_sum<32>(acc[m]);
-    if (lane == 0) static_cast<float*>(a.out)[(size_t)m * a.n + ch] = total * sc;
+      for (int e = 0; e < 4; ++e) dst[e] = (r < a.m && kk + e < k_end) ? src[e] : 0.f;
+    }
+  }
+}
+
+// The lane's channels lane + 32i against k 16 warp .. 16 warp + 15 of one
+// k tile in the ring.
+template <int MT>
+__device__ __forceinline__ void f32_tile(float (&acc)[4][MT], const int8_t* sw, const float* sx,
+                                         int warp, int lane) {
+  uint4 wr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = lane + 32 * i;
+    wr[i] = *reinterpret_cast<const uint4*>(sw + r * BK + 16 * (warp ^ (r & 7)));
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {   // k 16 warp + 4q .. + 3
+    float wf[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t word = (&wr[i].x)[q] ^ 0x80808080u;   // byte b -> b + 128
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        wf[i][e] = __uint_as_float(__byte_perm(word, 0x4B00u, 0x5440u | e)) - 8388736.f;
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float4 xv = *reinterpret_cast<const float4*>(sx + m * BK + 16 * warp + 4 * q);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][m] = fmaf(wf[i][0], xv.x, acc[i][m]);
+        acc[i][m] = fmaf(wf[i][1], xv.y, acc[i][m]);
+        acc[i][m] = fmaf(wf[i][2], xv.z, acc[i][m]);
+        acc[i][m] = fmaf(wf[i][3], xv.w, acc[i][m]);
+      }
+    }
+  }
+}
+
+template <int MT, bool ALIGNED>
+__global__ void __launch_bounds__(32 * F32_WARPS, 1)
+int8_f32_kernel(const MatArgs a) {
+  constexpr int NTHREADS = 32 * F32_WARPS, SB = f32_stage_bytes<MT>();
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int ch0 = tile * F32_BN;
+  const int k_begin = split * a.k_per_split;
+  const int k_end = min(a.k, k_begin + a.k_per_split);
+  const int n_kt = (k_end - k_begin + BK - 1) / BK;
+
+  float acc[4][MT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[i][m] = 0.f;
+  auto stage_w = [&](int i) { return reinterpret_cast<int8_t*>(smem + i * SB); };
+  auto stage_x = [&](int i) { return reinterpret_cast<float*>(smem + i * SB + F32_BN * BK); };
+#pragma unroll
+  for (int i = 0; i < F32_STAGES - 1; ++i) {
+    if (i < n_kt) load_f32_tile<MT, ALIGNED>(a, stage_w(i), stage_x(i), ch0, k_begin + i * BK, k_end);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_kt; ++i) {
+    cp_async_wait<F32_STAGES - 2>();
+    __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES is free
+    const int nxt = i + F32_STAGES - 1;
+    if (nxt < n_kt)
+      load_f32_tile<MT, ALIGNED>(a, stage_w(nxt % F32_STAGES), stage_x(nxt % F32_STAGES), ch0,
+                                 k_begin + nxt * BK, k_end);
+    cp_async_commit();
+    f32_tile<MT>(acc, stage_w(i % F32_STAGES), stage_x(i % F32_STAGES), warp, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: the warps' sums meet there
+
+  // Eight rows at a time: red[warp][row][channel], summed in warp order.
+  float* red = reinterpret_cast<float*>(smem);
+  float* part = a.partial + ((size_t)tile * a.split + split) * a.m * F32_BN;
+#pragma unroll
+  for (int m0 = 0; m0 < MT; m0 += 8) {
+#pragma unroll
+    for (int mm = 0; mm < 8; ++mm)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[(warp * 8 + mm) * F32_BN + lane + 32 * i] = acc[i][m0 + mm];
+    __syncthreads();
+    for (int idx = tid; idx < 8 * F32_BN; idx += NTHREADS) {
+      const int mm = idx / F32_BN, c = idx % F32_BN, row = m0 + mm, ch = ch0 + c;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < F32_WARPS; ++w) sum += red[(w * 8 + mm) * F32_BN + c];
+      if (row >= a.m) continue;
+      if (a.split > 1) part[(size_t)row * F32_BN + c] = sum;
+      else if (ch < a.n) static_cast<float*>(a.out)[(size_t)row * a.n + ch] = sum * a.scale[ch];
+    }
+    __syncthreads();   // red is rewritten by the next eight rows
+  }
+  if (a.split > 1) arrive_and_merge<float, F32_BN, NTHREADS>(a, tile, ch0);
+}
+
+template <int MT, bool ALIGNED>
+cudaError_t launch_f32(const MatArgs& a, cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  auto kernel = int8_f32_kernel<MT, ALIGNED>;
+  constexpr int smem = F32_STAGES * f32_stage_bytes<MT>();
+  static_assert(8 * F32_WARPS * F32_BN * sizeof(float) <= (size_t)smem, "the warps' sums fit the ring");
+  cudaError_t err = set_smem_once(kernel, smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + F32_BN - 1) / F32_BN, a.split);
+  kernel<<<grid, 32 * F32_WARPS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool ALIGNED>
+cudaError_t dispatch_f32(const MatArgs& a, cudaStream_t stream) {
+  switch ((a.m + 7) / 8) {
+    case 1: return launch_f32<8, ALIGNED>(a, stream);
+    case 2: return launch_f32<16, ALIGNED>(a, stream);
+    case 3: return launch_f32<24, ALIGNED>(a, stream);
+    case 4: return launch_f32<32, ALIGNED>(a, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -327,9 +503,9 @@ cudaError_t dispatch(const MatArgs& a, int block_channels, bool aligned,
 
 // One call's arguments in one record, as the Python wrapper packs them
 // (struct format "=7Q9i"): one ctypes argument to convert instead of 16.
-// x_dtype / out_dtype: 0 = float32, 1 = bfloat16 (fp32 x needs fp32 out
-// and split 1). block_channels: 64 or 128 output channels per block of
-// the bf16 kernel (BN). split > 1 needs bf16 x, `partial` of
+// x_dtype / out_dtype: 0 = float32, 1 = bfloat16 (fp32 x needs fp32 out).
+// block_channels: output channels per block (BN): 64 or 128 for bf16 x,
+// 128 for fp32 x. split > 1 needs `partial` of
 // ceil(N/BN)*split*M*BN fp32 and `counters` of ceil(N/BN) int32 that are 0
 // (the kernel leaves them 0); split y sums k in [y * k_per_split, (y + 1)
 // * k_per_split), a multiple of 64 when split > 1: the splits must cover K
@@ -369,9 +545,8 @@ HOCR_EXPORT int hocr_int8_matmul(const Int8MatmulCall* call) {
   a.k_per_split = c.k_per_split;
   cudaStream_t stm = static_cast<cudaStream_t>(c.stream);
   if (c.x_dtype == kFloat32) {
-    if (c.out_dtype != kFloat32 || c.split != 1) return cudaErrorInvalidValue;
-    int8_simt_kernel<<<(c.n + SIMT_WARPS - 1) / SIMT_WARPS, 32 * SIMT_WARPS, 0, stm>>>(a);
-    return cudaGetLastError();
+    if (c.out_dtype != kFloat32 || c.block_channels != F32_BN) return cudaErrorInvalidValue;
+    return c.aligned ? dispatch_f32<true>(a, stm) : dispatch_f32<false>(a, stm);
   }
   if (c.x_dtype != kBFloat16) return cudaErrorInvalidValue;
   if (c.out_dtype == kBFloat16)

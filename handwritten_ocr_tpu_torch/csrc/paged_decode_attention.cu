@@ -20,38 +20,38 @@
 // Bound: bytes. A decode step reads each live slot's cached K and V once
 // (bf16: 2 x 256 bytes per token and kv-head, 1 KB per token per layer at
 // 28:4 heads; int8: 2 x 128 bytes + 8 bytes of scales) and does ~4 flops
-// per byte. A decode step has few live slots x Hkv kv-heads, too few
-// blocks to fill 132 SMs if each walked a whole context, so every body
-// splits the context (flash-decoding) over blocks of `split_cols` cols. In
-// all of them, the block (row tile 0, split 0) appends the head's new rows
-// to the pool, and every block reads the cached cols < start from the pool
-// pages and the new cols start .. start+n_valid-1 from the call's own
-// rows, so no block reads a pool row another block is writing.
+// per byte. A decode step has few live slots x Hkv kv-heads, too few to
+// fill 132 SMs if each walked a whole context, so every body splits the
+// context (flash-decoding) over blocks. One block appends each (slot,
+// head)'s new rows to the pool, and every block reads the cached cols <
+// start from the pool pages and the new cols start .. start+n_valid-1 from
+// the call's own rows, so no block reads a pool row another block is
+// writing.
 //
 // Three bodies:
-// - bf16 q over bf16 pools (fp KV, HOCR_KV_INT8=0): paged_bf16_mma_kernel,
-//   on the tensor cores, one launch (described above it).
-// - int8 pools with bf16 q (both engines' default): paged_int8_mma_kernel,
-//   on the tensor cores, one launch (described above it).
+// - bf16 q over bf16 pools (fp KV, HOCR_KV_INT8=0) and bf16 q over int8
+//   pools (both engines' default): paged_mma_kernel, on the tensor cores,
+//   one persistent launch over the live work only (described above it).
 // - fp32 q, over fp32 or int8 pools (the card's reference runs):
 //   paged_kernel, fp32 FMAs out of shared memory, grid (slot, kv-head, row
-//   tile of 16 of the G*T query rows x split); each block writes its
-//   partial (m, l, unnormalised acc) and a second kernel combines the
-//   splits of each row. Key tiles of 64 cols stream through shared
-//   memory: the tile's row addresses are looked up once (one table read
-//   per col), then every thread issues all its 16-byte loads of the tile
-//   before using any. 128 threads, each owning one query row x 8 strided
-//   cols of the scores and D/8 output cols; q is scaled before the dot.
+//   tile of 16 of the G*T query rows x split of `split_cols` cols); the
+//   block (row tile 0, split 0) appends, each block writes its partial (m,
+//   l, unnormalised acc) and a second kernel combines the splits of each
+//   row. Key tiles of 64 cols stream through shared memory: the tile's row
+//   addresses are looked up once (one table read per col), then every
+//   thread issues all its 16-byte loads of the tile before using any. 128
+//   threads, each owning one query row x 8 strided cols of the scores and
+//   D/8 output cols; q is scaled before the dot.
 //
 // int8 pools (P = int8_t). Append: per (slot, token, head) amax = max|k|
 // over D in fp32, scale = max(amax, 1e-6) / 127 by a true division, q =
 // round-half-even(k / scale), no clip: bit-equal to the JAX package's
 // _quantize_rows. Each scale goes straight to [layer, block, h, pos % BS]
 // (the TPU kernel's whole-page read-modify-write is a VMEM-alignment
-// workaround). Every block quantises the step's new rows of its head into
-// shared memory the same way and reads the new cols from there, so they
-// carry the same quantisation error as the appended rows. Scores of the
-// int8 keys are multiplied by k_scale[col] before the mask; p is added to
+// workaround). Every block that reads new cols quantises the step's new
+// rows of its head into shared memory the same way and reads them from
+// there, so they carry the same quantisation error as the appended rows.
+// Scores of the int8 keys are multiplied by k_scale[col] before the mask; p is added to
 // l before it is multiplied by v_scale[col] for the P.V product.
 #include <type_traits>
 
@@ -76,10 +76,14 @@ struct PagedArgs {
   const int* start;
   const int* n_valid;
   void* out;
-  float* part_acc;   // [S, Hkv, G*T, n_split, D] unnormalised P.V
-  float* part_ml;    // [S, Hkv, G*T, n_split, 2] running max, denominator
-  int* counters;     // tensor-core bodies: [S, Hkv, row tiles], 0 between launches
-  int slots, t_len, hq, hkv, width, bs, n_blocks, layer, split_cols, n_split;
+  float* part_acc;   // unnormalised P.V: fp32 [S, Hkv, G*T, n_split, D];
+                     // tensor-core bodies [work item, G*T, D]
+  float* part_ml;    // running max, denominator: the same rows, 2 each
+  int* counters;     // tensor-core bodies: [S, Hkv], 0 between launches
+  int slots, t_len, hq, hkv, width, bs, n_blocks, layer;
+  int split_cols, n_split;                      // the fp32 body
+  int blocks, warps, col_groups, min_chunk_tiles, max_chunks;   // the tensor-core bodies
+  int bs_log2;       // log2(bs) for power-of-two pages, else -1
   float scale;
 };
 
@@ -395,9 +399,116 @@ __global__ void __launch_bounds__(D) combine_kernel(const PagedArgs a) {
       from_f<T>(sum / fmaxf(l, 1e-30f));
 }
 
-// ---- shared by the two tensor-core bodies (bf16 q, D = 128) --------------
+// ---- the tensor-core bodies (bf16 q, D = 128): live work only ------------
+//
+// paged_mma_kernel<QUANT, C, MAXW>: QUANT = int8 pools (the int8 body, both
+// engines' default), else bf16 pools (the fp-KV body, HOCR_KV_INT8=0).
+// Replaces the earlier tensor-core bodies (paged_int8_mma_kernel,
+// paged_bf16_mma_kernel), whose grid was (slot, kv-head, row tile x
+// context split) sized from the shapes alone: at a decode step most
+// of its blocks belonged to dead slots or to splits past the context and
+// exited at once, each live block streamed one or two 64-col tiles (its
+// cp.async ring never filled), the last block merged up to 16 splits one
+// row after another, and at a verify round (T = 17) each of the 8-9 row
+// tiles of 16 query rows was its own block, so every K/V tile was read 8-9
+// times.
+//
+// Bound: bytes. A decode step reads each live slot's cached K and V once
+// (bf16: 2 x 256 bytes per token and kv-head; int8: 2 x 128 + 8 bytes of
+// scales) and does ~4 flops per byte at T = 1 (~70 at T = 17), far below
+// the tensor cores' rate. At small live counts a call is bound by latency:
+// a chain of dependent global round trips (start / n_valid, the page
+// table, the first K/V tile, the arrival, the merge), each ~1-2 us on the
+// H100 (PERF.md), and each tile a block streams after its first adds ~2 us.
+//
+// Design:
+// - A persistent grid of about one wave (plan() in the wrapper: as many
+//   blocks per SM as the shared memory allows, times the SMs). Every block
+//   derives the same work list from start / n_valid (no host sync, so a
+//   decode step stays capturable in a CUDA graph): a work item is a live
+//   (slot, kv-head, chunk of 64-col tiles). The chunk length is the
+//   shortest (at least min_chunk_tiles, two ring tiles, and at least
+//   tiles / max_chunks, so that a pair's partials fit the merge's buffer)
+//   at which the items fit the grid, so they fill it about once; each
+//   pair's chunks are then evened out. The work list lives in dynamic
+//   shared memory, 5 ints a slot, so any slot count fits. Items go by
+//   slot, kv-head, chunk; block b takes items b, b + blocks, ... Dead
+//   slots and cols past start + n_valid cost no block; a strided pass of
+//   the same launch zeroes the dead slots' output.
+// - One block serves every query row of its item: the G*T rows of the
+//   kv-head are tiles of 16 (m16n8k16 A fragments), one per warp (C = 1: T
+//   > 1, 8-12 warps, up to 12 row tiles in one pass over the chunk, more in
+//   further passes; q in registers up to 8 warps, 255 registers a thread,
+//   else in shared memory, read by ldmatrix, at 168); at T = 1 the G <= 8
+//   rows are one tile and the four warps split each 64-col tile's cols (C =
+//   4) and merge their online softmaxes at the end. K/V tiles stream
+//   through a 3-stage cp.async ring of shared memory once per pass and feed
+//   every row tile (a thread's page-table lookups of a tile in flight
+//   together); an int8 tile is widened to bf16 once, not once per row
+//   tile: at T > 1 into a tile of its own, at T = 1 (each warp its own
+//   cols) in registers (tile_mma_regw), which keeps a block to ~51 KB.
+//   bf16 K and V go to the tensor cores by ldmatrix (V transposed);
+//   16-byte chunk j of col c sits at chunk j ^ (c & 7), so the eight rows
+//   of an ldmatrix phase fall in distinct bank groups. S = Q.K^T in fp32, times the softmax scale (and k_scale[col]),
+//   then the causal mask per row's token; P in fp32 (times v_scale[col]
+//   after l has summed it) as bf16 hi + lo parts, two products, so P keeps
+//   ~16 bits as the fp32 p of the TPU kernel does.
+// - The chunks of a (slot, kv-head) merge in the same launch: each writes
+//   its (m, l, unnormalised O) rows to the workspace at its item index, one
+//   thread releases them (fence.acq_rel) and moves the pair's counter, and
+//   the last block to arrive acquires them, brings them into shared memory
+//   by bulk asynchronous copies and merges them in chunk order, so two
+//   calls are bit-equal; it resets the counter. A pair of one chunk writes
+//   its output directly.
+// - The pair's last chunk appends the step's new rows (int8: quantised in
+//   shared memory as above, 16-byte stores); any chunk that reaches col
+//   start reads the new cols from k_new / v_new (int8: the same quantised
+//   rows), never from the pool rows being written.
 
-constexpr int HD = 128;   // the text models' head width
+constexpr int HD = 128;          // the text models' head width
+constexpr int MMA_STAGES = 3;
+constexpr int MAX_WARPS = 12;    // a C = 1 block: up to 12 row tiles a pass
+constexpr int FULL_WARPS = 8;    // up to 8 warps: 255 registers a thread (else 168)
+constexpr int MIN_WARPS = 8;     // and at least 8 warps
+constexpr int KV8_STAGE = 2 * KT * HD + 2 * KT * (int)sizeof(float);   // int8 K, V, scales
+constexpr int KV16_STAGE = 2 * KT * HD * 2;                             // bf16 K, V
+
+// Dynamic shared memory of a launch: the ring; over int8 pools widened in
+// shared memory (C = 1) the widened bf16 tile; q_warps warps' q tiles (16 x
+// HD bf16 each, > 8 warps); over int8 pools the new rows quantised (t_len
+// rows of K, V, scales); then, 16-byte aligned, the work list (5 ints a
+// slot and one).
+__host__ __device__ constexpr size_t mma_smem_bytes(bool quant, bool wide, int t_len,
+                                                    int q_warps) {
+  return (size_t)MMA_STAGES * (quant ? KV8_STAGE : KV16_STAGE) +
+         (size_t)q_warps * RT * HD * 2 +
+         (quant ? (wide ? KV16_STAGE : 0) + (size_t)t_len * (2 * HD + 2 * sizeof(float)) : 0);
+}
+__host__ __device__ constexpr size_t work_list_offset(size_t mma_bytes) {
+  return (mma_bytes + 15) & ~(size_t)15;
+}
+__host__ __device__ constexpr size_t work_list_bytes(int slots) {
+  return (size_t)(5 * slots + 1) * sizeof(int);
+}
+
+// The chunk merge's buffer: the ring and, over int8 pools at C = 1, the
+// widened tile. A pair's chunks come in two rows at a time at least, so a
+// launch's max_chunks must keep max_chunks * 2 rows of (HD + 2) floats
+// within it (the wrapper's plan sizes it so; the launcher checks).
+__host__ __device__ constexpr size_t merge_bytes(bool quant, int col_groups) {
+  return (size_t)MMA_STAGES * (quant ? KV8_STAGE : KV16_STAGE) +
+         (quant && col_groups == 1 ? KV16_STAGE : 0);
+}
+constexpr size_t MERGE_ROW_BYTES = (HD + 2) * sizeof(float);
+static_assert(4 * RT * (HD + 2) * sizeof(float) <= (size_t)MMA_STAGES * KV8_STAGE,
+              "the four warps' merge fits the ring");
+
+__device__ __forceinline__ int kv16_chunk(int c, int j) { return j ^ (c & 7); }
+
+// The table entry of col c: a shift for the engines' power-of-two pages.
+__device__ __forceinline__ int page_of(const PagedArgs& a, int c) {
+  return a.bs_log2 >= 0 ? c >> a.bs_log2 : c / a.bs;
+}
 
 // Output row r of (slot s, kv-head h): group member r / T, token r % T.
 __device__ __forceinline__ __nv_bfloat16* out_row_ptr(const PagedArgs& a, int s, int h,
@@ -406,328 +517,342 @@ __device__ __forceinline__ __nv_bfloat16* out_row_ptr(const PagedArgs& a, int s,
          ((size_t)(s * a.t_len + r % a.t_len) * a.hq + h * (a.hq / a.hkv) + r / a.t_len) * HD;
 }
 
-// A slot with n_valid == 0: split 0 zeroes the block's output rows.
-__device__ void zero_dead_rows(const PagedArgs& a, int s, int h, int rt, int split) {
-  if (split != 0) return;
-  const int rows = (a.hq / a.hkv) * a.t_len;
-  for (int idx = threadIdx.x; idx < RT * HD; idx += NT) {
-    const int r = rt * RT + idx / HD;
-    if (r < rows) out_row_ptr(a, s, h, r)[idx % HD] = __float2bfloat16(0.f);
+// The launch's work list, the same in every block, in the block's shared
+// memory (work_list_bytes(slots) at work_list_offset).
+struct WorkList {
+  int* base;      // [slots + 1] first item of each slot (items of slot s: base[s] .. base[s+1]-1)
+  int* start;     // [slots]
+  int* n_valid;   // [slots]
+  int* chunks;    // [slots] chunks of each (slot, kv-head); 0 for a dead slot
+  int* len;       // [slots] tiles of each chunk of the slot (its last: what is left)
+};
+
+__device__ void build_work_list(const PagedArgs& a, const WorkList& w) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, blocks = gridDim.x;
+    int most = 0;
+    for (int s0 = 0; s0 < a.slots; s0 += 32) {
+      const int s = s0 + lane;
+      if (s < a.slots) {
+        const int st = a.start[s], nv = a.n_valid[s];
+        w.start[s] = st;
+        w.n_valid[s] = nv;
+        w.chunks[s] = nv > 0 ? (st + nv + KT - 1) / KT : 0;   // tiles for now (same lane)
+        most = max(most, w.chunks[s]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) most = max(most, __shfl_xor_sync(0xffffffffu, most, off));
+    // The shortest chunk (>= min_chunk_tiles, and long enough that no
+    // pair has more than max_chunks for the merge's buffer) whose items
+    // fit the grid: a binary search, every lane on the same values.
+    auto items_at = [&](int len) {
+      int n = 0;
+      for (int s = lane; s < a.slots; s += 32) n += (w.chunks[s] + len - 1) / len;
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) n += __shfl_xor_sync(0xffffffffu, n, off);
+      return n * a.hkv;
+    };
+    int lo = max(a.min_chunk_tiles, (most + a.max_chunks - 1) / a.max_chunks);
+    int hi = max(lo, most);
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (items_at(mid) <= blocks) hi = mid;
+      else lo = mid + 1;
+    }
+    int running = 0;
+    for (int s0 = 0; s0 < a.slots; s0 += 32) {
+      const int s = s0 + lane;
+      int items = 0;
+      if (s < a.slots) {
+        const int tiles = w.chunks[s];
+        const int n = (tiles + lo - 1) / lo;
+        w.chunks[s] = n;
+        w.len[s] = n ? (tiles + n - 1) / n : 0;   // the pair's chunks evened out
+        items = n * a.hkv;
+      }
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {   // inclusive scan over the lanes
+        const int v = __shfl_up_sync(0xffffffffu, items, off);
+        if (lane >= off) items += v;
+      }
+      if (s < a.slots) w.base[s + 1] = running + items;
+      running += __shfl_sync(0xffffffffu, items, 31);
+    }
+    if (lane == 0) w.base[0] = 0;
+  }
+  __syncthreads();
+}
+
+// The slot of item `item`: the largest s with base[s] <= item.
+__device__ __forceinline__ int slot_of(const WorkList& w, int slots, int item) {
+  int lo = 0, hi = slots - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (w.base[mid] <= item) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Every dead slot's output rows are 0, written by all blocks in a strided
+// pass (16 bytes a store).
+__device__ void zero_dead_slots(const PagedArgs& a, const WorkList& w) {
+  const size_t per_slot = (size_t)a.t_len * a.hq * HD / 8;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  uint4* out = static_cast<uint4*>(a.out);
+  for (int s = 0; s < a.slots; ++s) {
+    if (w.n_valid[s] != 0) continue;
+    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < per_slot; e += stride)
+      out[s * per_slot + e] = make_uint4(0, 0, 0, 0);
   }
 }
 
-// The block's four warps have left their (m, l) and unnormalised O rows in
-// shared memory at `ring` (s_o [4][RT][HD] fp32, then s_ml [4][RT][2]).
-// One thread per d merges the warps in order; with one split the block
-// writes its output rows, with several each writes its partials, and the
-// last block to arrive merges the splits in split order and resets the
-// arrival counter for the next launch.
-__device__ void finish_tile(const PagedArgs& a, uint8_t* ring, int s, int h, int rt,
-                            int row_tiles, int split, int n_act) {
-  static_assert(HD == NT, "one thread per output d");
-  __shared__ int s_last;
-  const float* s_o = reinterpret_cast<const float*>(ring);
-  const float* s_ml = s_o + 4 * RT * HD;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rows = (a.hq / a.hkv) * a.t_len;
-  const int d = tid;
-  const int cidx = (s * a.hkv + h) * row_tiles + rt;
-  for (int r = 0; r < RT; ++r) {
-    const int r_glob = rt * RT + r;
-    if (r_glob >= rows) break;
-    float mm = -INFINITY;
+// The nv new rows of head h of slot s quantised into shared memory, one
+// warp per row (lane: d 4 lane .. 4 lane + 3): int8 rows s_kq / s_vq
+// [nv][HD] and scales s_ks / s_vs [nv], bit-equal to quantize_new_rows.
+__device__ void quantize_rows_warp(const PagedArgs& a, int s, int h, int nv, int8_t* s_kq,
+                                   int8_t* s_vq, float* s_ks, float* s_vs) {
+  const __nv_bfloat16* k_new = static_cast<const __nv_bfloat16*>(a.k_new);
+  const __nv_bfloat16* v_new = static_cast<const __nv_bfloat16*>(a.v_new);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  for (int i = warp; i < nv; i += warps) {
+    const size_t src = ((size_t)(s * a.t_len + i) * a.hkv + h) * HD + 4 * lane;
+    const uint2 kr = *reinterpret_cast<const uint2*>(k_new + src);
+    const uint2 vr = *reinterpret_cast<const uint2*>(v_new + src);
+    const float2 k01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kr.x));
+    const float2 k23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kr.y));
+    const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vr.x));
+    const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vr.y));
+    const float kx[4] = {k01.x, k01.y, k23.x, k23.y};
+    const float vx[4] = {v01.x, v01.y, v23.x, v23.y};
+    float ka = 0.f, va = 0.f;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, s_ml[(w * RT + r) * 2]);
-    float ll = 0.f, acc = 0.f;
-    if (mm != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const float mw = s_ml[(w * RT + r) * 2];
-        if (mw == -INFINITY) continue;
-        const float f = expf(mw - mm);
-        ll += s_ml[(w * RT + r) * 2 + 1] * f;
-        acc += s_o[(w * RT + r) * HD + d] * f;
-      }
+    for (int e = 0; e < 4; ++e) {
+      ka = fmaxf(ka, fabsf(kx[e]));
+      va = fmaxf(va, fabsf(vx[e]));
     }
-    if (n_act == 1) {
-      out_row_ptr(a, s, h, r_glob)[d] = __float2bfloat16(acc / fmaxf(ll, 1e-30f));
+    ka = group_max<32>(ka);
+    va = group_max<32>(va);
+    const float ksc = __fdiv_rn(fmaxf(ka, 1e-6f), 127.f);
+    const float vsc = __fdiv_rn(fmaxf(va, 1e-6f), 127.f);
+    uint32_t kq = 0, vq = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      kq |= (uint32_t)(uint8_t)(int8_t)__float2int_rn(__fdiv_rn(kx[e], ksc)) << (8 * e);
+      vq |= (uint32_t)(uint8_t)(int8_t)__float2int_rn(__fdiv_rn(vx[e], vsc)) << (8 * e);
+    }
+    *reinterpret_cast<uint32_t*>(s_kq + i * HD + 4 * lane) = kq;
+    *reinterpret_cast<uint32_t*>(s_vq + i * HD + 4 * lane) = vq;
+    if (lane == 0) {
+      s_ks[i] = ksc;
+      s_vs[i] = vsc;
+    }
+  }
+}
+
+// Appends the nv new rows of head h of slot s at pos = min(start + i,
+// cap) through the slot's table, 16 bytes a store: int8 pools take the
+// rows and scales quantised in shared memory, bf16 pools k_new / v_new.
+template <bool QUANT>
+__device__ void append_new_rows(const PagedArgs& a, const int* tab, int s, int h, int st, int nv,
+                                const int8_t* s_kq, const int8_t* s_vq, const float* s_ks,
+                                const float* s_vs) {
+  constexpr int ELT = QUANT ? 1 : 2;
+  constexpr int CPR = HD * ELT / 16;   // 16-byte chunks per row
+  const int cap = a.width * a.bs - 1;
+  const size_t row_elems = (size_t)a.hkv * HD;
+  const size_t page_elems = (size_t)a.bs * row_elems;
+  const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
+  for (int idx = threadIdx.x; idx < nv * CPR; idx += blockDim.x) {
+    const int i = idx / CPR, j = idx % CPR;
+    const int pos = min(st + i, cap);
+    const int blk = tab[pos / a.bs];
+    const size_t dst = (layer_off + (size_t)blk * page_elems + (size_t)(pos % a.bs) * row_elems +
+                        (size_t)h * HD) * ELT + 16 * j;
+    uint8_t* kp = static_cast<uint8_t*>(a.k_pool) + dst;
+    uint8_t* vp = static_cast<uint8_t*>(a.v_pool) + dst;
+    if constexpr (QUANT) {
+      *reinterpret_cast<uint4*>(kp) = *reinterpret_cast<const uint4*>(s_kq + i * HD + 16 * j);
+      *reinterpret_cast<uint4*>(vp) = *reinterpret_cast<const uint4*>(s_vq + i * HD + 16 * j);
+      if (j == 0) {
+        const size_t sc = (((size_t)a.layer * a.n_blocks + blk) * a.hkv + h) * a.bs + pos % a.bs;
+        a.k_scale[sc] = s_ks[i];
+        a.v_scale[sc] = s_vs[i];
+      }
     } else {
-      const size_t part = ((size_t)cidx * RT + r) * a.n_split + split;
-      a.part_acc[part * HD + d] = acc;
-      if (d == 0) {
-        a.part_ml[2 * part] = mm;
-        a.part_ml[2 * part + 1] = ll;
-      }
+      const size_t src = (((size_t)(s * a.t_len + i) * a.hkv + h) * HD) * 2 + 16 * j;
+      *reinterpret_cast<uint4*>(kp) =
+          *reinterpret_cast<const uint4*>(static_cast<const uint8_t*>(a.k_new) + src);
+      *reinterpret_cast<uint4*>(vp) =
+          *reinterpret_cast<const uint4*>(static_cast<const uint8_t*>(a.v_new) + src);
     }
   }
-  if (n_act == 1) return;
-  __threadfence();     // this split's partials are visible before it arrives
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(a.counters + cidx, 1) == n_act - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();     // every split's partials are visible to the last block
-  // Each row's split weights exp(m_i - max m) and denominator, one thread
-  // per row, into the (free) ring; then 32 threads per row sum the
-  // partials in split order, four d each by 16-byte loads.
-  const int rows_here = min(RT, rows - rt * RT);
-  float* s_wt = reinterpret_cast<float*>(ring);     // [RT][n_act]
-  float* s_den = s_wt + RT * n_act;                  // [RT]
-  if (tid < rows_here) {
-    const size_t base = ((size_t)cidx * RT + tid) * a.n_split;
-    float mm = -INFINITY;
-    for (int i = 0; i < n_act; ++i) mm = fmaxf(mm, __ldcg(a.part_ml + 2 * (base + i)));
-    float ll = 0.f;
-    for (int i = 0; i < n_act; ++i) {   // in split order: deterministic
-      const float mi = __ldcg(a.part_ml + 2 * (base + i));
-      const float w = (mi == -INFINITY) ? 0.f : expf(mi - mm);
-      s_wt[tid * n_act + i] = w;
-      ll += __ldcg(a.part_ml + 2 * (base + i) + 1) * w;
-    }
-    s_den[tid] = fmaxf(ll, 1e-30f);
-  }
-  __syncthreads();
-  const float4* acc4 = reinterpret_cast<const float4*>(a.part_acc);
-  for (int r = warp; r < rows_here; r += NT / 32) {
-    const size_t base = ((size_t)cidx * RT + r) * a.n_split;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int i = 0; i < n_act; ++i) {   // in split order: deterministic
-      const float w = s_wt[r * n_act + i];
-      const float4 v = __ldcg(acc4 + (base + i) * (HD / 4) + lane);
-      acc.x += v.x * w;
-      acc.y += v.y * w;
-      acc.z += v.z * w;
-      acc.w += v.w * w;
-    }
-    const float den = s_den[r];
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out_row_ptr(a, s, h, rt * RT + r) + 4 * lane);
-    dst[0] = __floats2bfloat162_rn(acc.x / den, acc.y / den);
-    dst[1] = __floats2bfloat162_rn(acc.z / den, acc.w / den);
-  }
-  if (tid == 0) a.counters[cidx] = 0;   // ready for the next launch
 }
 
-// ---- int8 pools, bf16 q: the tensor-core body ----------------------------
-//
-// One block per (slot, kv-head, row tile of 16 query rows, context split):
-// at a decode step (T = 1) the group's G <= 8 rows fit one tile, so K and V
-// are read once per split. K/V tiles of 64 cols stay int8 in a 3-stage
-// ring of shared memory, filled by 16-byte cp.async from the pages (this
-// call's new cols from the block's own quantisation) while the tile before
-// computes; scales ride along by 4-byte cp.async. Warp w takes cols 16w ..
-// 16w+15 of every tile and keeps its own online softmax; the four warps
-// merge at the end, then the splits merge in the same launch (the last
-// block to arrive, in split order).
-//   S = Q.K^T: mma.sync m16n8k16 with the bf16 q rows as A (from
-//   registers, loaded once) and K as B, widened in registers. The sum over
-//   d does not care about order, so d is permuted per 64-wide half such
-//   that each lane reads 16 contiguous bytes of a K row (as in int8_matmul).
-//   The fp32 scores get scale * k_scale[col], then the mask.
-//   O += P.V: P (times v_scale[col], after l has summed it) is split into
-//   bf16 hi + lo parts, two products, so P keeps ~16 bits as the fp32 p of
-//   the TPU kernel does. V's B operand needs a col pair per register, which
-//   ldmatrix cannot give for 8-bit data: each lane reads 32-bit words (4
-//   d values) of four cols and pairs their bytes by byte permutes. For
-//   that, the output columns are permuted: lane g of n-tile 4J+e owns d =
-//   32J + 4g + e, so a lane ends with 8 contiguous d of each of its rows.
-constexpr int STAGES8 = 3;
-constexpr int KV_TILE_BYTES = KT * 128;           // one int8 K or V tile (D = 128)
-constexpr int STAGE8_BYTES = 2 * KV_TILE_BYTES + 2 * KT * (int)sizeof(float);
-
-constexpr size_t int8_mma_smem_bytes(int t_len) {
-  // the ring (reused for the warps' merge), then the new rows quantised
-  return (size_t)STAGES8 * STAGE8_BYTES + (size_t)t_len * (2 * 128 + 2 * sizeof(float));
-}
-static_assert(4 * RT * 128 * sizeof(float) + 4 * RT * 2 * sizeof(float) <=
-                  (size_t)STAGES8 * STAGE8_BYTES, "the merge fits the ring");
-
-// 16-byte chunk j of K col c sits at chunk j ^ 4(c & 1), of V col c at
-// chunk j ^ 2((c >> 1) & 3): conflict-free for the reads below.
+// Cols k0 .. k0+63 of head h of slot s into one ring stage: cached cols
+// from their page, this call's cols from the new rows, the rest zero.
+// int8: K [64][HD], V [64][HD] row-major, then k/v scales [64] each; bf16:
+// K, V [64][HD] with chunk j of col c at kv16_chunk(c, j).
+// REGW (int8 at T = 1): chunk j of K col c sits at chunk j ^ 4(c & 1), of
+// V col c at j ^ 2((c >> 1) & 3), conflict-free for tile_mma_regw's reads;
+// else int8 tiles are row-major (widen_tile reads them).
 __device__ __forceinline__ int k_chunk(int c, int j) { return j ^ ((c & 1) << 2); }
 __device__ __forceinline__ int v_chunk(int c, int j) { return j ^ (((c >> 1) & 3) << 1); }
 
-// Cols k0 .. k0+63 of head h into one ring stage: cached cols from their
-// page, this call's cols from the block's quantisation, the rest zero.
-__device__ __forceinline__ void load_kv_tile(const PagedArgs& a, uint8_t* stage, int k0,
-                                             int h, int st, int limit, const int* tab,
-                                             const int8_t* s_kq, const int8_t* s_vq,
-                                             const float* s_ks, const float* s_vs) {
-  constexpr int D = 128;
-  int8_t* sk = reinterpret_cast<int8_t*>(stage);
-  int8_t* sv = sk + KV_TILE_BYTES;
-  float* sks = reinterpret_cast<float*>(sv + KV_TILE_BYTES);
-  float* svs = sks + KT;
-  const int8_t* k_pool = static_cast<const int8_t*>(a.k_pool);
-  const int8_t* v_pool = static_cast<const int8_t*>(a.v_pool);
-  const int tid = threadIdx.x, bs = a.bs;
-  const size_t row_elems = (size_t)a.hkv * D;
-  const size_t page_elems = (size_t)bs * row_elems;
+template <bool QUANT, int MIN_THREADS, bool REGW>
+__device__ __forceinline__ void load_tile(const PagedArgs& a, uint8_t* stage, int k0, int s,
+                                          int h, int st, int limit, const int* tab,
+                                          const int8_t* s_kq, const int8_t* s_vq,
+                                          const float* s_ks, const float* s_vs) {
+  constexpr int ELT = QUANT ? 1 : 2;
+  constexpr int CPR = HD * ELT / 16;          // 16-byte chunks per col
+  constexpr int TOTAL = KT * CPR;
+  constexpr int MAXIT = TOTAL / MIN_THREADS;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const size_t row_elems = (size_t)a.hkv * HD;
+  const size_t page_elems = (size_t)a.bs * row_elems;
   const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
+  uint8_t* sk = stage;
+  uint8_t* sv = stage + KT * HD * ELT;
+  const uint8_t* k_pool = static_cast<const uint8_t*>(a.k_pool);
+  const uint8_t* v_pool = static_cast<const uint8_t*>(a.v_pool);
+  // Every table lookup of the thread first, so they are in flight together.
+  int blk[MAXIT];
 #pragma unroll
-  for (int it = 0; it < KT * 8 / NT; ++it) {
-    const int idx = it * NT + tid, col = idx / 8, j = idx % 8, c = k0 + col;
-    int8_t* dk = sk + col * D + 16 * k_chunk(col, j);
-    int8_t* dv = sv + col * D + 16 * v_chunk(col, j);
+  for (int it = 0; it < MAXIT; ++it) {
+    const int idx = tid + it * nth, c = k0 + idx / CPR;
+    blk[it] = (idx < TOTAL && c < st) ? __ldg(tab + page_of(a, c)) : 0;
+  }
+#pragma unroll
+  for (int it = 0; it < MAXIT; ++it) {
+    const int idx = tid + it * nth;
+    if (idx >= TOTAL) break;
+    const int col = idx / CPR, j = idx % CPR, c = k0 + col;
+    const int kslot = QUANT ? (REGW ? k_chunk(col, j) : j) : kv16_chunk(col, j);
+    const int vslot = QUANT ? (REGW ? v_chunk(col, j) : j) : kv16_chunk(col, j);
+    uint8_t* dk = sk + (col * CPR + kslot) * 16;
+    uint8_t* dv = sv + (col * CPR + vslot) * 16;
     if (c < st) {
-      const size_t off = layer_off + (size_t)__ldg(tab + c / bs) * page_elems +
-                         (size_t)(c % bs) * row_elems + (size_t)h * D + 16 * j;
+      const size_t off = (layer_off + (size_t)blk[it] * page_elems +
+                          (size_t)(c - page_of(a, c) * a.bs) * row_elems + (size_t)h * HD) *
+                             ELT + 16 * j;
       cp_async16(dk, k_pool + off);
       cp_async16(dv, v_pool + off);
     } else if (c < limit) {
-      *reinterpret_cast<uint4*>(dk) = *reinterpret_cast<const uint4*>(s_kq + (c - st) * D + 16 * j);
-      *reinterpret_cast<uint4*>(dv) = *reinterpret_cast<const uint4*>(s_vq + (c - st) * D + 16 * j);
+      if constexpr (QUANT) {
+        *reinterpret_cast<uint4*>(dk) = *reinterpret_cast<const uint4*>(s_kq + (c - st) * HD + 16 * j);
+        *reinterpret_cast<uint4*>(dv) = *reinterpret_cast<const uint4*>(s_vq + (c - st) * HD + 16 * j);
+      } else {
+        const size_t src = (((size_t)(s * a.t_len + c - st) * a.hkv + h) * HD) * 2 + 16 * j;
+        cp_async16(dk, static_cast<const uint8_t*>(a.k_new) + src);
+        cp_async16(dv, static_cast<const uint8_t*>(a.v_new) + src);
+      }
     } else {
       *reinterpret_cast<uint4*>(dk) = make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(dv) = make_uint4(0, 0, 0, 0);
     }
   }
-  if (tid < KT) {
-    const int c = k0 + tid;
-    if (c < st) {
-      const size_t sc = (((size_t)a.layer * a.n_blocks + __ldg(tab + c / bs)) * a.hkv + h) * bs + c % bs;
-      cp_async4(sks + tid, a.k_scale + sc);
-      cp_async4(svs + tid, a.v_scale + sc);
-    } else {
-      sks[tid] = c < limit ? s_ks[c - st] : 0.f;
-      svs[tid] = c < limit ? s_vs[c - st] : 0.f;
+  if constexpr (QUANT) {
+    float* sks = reinterpret_cast<float*>(sv + KT * HD);
+    float* svs = sks + KT;
+    if (tid < KT) {
+      const int c = k0 + tid;
+      if (c < st) {
+        const int pg = page_of(a, c);
+        const size_t sc = (((size_t)a.layer * a.n_blocks + __ldg(tab + pg)) * a.hkv + h) * a.bs +
+                          (c - pg * a.bs);
+        cp_async4(sks + tid, a.k_scale + sc);
+        cp_async4(svs + tid, a.v_scale + sc);
+      } else {
+        sks[tid] = c < limit ? s_ks[c - st] : 0.f;
+        svs[tid] = c < limit ? s_vs[c - st] : 0.f;
+      }
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-paged_int8_mma_kernel(const PagedArgs a) {
-  static_assert(D == 128, "the text models' head width");
-  extern __shared__ __align__(128) uint8_t smem8[];
-  __shared__ float s_red[2 * NT / 32];
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const int s = blockIdx.x, h = blockIdx.y;
-  const int row_tiles = gridDim.z / a.n_split;
-  const int rt = blockIdx.z % row_tiles, split = blockIdx.z / row_tiles;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int t_len = a.t_len, group = a.hq / a.hkv, rows = group * t_len;
-  const int st = a.start[s], nv = a.n_valid[s], limit = st + nv;
-
-  if (nv == 0) {   // a dead slot: zero output, no append, no page read
-    zero_dead_rows(a, s, h, rt, split);
-    return;
+// An int8 ring stage widened, exactly, into the bf16 tile `wide` (K, then
+// V, laid out as a bf16 stage): once per tile, for every row tile.
+__device__ __forceinline__ void widen_tile(const uint8_t* stage, uint8_t* wide) {
+#pragma unroll
+  for (int it = 0; it < 2 * KT * 8 / 128; ++it) {   // a block has >= 128 threads
+    const int idx = threadIdx.x + it * blockDim.x;
+    if (idx >= 2 * KT * 8) break;
+    const int kv = idx / (KT * 8), col = (idx / 8) % KT, j = idx % 8;
+    const uint4 raw = *reinterpret_cast<const uint4*>(stage + kv * KT * HD + col * HD + 16 * j);
+    uint32_t b[8];
+    i8x4_to_bf16(raw.x, b[0], b[1]);
+    i8x4_to_bf16(raw.y, b[2], b[3]);
+    i8x4_to_bf16(raw.z, b[4], b[5]);
+    i8x4_to_bf16(raw.w, b[6], b[7]);
+    uint8_t* dst = wide + kv * KT * HD * 2 + col * HD * 2;
+    *reinterpret_cast<uint4*>(dst + 16 * kv16_chunk(col, 2 * j)) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(dst + 16 * kv16_chunk(col, 2 * j + 1)) = make_uint4(b[4], b[5], b[6], b[7]);
   }
-  const int n_act = min(a.n_split, (limit + a.split_cols - 1) / a.split_cols);   // splits with cols
-  if (split >= n_act) return;
-  const int c_begin = split * a.split_cols;
-  const int c_end = min(limit, c_begin + a.split_cols);
-  const bool append = rt == 0 && split == 0;
+}
 
-  uint8_t* ring = smem8;
-  int8_t* s_kq = reinterpret_cast<int8_t*>(smem8 + STAGES8 * STAGE8_BYTES);
-  int8_t* s_vq = s_kq + t_len * D;
-  float* s_ks = reinterpret_cast<float*>(s_vq + t_len * D);
-  float* s_vs = s_ks + t_len;
-  if (append || c_end > st) {   // this block appends or reads new cols
-    quantize_new_rows<__nv_bfloat16, D>(static_cast<const __nv_bfloat16*>(a.k_new),
-                                        static_cast<const __nv_bfloat16*>(a.v_new), s, h,
-                                        t_len, a.hkv, nv, s_kq, s_vq, s_ks, s_vs, s_red);
-    if (append) append_rows<__nv_bfloat16, int8_t, D>(a, s, h, s_kq, s_vq, s_ks, s_vs);
-  }
-
-  // Q as the A operand, rows g (lo) and g+8 (hi) of the tile: qa[half][step]
-  // = {row g d 4s..4s+1, row g+8 same, row g d 4s+2..4s+3, row g+8 same} of
-  // the lane's 16 d at 64 half + 16t.
-  uint32_t qa[2][4][4];
-  int row_max[2];
-  bool row_ok[2];
+// One warp's rows g and g+8 of its row tile against cols cb .. cb+NC-1 of
+// the bf16 tile (sk, sv), NC a multiple of SW, in steps of SW (16 or 32) cols:
+// S, the online softmax, O += P.V. ks / vs: the int8 tile's scales. q as
+// the A operand: in registers (qa) or, where a block holds more than 8
+// warps and registers are scarce (168 a thread), the warp's 16 x 128 tile
+// in shared memory (sq, chunk j of row r at j ^ (r & 7)), read by ldmatrix.
+template <bool QUANT, int NC, bool QSMEM, int SW>
+__device__ __forceinline__ void tile_mma(const __nv_bfloat16* sk, const __nv_bfloat16* sv,
+                                         const float* ks, const float* vs, int cb, int k0,
+                                         int limit, float scale, const uint32_t (&qa)[8][4],
+                                         const __nv_bfloat16* sq,
+                                         const int (&row_max)[2], const bool (&row_ok)[2],
+                                         float (&o)[16][4], float (&m_run)[2],
+                                         float (&l_run)[2]) {
+  const int lane = threadIdx.x % 32, t = lane % 4;
 #pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int r = rt * RT + g + 8 * hi;
-    const int tok = r % t_len;
-    row_ok[hi] = r < rows && tok < nv;
-    row_max[hi] = st + tok;
-    const __nv_bfloat16* qrow = q + ((size_t)(s * t_len + tok) * a.hq + h * group + r / t_len) * D;
+  for (int sub = 0; sub < NC / SW; ++sub) {
+    const int c0 = cb + sub * SW;
+    // S: sc[nt][0..1] row g, cols c0+8nt+2t, +1; [2..3] row g+8. ldmatrix
+    // x4: lane l addresses col l % 8 of the n-tile at d chunk 4kp + l / 8.
+    float sc[SW / 8][4];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      uint4 v[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-      if (row_ok[hi]) {
-        v[0] = __ldg(reinterpret_cast<const uint4*>(qrow + 64 * half + 16 * t));
-        v[1] = __ldg(reinterpret_cast<const uint4*>(qrow + 64 * half + 16 * t + 8));
-      }
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(v);
-#pragma unroll
-      for (int st4 = 0; st4 < 4; ++st4) {
-        qa[half][st4][hi] = w[2 * st4];
-        qa[half][st4][2 + hi] = w[2 * st4 + 1];
-      }
-    }
-  }
-
-  float o[16][4];   // O: n-tile 4J+e; [0..1] row g, [2..3] row g+8
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  const int* tab = a.tables + (size_t)s * a.width;
-  const int n_tiles = (c_end - c_begin + KT - 1) / KT;
-
-#pragma unroll
-  for (int i = 0; i < STAGES8 - 1; ++i) {
-    if (i < n_tiles)
-      load_kv_tile(a, ring + i * STAGE8_BYTES, c_begin + i * KT, h, st, limit, tab,
-                   s_kq, s_vq, s_ks, s_vs);
-    cp_async_commit();
-  }
-  for (int i = 0; i < n_tiles; ++i) {
-    cp_async_wait<STAGES8 - 2>();
-    __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES8 is free
-    const int nxt = i + STAGES8 - 1;
-    if (nxt < n_tiles)
-      load_kv_tile(a, ring + (nxt % STAGES8) * STAGE8_BYTES, c_begin + nxt * KT, h, st,
-                   limit, tab, s_kq, s_vq, s_ks, s_vs);
-    cp_async_commit();
-
-    const uint8_t* stage = ring + (i % STAGES8) * STAGE8_BYTES;
-    const int8_t* sk = reinterpret_cast<const int8_t*>(stage);
-    const int8_t* sv = sk + KV_TILE_BYTES;
-    const float* sks = reinterpret_cast<const float*>(sv + KV_TILE_BYTES);
-    const float* svs = sks + KT;
-    const int k0 = c_begin + i * KT;
-
-    // S for the warp's 16 cols: sc[nt][0..1] row g, cols 8nt+2t, +1; [2..3] row g+8
-    float sc[2][4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+    for (int nt = 0; nt < SW / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-      const int col = 16 * warp + 8 * nt + g;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const uint4 kw = *reinterpret_cast<const uint4*>(sk + col * D + 16 * k_chunk(col, 4 * half + t));
-        const uint32_t* kwords = &kw.x;
+    for (int kp = 0; kp < 4; ++kp) {
+      uint32_t q0[4], q1[4];
+      if constexpr (QSMEM) {   // lane l: row l % 16 at d chunk 2ks + l / 16
+        const int qr = lane & 15;
+        ldmatrix_x4(q0, sq + qr * HD + 8 * ((4 * kp + (lane >> 4)) ^ (qr & 7)));
+        ldmatrix_x4(q1, sq + qr * HD + 8 * ((4 * kp + 2 + (lane >> 4)) ^ (qr & 7)));
+      } else {
 #pragma unroll
-        for (int st4 = 0; st4 < 4; ++st4) {
-          uint32_t b0, b1;
-          i8x4_to_bf16(kwords[st4], b0, b1);
-          mma_bf16(sc[nt], qa[half][st4], b0, b1);
+        for (int e = 0; e < 4; ++e) {
+          q0[e] = qa[2 * kp][e];
+          q1[e] = qa[2 * kp + 1][e];
         }
       }
+#pragma unroll
+      for (int nt = 0; nt < SW / 8; ++nt) {
+        const int col = c0 + 8 * nt + (lane & 7);
+        uint32_t b[4];
+        ldmatrix_x4(b, sk + col * HD + 8 * kv16_chunk(col, 4 * kp + (lane >> 3)));
+        mma_bf16(sc[nt], q0, b[0], b[1]);
+        mma_bf16(sc[nt], q1, b[2], b[3]);
+      }
     }
-
-    // online softmax per row over the warp's cols; P' = p * v_scale
     float corr[2];
-    float pv[2][4];
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < SW / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int colt = 16 * warp + 8 * nt + 2 * t + e;
+          const int colt = c0 + 8 * nt + 2 * t + e;
           const int c = k0 + colt;
           const bool ok = row_ok[hi] && c < limit && c <= row_max[hi];
           float& v = sc[nt][2 * hi + e];
-          v = ok ? v * a.scale * sks[colt] : -INFINITY;
+          v = ok ? v * (QUANT ? scale * ks[colt] : scale) : -INFINITY;
           mx = fmaxf(mx, v);
         }
       mx = group_max<4>(mx);
@@ -735,277 +860,13 @@ paged_int8_mma_kernel(const PagedArgs a) {
       const float safe = (m_new == -INFINITY) ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int colt = 16 * warp + 8 * nt + 2 * t + e;
-          const float p = expf(sc[nt][2 * hi + e] - safe);
-          sum += p;   // l sums the probabilities before any v scale
-          pv[nt][2 * hi + e] = p * svs[colt];
-        }
-      sum = group_sum<4>(sum);
-      corr[hi] = (m_run[hi] == -INFINITY) ? 0.f : expf(m_run[hi] - safe);
-      l_run[hi] = corr[hi] * l_run[hi] + sum;
-      m_run[hi] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-    // P as the A operand (k = the warp's cols 2t, 2t+1 | 2t+8, 2t+9), hi + lo
-    uint32_t pa_hi[4], pa_lo[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int nt = r / 2, e0 = 2 * (r % 2);   // a0: nt0 row g; a1: nt0 row g+8; ...
-      const float x0 = pv[nt][e0], x1 = pv[nt][e0 + 1];
-      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
-      const float2 back = __bfloat1622float2(hi2);
-      pa_hi[r] = *reinterpret_cast<const uint32_t*>(&hi2);
-      pa_lo[r] = pack_bf16(x0 - back.x, x1 - back.y);
-    }
-    const uint32_t a_hi[4] = {pa_hi[0], pa_hi[1], pa_hi[2], pa_hi[3]};
-    const uint32_t a_lo[4] = {pa_lo[0], pa_lo[1], pa_lo[2], pa_lo[3]};
-    // V words: cols 2t, 2t+1, 2t+8, 2t+9 of the warp, word 8J + g (d 32J + 4g ..)
-    const int vcols[4] = {16 * warp + 2 * t, 16 * warp + 2 * t + 1,
-                          16 * warp + 2 * t + 8, 16 * warp + 2 * t + 9};
-#pragma unroll
-    for (int J = 0; J < 4; ++J) {
-      uint32_t vw[4];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int col = vcols[cc];
-        vw[cc] = *reinterpret_cast<const uint32_t*>(
-            sv + col * D + 16 * v_chunk(col, 2 * J + g / 4) + 4 * (g % 4));
-      }
-      uint32_t b0[4], b1[4];   // per e: cols (2t, 2t+1) and (2t+8, 2t+9) at d 32J+4g+e
-      i8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x5140), b0[0], b0[1]);
-      i8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x7362), b0[2], b0[3]);
-      i8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x5140), b1[0], b1[1]);
-      i8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x7362), b1[2], b1[3]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        mma_bf16(o[4 * J + e], a_hi, b0[e], b1[e]);
-        mma_bf16(o[4 * J + e], a_lo, b0[e], b1[e]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the ring is free: reuse it for the warps' merge
-
-  // The warps' (m, l, O) into shared memory; a lane holds d = 32J + 8t +
-  // 0..7 of rows g and g+8: o[4J+e][0] is d 32J+8t+e, o[4J+e][1] d +4.
-  float* s_o = reinterpret_cast<float*>(smem8);     // [warp][RT][D]
-  float* s_ml = s_o + 4 * RT * D;                    // [warp][RT][2]
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int r = g + 8 * hi;
-#pragma unroll
-    for (int J = 0; J < 4; ++J) {
-      float* dst = s_o + (warp * RT + r) * D + 32 * J + 8 * t;
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(o[4 * J][2 * hi], o[4 * J + 1][2 * hi], o[4 * J + 2][2 * hi], o[4 * J + 3][2 * hi]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(o[4 * J][2 * hi + 1], o[4 * J + 1][2 * hi + 1], o[4 * J + 2][2 * hi + 1],
-                      o[4 * J + 3][2 * hi + 1]);
-    }
-    if (t == 0) {
-      s_ml[(warp * RT + r) * 2] = m_run[hi];
-      s_ml[(warp * RT + r) * 2 + 1] = l_run[hi];
-    }
-  }
-  __syncthreads();
-  finish_tile(a, smem8, s, h, rt, row_tiles, split, n_act);
-}
-
-// ---- bf16 pools, bf16 q: the tensor-core body (fp KV) -------------------
-//
-// Replaces the TPU kernel's fp-KV branch at bf16. Bound by bytes: 1 KB per
-// cached token per layer at 28:4 heads (2 KB at 64:8), read once; the
-// products are ~4 flops per byte, far below the tensor cores' rate.
-//
-// One block per (slot, kv-head, row tile of 16 query rows, context split),
-// the grid of the int8 body: at a decode step (T = 1) the group's G <= 8
-// rows fit one tile, so K and V are read once per split. bf16 K/V tiles of
-// 64 cols (16 KB each) stream through a 3-stage ring of shared memory
-// (96 KB: two blocks fit an SM), filled by 16-byte cp.async from the pages
-// through the slot's table, this call's new cols straight from k_new /
-// v_new, while the tile before computes. A col's 16-byte chunk j sits at
-// chunk j ^ (col & 7), so the eight rows an ldmatrix phase reads fall in
-// eight distinct bank groups. Warp w takes cols 16w .. 16w+15 of every tile
-// and keeps its own online softmax; the four warps merge at the end, then
-// the splits merge in the same launch (the last block to arrive, in split
-// order, through a self-resetting arrival counter).
-//   S = Q.K^T: mma.sync m16n8k16, the bf16 q rows as A (registers, loaded
-//   once), K as B by ldmatrix from the ring (no widening); fp32 scores
-//   times the softmax scale, then the causal mask per row's token.
-//   O += P.V: P in fp32 split into bf16 hi + lo parts, two products, so P
-//   keeps ~16 bits as the fp32 p of the TPU kernel does; V as B by
-//   ldmatrix.trans (a col pair per register).
-constexpr int STAGES16 = 3;
-constexpr int KV16_TILE_BYTES = KT * HD * 2;      // one bf16 K or V tile
-constexpr int STAGE16_BYTES = 2 * KV16_TILE_BYTES;
-constexpr size_t BF16_MMA_SMEM_BYTES = (size_t)STAGES16 * STAGE16_BYTES;
-static_assert(4 * RT * HD * sizeof(float) + 4 * RT * 2 * sizeof(float) <= BF16_MMA_SMEM_BYTES,
-              "the merge fits the ring");
-
-__device__ __forceinline__ int kv16_chunk(int c, int j) { return j ^ (c & 7); }
-
-// Cols k0 .. k0+63 of head h of slot s into one ring stage: cached cols
-// from their page, this call's cols from k_new / v_new, the rest zero.
-__device__ __forceinline__ void load_kv16_tile(const PagedArgs& a, uint8_t* stage, int k0,
-                                               int s, int h, int st, int limit,
-                                               const int* tab) {
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(stage);
-  __nv_bfloat16* sv = sk + KT * HD;
-  const __nv_bfloat16* k_pool = static_cast<const __nv_bfloat16*>(a.k_pool);
-  const __nv_bfloat16* v_pool = static_cast<const __nv_bfloat16*>(a.v_pool);
-  const __nv_bfloat16* k_new = static_cast<const __nv_bfloat16*>(a.k_new);
-  const __nv_bfloat16* v_new = static_cast<const __nv_bfloat16*>(a.v_new);
-  const int tid = threadIdx.x, bs = a.bs;
-  const size_t row_elems = (size_t)a.hkv * HD;
-  const size_t page_elems = (size_t)bs * row_elems;
-  const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
-#pragma unroll
-  for (int it = 0; it < KT * 16 / NT; ++it) {
-    const int idx = it * NT + tid, col = idx / 16, j = idx % 16, c = k0 + col;
-    __nv_bfloat16* dk = sk + col * HD + 8 * kv16_chunk(col, j);
-    __nv_bfloat16* dv = sv + col * HD + 8 * kv16_chunk(col, j);
-    if (c < st) {
-      const size_t off = layer_off + (size_t)__ldg(tab + c / bs) * page_elems +
-                         (size_t)(c % bs) * row_elems + (size_t)h * HD + 8 * j;
-      cp_async16(dk, k_pool + off);
-      cp_async16(dv, v_pool + off);
-    } else if (c < limit) {
-      const size_t src = ((size_t)(s * a.t_len + c - st) * a.hkv + h) * HD + 8 * j;
-      cp_async16(dk, k_new + src);
-      cp_async16(dv, v_new + src);
-    } else {
-      *reinterpret_cast<uint4*>(dk) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(dv) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(NT)
-paged_bf16_mma_kernel(const PagedArgs a) {
-  extern __shared__ __align__(128) uint8_t smem16[];
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const int s = blockIdx.x, h = blockIdx.y;
-  const int row_tiles = gridDim.z / a.n_split;
-  const int rt = blockIdx.z % row_tiles, split = blockIdx.z / row_tiles;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int t_len = a.t_len, group = a.hq / a.hkv, rows = group * t_len;
-  const int st = a.start[s], nv = a.n_valid[s], limit = st + nv;
-
-  if (nv == 0) {   // a dead slot: zero output, no append, no page read
-    zero_dead_rows(a, s, h, rt, split);
-    return;
-  }
-  const int n_act = min(a.n_split, (limit + a.split_cols - 1) / a.split_cols);   // splits with cols
-  if (split >= n_act) return;
-  const int c_begin = split * a.split_cols;
-  const int c_end = min(limit, c_begin + a.split_cols);
-  if (rt == 0 && split == 0) append_rows<__nv_bfloat16, __nv_bfloat16, HD>(
-      a, s, h, nullptr, nullptr, nullptr, nullptr);
-
-  // Q as the A operand of k-step ks (d 16ks .. 16ks+15): rows g (lo) and
-  // g+8 (hi) at d 16ks+2t, +1 (a0, a1) and 16ks+8+2t, +1 (a2, a3).
-  uint32_t qa[8][4];
-  int row_max[2];
-  bool row_ok[2];
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int r = rt * RT + g + 8 * hi;
-    const int tok = r % t_len;
-    row_ok[hi] = r < rows && tok < nv;
-    row_max[hi] = st + tok;
-    const uint32_t* qw = reinterpret_cast<const uint32_t*>(
-        q + ((size_t)(s * t_len + tok) * a.hq + h * group + r / t_len) * HD);
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      qa[ks][hi] = row_ok[hi] ? __ldg(qw + 8 * ks + t) : 0u;
-      qa[ks][2 + hi] = row_ok[hi] ? __ldg(qw + 8 * ks + 4 + t) : 0u;
-    }
-  }
-
-  float o[16][4];   // O n-tile n: [0..1] row g, d 8n+2t, +1; [2..3] row g+8
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  const int* tab = a.tables + (size_t)s * a.width;
-  const int n_tiles = (c_end - c_begin + KT - 1) / KT;
-  uint8_t* ring = smem16;
-
-#pragma unroll
-  for (int i = 0; i < STAGES16 - 1; ++i) {
-    if (i < n_tiles)
-      load_kv16_tile(a, ring + i * STAGE16_BYTES, c_begin + i * KT, s, h, st, limit, tab);
-    cp_async_commit();
-  }
-  for (int i = 0; i < n_tiles; ++i) {
-    cp_async_wait<STAGES16 - 2>();
-    __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES16 is free
-    const int nxt = i + STAGES16 - 1;
-    if (nxt < n_tiles)
-      load_kv16_tile(a, ring + (nxt % STAGES16) * STAGE16_BYTES, c_begin + nxt * KT, s, h, st,
-                     limit, tab);
-    cp_async_commit();
-
-    const __nv_bfloat16* sk =
-        reinterpret_cast<const __nv_bfloat16*>(ring + (i % STAGES16) * STAGE16_BYTES);
-    const __nv_bfloat16* sv = sk + KT * HD;
-    const int k0 = c_begin + i * KT;
-
-    // S for the warp's 16 cols: sc[nt][0..1] row g, cols 8nt+2t, +1; [2..3] row g+8.
-    // ldmatrix x4: lane l addresses row (col) l % 8 of matrix l / 8, which is
-    // d chunk 4kp + l / 8: registers b0, b1 of k-steps 2kp and 2kp+1.
-    float sc[2][4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-      const int col = 16 * warp + 8 * nt + (lane & 7);
-#pragma unroll
-      for (int kp = 0; kp < 4; ++kp) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sk + col * HD + 8 * kv16_chunk(col, 4 * kp + (lane >> 3)));
-        mma_bf16(sc[nt], qa[2 * kp], b[0], b[1]);
-        mma_bf16(sc[nt], qa[2 * kp + 1], b[2], b[3]);
-      }
-    }
-
-    // online softmax per row over the warp's cols
-    float corr[2];
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = k0 + 16 * warp + 8 * nt + 2 * t + e;
-          const bool ok = row_ok[hi] && c < limit && c <= row_max[hi];
-          float& v = sc[nt][2 * hi + e];
-          v = ok ? v * a.scale : -INFINITY;
-          mx = fmaxf(mx, v);
-        }
-      mx = group_max<4>(mx);
-      const float m_new = fmaxf(m_run[hi], mx);
-      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < SW / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& v = sc[nt][2 * hi + e];
-          v = expf(v - safe);   // the probability, 0 where masked
-          sum += v;
+          const float p = expf(v - safe);   // 0 where masked
+          sum += p;                         // l sums p before any v scale
+          v = QUANT ? p * vs[c0 + 8 * nt + 2 * t + e] : p;
         }
       sum = group_sum<4>(sum);
       corr[hi] = (m_run[hi] == -INFINITY) ? 0.f : expf(m_run[hi] - safe);
@@ -1019,71 +880,519 @@ paged_bf16_mma_kernel(const PagedArgs a) {
       o[n][2] *= corr[1];
       o[n][3] *= corr[1];
     }
-    // P as the A operand (k = the warp's cols 2t, 2t+1 | 2t+8, 2t+9), hi + lo
-    uint32_t a_hi[4], a_lo[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int nt = r / 2, e0 = 2 * (r % 2);   // a0: nt0 row g; a1: nt0 row g+8; ...
-      const float x0 = sc[nt][e0], x1 = sc[nt][e0 + 1];
-      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
-      const float2 back = __bfloat1622float2(hi2);
-      a_hi[r] = *reinterpret_cast<const uint32_t*>(&hi2);
-      a_lo[r] = pack_bf16(x0 - back.x, x1 - back.y);
-    }
-    // V by ldmatrix.trans: lane l addresses col 16w + l % 8 + 8((l / 8) % 2)
-    // at d chunk 2dp + l / 16: b0, b1 of n-tiles 2dp and 2dp+1.
-    const int vcol = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+    for (int kk = 0; kk < SW / 16; ++kk) {
+      // P as the A operand (k = cols 2t, 2t+1 | 2t+8, 2t+9 of the step), hi + lo
+      uint32_t a_hi[4], a_lo[4];
 #pragma unroll
-    for (int dp = 0; dp < 8; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, sv + vcol * HD + 8 * kv16_chunk(vcol, 2 * dp + (lane >> 4)));
-      mma_bf16(o[2 * dp], a_hi, b[0], b[1]);
-      mma_bf16(o[2 * dp], a_lo, b[0], b[1]);
-      mma_bf16(o[2 * dp + 1], a_hi, b[2], b[3]);
-      mma_bf16(o[2 * dp + 1], a_lo, b[2], b[3]);
+      for (int r = 0; r < 4; ++r) {
+        const int nt = 2 * kk + r / 2, e0 = 2 * (r % 2);   // a0: row g; a1: row g+8; ...
+        const float x0 = sc[nt][e0], x1 = sc[nt][e0 + 1];
+        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
+        const float2 back = __bfloat1622float2(hi2);
+        a_hi[r] = *reinterpret_cast<const uint32_t*>(&hi2);
+        a_lo[r] = pack_bf16(x0 - back.x, x1 - back.y);
+      }
+      // V by ldmatrix.trans: lane l addresses col 16kk + l % 8 + 8((l / 8) % 2)
+      // at d chunk 2dp + l / 16: b0, b1 of n-tiles 2dp and 2dp+1.
+      const int vcol = c0 + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int dp = 0; dp < 8; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, sv + vcol * HD + 8 * kv16_chunk(vcol, 2 * dp + (lane >> 4)));
+        mma_bf16(o[2 * dp], a_hi, b[0], b[1]);
+        mma_bf16(o[2 * dp], a_lo, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a_hi, b[2], b[3]);
+        mma_bf16(o[2 * dp + 1], a_lo, b[2], b[3]);
+      }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();   // the ring is free: reuse it for the warps' merge
+}
 
-  // The warps' (m, l, O) into shared memory: rows g and g+8, d 8n+2t, +1.
-  float* s_o = reinterpret_cast<float*>(smem16);    // [warp][RT][HD]
-  float* s_ml = s_o + 4 * RT * HD;                   // [warp][RT][2]
+// REGW: an int8 tile at T = 1, where the four warps each take 16 distinct
+// cols, so each K/V byte is widened once anyway: in registers, straight
+// from the int8 ring, with no widened tile and no barrier for it.
+//   S = Q.K^T: K as B, widened by i8x4_to_bf16. The sum over d does not
+//   care about order, so d is permuted per 64-wide half such that each
+//   lane reads 16 contiguous bytes of a K row; q's A fragments (qa[4 half
+//   + s4]) follow the same permutation.
+//   O += P.V: V's B operand needs a col pair per register, which ldmatrix
+//   cannot give for 8-bit data: each lane reads 32-bit words (4 d values)
+//   of four cols and pairs their bytes by byte permutes. The output
+//   columns are permuted for that: lane g of n-tile 4J+e owns d = 32J + 4g
+//   + e, so o[4J+e][0..1] (row g) are d 32J+8t+e and 32J+8t+4+e.
+__device__ __forceinline__ void tile_mma_regw(const int8_t* sk, const int8_t* sv,
+                                              const float* ks, const float* vs, int cb, int k0,
+                                              int limit, float scale, const uint32_t (&qa)[8][4],
+                                              const int (&row_max)[2], const bool (&row_ok)[2],
+                                              float (&o)[16][4], float (&m_run)[2],
+                                              float (&l_run)[2]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float sc[2][4];   // sc[nt][0..1] row g, cols cb+8nt+2t, +1; [2..3] row g+8
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+    const int col = cb + 8 * nt + g;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint4 kw = *reinterpret_cast<const uint4*>(sk + col * HD + 16 * k_chunk(col, 4 * half + t));
+      const uint32_t* kwords = &kw.x;
+#pragma unroll
+      for (int s4 = 0; s4 < 4; ++s4) {
+        uint32_t b0, b1;
+        i8x4_to_bf16(kwords[s4], b0, b1);
+        mma_bf16(sc[nt], qa[4 * half + s4], b0, b1);
+      }
+    }
+  }
+  float corr[2];
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
-    const int r = g + 8 * hi;
+    float mx = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
-      *reinterpret_cast<float2*>(s_o + (warp * RT + r) * HD + 8 * n + 2 * t) =
-          make_float2(o[n][2 * hi], o[n][2 * hi + 1]);
-    if (t == 0) {
-      s_ml[(warp * RT + r) * 2] = m_run[hi];
-      s_ml[(warp * RT + r) * 2 + 1] = l_run[hi];
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int colt = cb + 8 * nt + 2 * t + e;
+        const int c = k0 + colt;
+        const bool ok = row_ok[hi] && c < limit && c <= row_max[hi];
+        float& v = sc[nt][2 * hi + e];
+        v = ok ? v * (scale * ks[colt]) : -INFINITY;
+        mx = fmaxf(mx, v);
+      }
+    mx = group_max<4>(mx);
+    const float m_new = fmaxf(m_run[hi], mx);
+    const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = sc[nt][2 * hi + e];
+        const float p = expf(v - safe);   // 0 where masked
+        sum += p;                         // l sums p before any v scale
+        v = p * vs[cb + 8 * nt + 2 * t + e];
+      }
+    sum = group_sum<4>(sum);
+    corr[hi] = (m_run[hi] == -INFINITY) ? 0.f : expf(m_run[hi] - safe);
+    l_run[hi] = corr[hi] * l_run[hi] + sum;
+    m_run[hi] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    o[n][0] *= corr[0];
+    o[n][1] *= corr[0];
+    o[n][2] *= corr[1];
+    o[n][3] *= corr[1];
+  }
+  uint32_t a_hi[4], a_lo[4];   // P (k = cols 2t, 2t+1 | 2t+8, 2t+9), hi + lo
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int nt = r / 2, e0 = 2 * (r % 2);
+    const float x0 = sc[nt][e0], x1 = sc[nt][e0 + 1];
+    const __nv_bfloat162 hi2 = __floats2bfloat162_rn(x0, x1);
+    const float2 back = __bfloat1622float2(hi2);
+    a_hi[r] = *reinterpret_cast<const uint32_t*>(&hi2);
+    a_lo[r] = pack_bf16(x0 - back.x, x1 - back.y);
+  }
+  // V words: cols 2t, 2t+1, 2t+8, 2t+9 of the warp's 16, word 8J + g (d 32J + 4g ..)
+  const int vcols[4] = {cb + 2 * t, cb + 2 * t + 1, cb + 2 * t + 8, cb + 2 * t + 9};
+#pragma unroll
+  for (int J = 0; J < 4; ++J) {
+    uint32_t vw[4];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int col = vcols[cc];
+      vw[cc] = *reinterpret_cast<const uint32_t*>(sv + col * HD + 16 * v_chunk(col, 2 * J + g / 4) +
+                                                  4 * (g % 4));
+    }
+    uint32_t b0[4], b1[4];   // per e: cols (2t, 2t+1) and (2t+8, 2t+9) at d 32J+4g+e
+    i8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x5140), b0[0], b0[1]);
+    i8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x7362), b0[2], b0[3]);
+    i8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x5140), b1[0], b1[1]);
+    i8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x7362), b1[2], b1[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mma_bf16(o[4 * J + e], a_hi, b0[e], b1[e]);
+      mma_bf16(o[4 * J + e], a_lo, b0[e], b1[e]);
     }
   }
+}
+
+// Row r of item `item` in the workspace (rows padded to an even count per
+// item, so every bulk copy below is a whole number of 16 bytes).
+__device__ __forceinline__ size_t part_index(const PagedArgs& a, int item, int r) {
+  return (size_t)item * ((((a.hq / a.hkv) * a.t_len) + 1) & ~1) + r;
+}
+
+// The last block of a (slot, kv-head) to arrive merges its chunks' partials
+// (items first .. first + chunks - 1) in chunk order. Batches of rows that
+// fit `buf` (the block's free shared memory) come in by bulk asynchronous
+// copies, every chunk's O rows and (m, l) at once on one mbarrier, so a
+// batch costs one round trip and no registers; then one thread per output
+// quad (four d) of a row weighs the chunks in order.
+__device__ void merge_chunks(const PagedArgs& a, uint8_t* buf, int buf_bytes, int s, int h,
+                             int first, int chunks) {
+  constexpr int QD = HD / 4;
+  __shared__ __align__(8) uint64_t s_bar;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int rows = (a.hq / a.hkv) * a.t_len;
+  const int batch = max(2, (buf_bytes / (chunks * (HD + 2) * (int)sizeof(float))) & ~1);
+  if (tid == 0) {
+    mbar_init(&s_bar, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
-  finish_tile(a, smem16, s, h, rt, row_tiles, split, n_act);
+  uint32_t phase = 0;
+  for (int r0 = 0; r0 < rows; r0 += batch) {
+    const int rb = min(batch, rows - r0), rb2 = (rb + 1) & ~1;   // rows copied: even
+    float* s_o = reinterpret_cast<float*>(buf);            // [chunks][rb2][HD]
+    float* s_ml = s_o + (size_t)chunks * rb2 * HD;         // [chunks][rb2][2]
+    if (tid == 0) {
+      // the other blocks' partials (acquired at the arrival) and this
+      // block's earlier use of buf, ordered before the async copies
+      asm volatile("fence.proxy.async;\n" ::: "memory");
+      mbar_expect_tx(&s_bar, (uint32_t)(chunks * rb2 * (HD + 2) * sizeof(float)));
+      for (int c = 0; c < chunks; ++c) {
+        const size_t p = part_index(a, first + c, r0);
+        bulk_load(s_o + (size_t)c * rb2 * HD, a.part_acc + p * HD, rb2 * HD * sizeof(float), &s_bar);
+        bulk_load(s_ml + (size_t)c * rb2 * 2, a.part_ml + p * 2, rb2 * 2 * sizeof(float), &s_bar);
+      }
+    }
+    mbar_wait(&s_bar, phase);
+    phase ^= 1;
+    for (int idx = tid; idx < rb * QD; idx += nth) {
+      const int r = idx / QD, q = idx % QD;
+      float mm = -INFINITY;
+      for (int c = 0; c < chunks; ++c) mm = fmaxf(mm, s_ml[(c * rb2 + r) * 2]);
+      float ll = 0.f;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (mm != -INFINITY) {
+        for (int c = 0; c < chunks; ++c) {   // in chunk order: deterministic
+          const float mi = s_ml[(c * rb2 + r) * 2];
+          if (mi == -INFINITY) continue;
+          const float wt = expf(mi - mm);
+          ll += s_ml[(c * rb2 + r) * 2 + 1] * wt;
+          const float4 v = *reinterpret_cast<const float4*>(s_o + (size_t)(c * rb2 + r) * HD + 4 * q);
+          acc.x += v.x * wt;
+          acc.y += v.y * wt;
+          acc.z += v.z * wt;
+          acc.w += v.w * wt;
+        }
+      }
+      const float den = fmaxf(ll, 1e-30f);
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out_row_ptr(a, s, h, r0 + r) + 4 * q);
+      dst[0] = __floats2bfloat162_rn(acc.x / den, acc.y / den);
+      dst[1] = __floats2bfloat162_rn(acc.z / den, acc.w / den);
+    }
+    __syncthreads();   // buf is refilled by the next batch
+  }
 }
 
-cudaError_t launch_bf16_mma(const PagedArgs& a, cudaStream_t stream) {
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem_once(paged_bf16_mma_kernel, BF16_MMA_SMEM_BYTES, configured);
+// One work item: every query row of (slot s, kv-head h) against the cols
+// of chunk `chunk`.
+template <bool QUANT, int C, bool QREG>
+__device__ void run_item(const PagedArgs& a, uint8_t* smem, const WorkList& w, int item,
+                         int s) {
+  constexpr int NC = KT / C;   // cols of a tile per warp
+  constexpr int STAGE = QUANT ? KV8_STAGE : KV16_STAGE;
+  constexpr int MIN_THREADS = C == 4 ? 128 : 32 * MIN_WARPS;
+  constexpr bool REGW = QUANT && C == 4;   // int8 widened in registers (tile_mma_regw)
+  __shared__ int s_last;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int chunks = w.chunks[s];
+  const int local = item - w.base[s];
+  const int h = local / chunks, chunk = local % chunks;
+  const int st = w.start[s], nv = w.n_valid[s], limit = st + nv;
+  const int c_begin = chunk * w.len[s] * KT;
+  const int c_end = min(limit, c_begin + w.len[s] * KT);
+  const int n_tiles = (c_end - c_begin + KT - 1) / KT;
+  const int t_len = a.t_len, group = a.hq / a.hkv, rows = group * t_len;
+  const int row_tiles = (rows + RT - 1) / RT;
+  const int* tab = a.tables + (size_t)s * a.width;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+
+  uint8_t* ring = smem;
+  uint8_t* wide = smem + MMA_STAGES * STAGE;                          // int8, C = 1 only
+  __nv_bfloat16* s_q =
+      reinterpret_cast<__nv_bfloat16*>(wide + (QUANT && !REGW ? KV16_STAGE : 0));
+  int8_t* s_kq = reinterpret_cast<int8_t*>(s_q + (QREG ? 0 : warps * RT * HD));   // int8 only
+  int8_t* s_vq = s_kq + t_len * HD;
+  float* s_ks = reinterpret_cast<float*>(s_vq + t_len * HD);
+  float* s_vs = s_ks + t_len;
+
+  __syncthreads();   // the block's previous item is done with shared memory
+  if (QUANT && c_end > st) {
+    quantize_rows_warp(a, s, h, nv, s_kq, s_vq, s_ks, s_vs);
+    __syncthreads();
+  }
+  if (chunk == chunks - 1)   // the pair's last chunk appends the new rows
+    append_new_rows<QUANT>(a, tab, s, h, st, nv, s_kq, s_vq, s_ks, s_vs);
+
+  const int per_pass = warps / C;
+  for (int rt0 = 0; rt0 < row_tiles; rt0 += per_pass) {
+    const int rt = rt0 + warp / C, cg = warp % C;
+    // Q as the A operand of k-step ks (d 16ks .. 16ks+15): rows g (lo) and
+    // g+8 (hi) at d 16ks+2t, +1 (a0, a1) and 16ks+8+2t, +1 (a2, a3); or
+    // (!QREG) the warp's 16 rows into its tile of shared memory.
+    uint32_t qa[8][4];
+    __nv_bfloat16* sq = QREG ? nullptr : s_q + warp * RT * HD;
+    int row_max[2];
+    bool row_ok[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = rt * RT + g + 8 * hi;
+      const int tok = r % t_len;
+      row_ok[hi] = rt < row_tiles && r < rows && tok < nv;
+      row_max[hi] = st + tok;
+      if constexpr (REGW) {   // qa[4 half + s4]: the lane's 16 d at 64 half + 16t
+        const __nv_bfloat16* qrow =
+            q + ((size_t)(s * t_len + tok) * a.hq + h * group + r / t_len) * HD;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint4 v[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+          if (row_ok[hi]) {
+            v[0] = __ldg(reinterpret_cast<const uint4*>(qrow + 64 * half + 16 * t));
+            v[1] = __ldg(reinterpret_cast<const uint4*>(qrow + 64 * half + 16 * t + 8));
+          }
+          const uint32_t* qw = reinterpret_cast<const uint32_t*>(v);
+#pragma unroll
+          for (int s4 = 0; s4 < 4; ++s4) {
+            qa[4 * half + s4][hi] = qw[2 * s4];
+            qa[4 * half + s4][2 + hi] = qw[2 * s4 + 1];
+          }
+        }
+      } else if constexpr (QREG) {
+        const uint32_t* qw = reinterpret_cast<const uint32_t*>(
+            q + ((size_t)(s * t_len + tok) * a.hq + h * group + r / t_len) * HD);
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          qa[ks][hi] = row_ok[hi] ? __ldg(qw + 8 * ks + t) : 0u;
+          qa[ks][2 + hi] = row_ok[hi] ? __ldg(qw + 8 * ks + 4 + t) : 0u;
+        }
+      }
+    }
+    if constexpr (!QREG) {   // lane: chunks lane / 16 + 2k of row lane % 16
+      const int qr = lane & 15, r = rt * RT + qr, tok = r % t_len;
+      const bool ok = rt < row_tiles && r < rows && tok < nv;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          q + ((size_t)(s * t_len + tok) * a.hq + h * group + r / t_len) * HD);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int j = (lane >> 4) + 2 * k;
+        *reinterpret_cast<uint4*>(sq + qr * HD + 8 * (j ^ (qr & 7))) =
+            ok ? __ldg(src + j) : make_uint4(0, 0, 0, 0);
+      }
+      __syncwarp();
+    }
+    float o[16][4];   // O n-tile n: [0..1] row g, d 8n+2t, +1; [2..3] row g+8
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+#pragma unroll
+    for (int i = 0; i < MMA_STAGES - 1; ++i) {
+      if (i < n_tiles)
+        load_tile<QUANT, MIN_THREADS, REGW>(a, ring + i * STAGE, c_begin + i * KT, s, h, st, limit, tab, s_kq, s_vq,
+                         s_ks, s_vs);
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      cp_async_wait<MMA_STAGES - 2>();
+      __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES is free
+      const int nxt = i + MMA_STAGES - 1;
+      if (nxt < n_tiles)
+        load_tile<QUANT, MIN_THREADS, REGW>(a, ring + (nxt % MMA_STAGES) * STAGE, c_begin + nxt * KT, s, h, st,
+                         limit, tab, s_kq, s_vq, s_ks, s_vs);
+      cp_async_commit();
+      const uint8_t* stage = ring + (i % MMA_STAGES) * STAGE;
+      const uint8_t* tile = stage;
+      const float* ks = nullptr;
+      const float* vs = nullptr;
+      if constexpr (REGW) {
+        ks = reinterpret_cast<const float*>(stage + 2 * KT * HD);
+        tile_mma_regw(reinterpret_cast<const int8_t*>(stage),
+                      reinterpret_cast<const int8_t*>(stage) + KT * HD, ks, ks + KT, cg * NC,
+                      c_begin + i * KT, limit, a.scale, qa, row_max, row_ok, o, m_run, l_run);
+        continue;
+      } else if constexpr (QUANT) {
+        widen_tile(stage, wide);
+        ks = reinterpret_cast<const float*>(stage + 2 * KT * HD);
+        vs = ks + KT;
+        tile = wide;
+        __syncthreads();   // the widened tile is complete
+      }
+      if (rt < row_tiles)
+        tile_mma<QUANT, NC, !QREG, (QREG && NC >= 32) ? 32 : 16>(reinterpret_cast<const __nv_bfloat16*>(tile),
+                            reinterpret_cast<const __nv_bfloat16*>(tile) + KT * HD, ks, vs,
+                            cg * NC, c_begin + i * KT, limit, a.scale, qa, sq, row_max, row_ok,
+                            o, m_run, l_run);
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // the ring is free for the merge below
+
+    if constexpr (C == 1) {
+      // The warp's rows straight out: final rows of a one-chunk pair, else
+      // this chunk's partials.
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = rt * RT + g + 8 * hi;
+        if (rt >= row_tiles || r >= rows) continue;
+        if (chunks == 1) {
+          const float den = fmaxf(l_run[hi], 1e-30f);
+          __nv_bfloat16* dst = out_row_ptr(a, s, h, r);
+#pragma unroll
+          for (int n = 0; n < 16; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t) =
+                __floats2bfloat162_rn(o[n][2 * hi] / den, o[n][2 * hi + 1] / den);
+        } else {
+          const size_t p = part_index(a, item, r);
+#pragma unroll
+          for (int n = 0; n < 16; ++n)
+            *reinterpret_cast<float2*>(a.part_acc + p * HD + 8 * n + 2 * t) =
+                make_float2(o[n][2 * hi], o[n][2 * hi + 1]);
+          if (t == 0) {
+            a.part_ml[2 * p] = m_run[hi];
+            a.part_ml[2 * p + 1] = l_run[hi];
+          }
+        }
+      }
+    } else {
+      // The four warps hold the same 16 rows over different cols: their
+      // (m, l, O) through shared memory, merged in warp order, one thread
+      // per d.
+      static_assert(C == 4, "col groups: 1 or 4");
+      float* s_o = reinterpret_cast<float*>(smem);   // [warp][RT][HD]
+      float* s_ml = s_o + 4 * RT * HD;               // [warp][RT][2]
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = g + 8 * hi;
+        if constexpr (REGW) {   // o[4J+e][2hi] is d 32J+8t+e, [2hi+1] d 32J+8t+4+e
+#pragma unroll
+          for (int J = 0; J < 4; ++J) {
+            float* dst = s_o + (warp * RT + r) * HD + 32 * J + 8 * t;
+            *reinterpret_cast<float4*>(dst) = make_float4(
+                o[4 * J][2 * hi], o[4 * J + 1][2 * hi], o[4 * J + 2][2 * hi], o[4 * J + 3][2 * hi]);
+            *reinterpret_cast<float4*>(dst + 4) =
+                make_float4(o[4 * J][2 * hi + 1], o[4 * J + 1][2 * hi + 1],
+                            o[4 * J + 2][2 * hi + 1], o[4 * J + 3][2 * hi + 1]);
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < 16; ++n)
+            *reinterpret_cast<float2*>(s_o + (warp * RT + r) * HD + 8 * n + 2 * t) =
+                make_float2(o[n][2 * hi], o[n][2 * hi + 1]);
+        }
+        if (t == 0) {
+          s_ml[(warp * RT + r) * 2] = m_run[hi];
+          s_ml[(warp * RT + r) * 2 + 1] = l_run[hi];
+        }
+      }
+      __syncthreads();
+      for (int r = 0; r < RT; ++r) {
+        const int r_glob = rt0 * RT + r;
+        if (r_glob >= rows) break;
+        float mm = -INFINITY;
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) mm = fmaxf(mm, s_ml[(w4 * RT + r) * 2]);
+        float ll = 0.f, acc = 0.f;
+        if (mm != -INFINITY) {
+#pragma unroll
+          for (int w4 = 0; w4 < 4; ++w4) {
+            const float mw = s_ml[(w4 * RT + r) * 2];
+            if (mw == -INFINITY) continue;
+            const float f = expf(mw - mm);
+            ll += s_ml[(w4 * RT + r) * 2 + 1] * f;
+            acc += s_o[(w4 * RT + r) * HD + tid] * f;
+          }
+        }
+        if (chunks == 1) {
+          out_row_ptr(a, s, h, r_glob)[tid] = __float2bfloat16(acc / fmaxf(ll, 1e-30f));
+        } else {
+          const size_t p = part_index(a, item, r_glob);
+          a.part_acc[p * HD + tid] = acc;
+          if (tid == 0) {
+            a.part_ml[2 * p] = mm;
+            a.part_ml[2 * p + 1] = ll;
+          }
+        }
+      }
+      __syncthreads();   // s_o is read before the next pass's ring fills it
+    }
+  }
+  if (chunks == 1) return;
+  // Arrive: the block's partials are released at GPU scope before the
+  // counter moves; the last block acquires every chunk's.
+  __syncthreads();
+  const int pair = s * a.hkv + h;
+  if (tid == 0) {
+    fence_acq_rel_gpu();
+    s_last = atomicAdd(a.counters + pair, 1) == chunks - 1;
+    if (s_last) fence_acq_rel_gpu();
+  }
+  __syncthreads();
+  if (!s_last) return;
+  merge_chunks(a, smem, (int)merge_bytes(QUANT, C), s, h, w.base[s] + h * chunks, chunks);
+  if (tid == 0) a.counters[pair] = 0;   // ready for the next launch
+}
+
+// MAXW: the most warps a launch may have (4 when C == 4); the SM's four
+// schedulers each hold ceil(MAXW / 4) warps, which bounds the registers.
+template <bool QUANT, int C, int MAXW>
+__global__ void __launch_bounds__(32 * MAXW, 1)
+paged_mma_kernel(const PagedArgs a) {
+  extern __shared__ __align__(128) uint8_t smem_mma[];
+  int* list = reinterpret_cast<int*>(
+      smem_mma + work_list_offset(mma_smem_bytes(QUANT, C == 1, a.t_len,
+                                                 MAXW <= FULL_WARPS ? 0 : a.warps)));
+  const WorkList w{list, list + a.slots + 1, list + 2 * a.slots + 1, list + 3 * a.slots + 1,
+                   list + 4 * a.slots + 1};
+  build_work_list(a, w);
+  const int total = w.base[a.slots];
+  for (int item = blockIdx.x; item < total; item += gridDim.x)
+    run_item<QUANT, C, MAXW <= FULL_WARPS>(a, smem_mma, w, item, slot_of(w, a.slots, item));
+  zero_dead_slots(a, w);   // last: no fence of an item waits for these stores
+}
+
+// Opts the kernel into `bytes` of dynamic shared memory where no earlier
+// launch on this device needed as much (the work list grows with the
+// slots, the quantised rows with T): `allowed` is the launcher's own.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int row_tiles = ((a.hq / a.hkv) * a.t_len + RT - 1) / RT;
-  const dim3 grid(a.slots, a.hkv, row_tiles * a.n_split);
-  paged_bf16_mma_kernel<<<grid, NT, BF16_MMA_SMEM_BYTES, stream>>>(a);
+  if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return err;
+}
+
+template <bool QUANT, int C, int MAXW>
+cudaError_t launch_mma(const PagedArgs& a, cudaStream_t stream) {
+  static size_t allowed[kMaxDevices] = {};
+  constexpr bool QREG = MAXW <= FULL_WARPS;   // q in registers, else in shared memory
+  constexpr bool WIDE = C == 1;               // int8 widened in shared memory
+  if ((size_t)a.max_chunks * 2 * MERGE_ROW_BYTES > merge_bytes(QUANT, C))
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      work_list_offset(mma_smem_bytes(QUANT, WIDE, a.t_len, QREG ? 0 : a.warps)) +
+      work_list_bytes(a.slots);
+  cudaError_t err = allow_smem(paged_mma_kernel<QUANT, C, MAXW>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  paged_mma_kernel<QUANT, C, MAXW><<<a.blocks, 32 * a.warps, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t launch_int8_mma(const PagedArgs& a, cudaStream_t stream) {
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem_once(paged_int8_mma_kernel<128>,
-                                  int8_mma_smem_bytes(MAX_NEW_INT8), configured);
-  if (err != cudaSuccess) return err;
-  const int row_tiles = ((a.hq / a.hkv) * a.t_len + RT - 1) / RT;
-  const dim3 grid(a.slots, a.hkv, row_tiles * a.n_split);
-  paged_int8_mma_kernel<128><<<grid, NT, int8_mma_smem_bytes(a.t_len), stream>>>(a);
-  return cudaGetLastError();
+template <bool QUANT>
+cudaError_t dispatch_mma(const PagedArgs& a, cudaStream_t stream) {
+  if (a.col_groups == 4) return launch_mma<QUANT, 4, 4>(a, stream);
+  if (a.warps <= FULL_WARPS) return launch_mma<QUANT, 1, FULL_WARPS>(a, stream);
+  return launch_mma<QUANT, 1, MAX_WARPS>(a, stream);
 }
 
 template <typename T, typename P, int D>
@@ -1105,10 +1414,8 @@ cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
 // body over int8 or fp32 pools.
 cudaError_t dispatch(int dtype, int d, bool quant, const PagedArgs& a, cudaStream_t stream) {
   if (d != HD) return cudaErrorInvalidValue;  // the text models' width
-  if (dtype == kBFloat16) {
-    if (a.counters == nullptr) return cudaErrorInvalidValue;
-    return quant ? launch_int8_mma(a, stream) : launch_bf16_mma(a, stream);
-  }
+  if (dtype == kBFloat16)
+    return quant ? dispatch_mma<true>(a, stream) : dispatch_mma<false>(a, stream);
   if (dtype != kFloat32) return cudaErrorInvalidValue;
   return quant ? launch<float, int8_t, HD>(a, stream) : launch<float, float, HD>(a, stream);
 }
@@ -1116,13 +1423,18 @@ cudaError_t dispatch(int dtype, int d, bool quant, const PagedArgs& a, cudaStrea
 }  // namespace
 
 // One call's arguments in one record, as the Python wrapper packs them
-// (struct format "=15Q10ifi"): one ctypes argument to convert instead of
-// 27. part_acc and part_ml are fp32 scratch of S*Hkv*ceil(G*T/16)*16*
-// n_split*D and *2 elements, n_split = ceil(W*BS / split_cols);
-// split_cols is a multiple of 64. k_scale / v_scale non-null: the pools
-// are int8 and T <= 64. bf16 q takes a tensor-core body (one launch, over
-// int8 or bf16 pools), which needs `counters`: S*Hkv*ceil(G*T/16) int32
-// that are 0 (it leaves them 0). dtype: q's, 0 = float32, 1 = bfloat16.
+// (struct format "=15Q16ifi"): one ctypes argument to convert instead of
+// 33. k_scale / v_scale non-null: the pools are int8 and T <= 64.
+// fp32 q (dtype 0) takes the fp32 body: split_cols, a multiple of 64;
+// part_acc and part_ml fp32 scratch of S*Hkv*ceil(G*T/16)*16*n_split*D
+// and *2 elements, n_split = ceil(W*BS / split_cols). bf16 q (dtype 1)
+// takes a tensor-core body (one launch, over int8 or bf16 pools):
+// `blocks` blocks of `warps` warps, col_groups 4 (warps == 4) or 1 (8 <=
+// warps <= 12), chunks of at least min_chunk_tiles 64-col tiles and at
+// most max_chunks a (slot, kv-head) (max_chunks * 2 * (D + 2) floats fit
+// merge_bytes); part_acc / part_ml of max_items*G*T*D and *2 fp32
+// (max_items >= blocks + S*Hkv), `counters`: S*Hkv int32 that are 0 (it
+// leaves them 0).
 struct PagedCall {
   const void* q;
   const void* k_new;
@@ -1140,6 +1452,7 @@ struct PagedCall {
   void* counters;
   void* stream;
   int slots, t_len, hq, hkv, d, width, bs, n_blocks, layer, split_cols;
+  int blocks, warps, col_groups, min_chunk_tiles, max_items, max_chunks;
   float scale;
   int dtype;
 };
@@ -1148,10 +1461,18 @@ struct PagedCall {
 HOCR_EXPORT int hocr_paged_append_attention(const PagedCall* call) {
   const PagedCall& c = *call;
   if (c.slots == 0 || c.t_len == 0) return 0;
-  if (c.split_cols <= 0 || c.split_cols % KT != 0) return cudaErrorInvalidValue;
   const bool quant = c.k_scale != nullptr;
   if (quant != (c.v_scale != nullptr) || (quant && c.t_len > MAX_NEW_INT8))
     return cudaErrorInvalidValue;
+  if (c.dtype == kBFloat16) {
+    const bool shape_ok = c.col_groups == 4 ? c.warps == 4
+                          : c.col_groups == 1 && c.warps >= MIN_WARPS && c.warps <= MAX_WARPS;
+    if (!shape_ok || c.blocks < 1 || c.min_chunk_tiles < 1 || c.max_chunks < 1 ||
+        c.max_items < c.blocks + c.slots * c.hkv || c.counters == nullptr)
+      return cudaErrorInvalidValue;
+  } else if (c.split_cols <= 0 || c.split_cols % KT != 0) {
+    return cudaErrorInvalidValue;
+  }
   PagedArgs a;
   a.q = c.q;
   a.k_new = c.k_new;
@@ -1176,10 +1497,15 @@ HOCR_EXPORT int hocr_paged_append_attention(const PagedCall* call) {
   a.n_blocks = c.n_blocks;
   a.layer = c.layer;
   a.split_cols = c.split_cols;
-  a.n_split = (c.width * c.bs + c.split_cols - 1) / c.split_cols;
-  const size_t ring = quant ? (size_t)STAGES8 * STAGE8_BYTES : BF16_MMA_SMEM_BYTES;
-  if (c.dtype == kBFloat16 && (size_t)RT * (a.n_split + 1) * sizeof(float) > ring)
-    return cudaErrorInvalidValue;   // the split merge's weights must fit the ring
+  a.n_split = c.split_cols > 0 ? (c.width * c.bs + c.split_cols - 1) / c.split_cols : 0;
+  a.blocks = c.blocks;
+  a.warps = c.warps;
+  a.col_groups = c.col_groups;
+  a.min_chunk_tiles = c.min_chunk_tiles;
+  a.max_chunks = c.max_chunks;
+  a.bs_log2 = -1;
+  for (int k = 0; k < 31; ++k)
+    if (c.bs == (1 << k)) a.bs_log2 = k;
   a.scale = c.scale;
   return dispatch(c.dtype, c.d, quant, a, static_cast<cudaStream_t>(c.stream));
 }

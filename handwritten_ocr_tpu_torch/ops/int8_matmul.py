@@ -26,6 +26,10 @@ _K_PIECE = 64              # K splits in multiples of this
 # The split-K merge: the last block of a channel block reads every split's
 # fp32 partial; keep that within this many bytes where the card allows.
 _MERGE_BYTES = 128 * 1024
+# The fp32-x body: 128 output channels a block, and no split of K shorter
+# than this (a block's prologue and merge would outweigh its products).
+_F32_BLOCK = 128
+_F32_MIN_SPLIT_K = 1024
 # The kernel's arguments as one record (``Int8MatmulCall`` in the source):
 # 7 pointers (0 for none), then 9 ints.
 _CALL = struct.Struct("=7Q9i")
@@ -69,9 +73,14 @@ def plan(m: int, n: int, k: int, sms: int, bf16: bool = True) -> Plan:
     (an SM streams its blocks at a rate of its own, measured on the H100:
     two blocks on one SM take about twice as long as one), then the fewest
     blocks, then the least for the split merge to read, within
-    ``_MERGE_BYTES`` per channel block where possible. fp32 x takes one
-    split. Needs no card."""
-    if not bf16 or -(-n // 128) >= sms:
+    ``_MERGE_BYTES`` per channel block where possible. fp32 x (an FMA
+    body, bound by operations) takes blocks of 128 channels and the split
+    of K, in pieces of at least ``_F32_MIN_SPLIT_K``, whose busiest SM does
+    the fewest products (blocks spread evenly over the SMs), then the
+    fewest splits. Needs no card."""
+    if not bf16:
+        return _plan_fp32(m, n, k, sms)
+    if -(-n // 128) >= sms:
         return Plan(128, 1, k, (-(-n // 128), 1), 0, 0)
     pieces = -(-k // _K_PIECE)
     options = []
@@ -93,6 +102,26 @@ def plan(m: int, n: int, k: int, sms: int, bf16: bool = True) -> Plan:
         return Plan(bn, 1, k, (blocks, 1), 0, 0)
     return Plan(bn, split, k_per_split, (blocks, split),
                 blocks * split * m * bn, blocks)
+
+
+def _plan_fp32(m: int, n: int, k: int, sms: int) -> Plan:
+    """The fp32-x body's launch (see :func:`plan`)."""
+    blocks = -(-n // _F32_BLOCK)
+    pieces = -(-k // _K_PIECE)
+    options = []
+    for want in range(1, pieces + 1):
+        per_split = -(-pieces // want)
+        split = -(-pieces // per_split)
+        k_per_split = min(k, per_split * _K_PIECE)
+        if split > 1 and k_per_split < _F32_MIN_SPLIT_K:
+            break
+        busiest = -(-blocks * split // sms) * k_per_split
+        options.append((busiest, split, k_per_split))
+    _, split, k_per_split = min(options)
+    if split == 1:
+        return Plan(_F32_BLOCK, 1, k, (blocks, 1), 0, 0)
+    return Plan(_F32_BLOCK, split, k_per_split, (blocks, split),
+                blocks * split * m * _F32_BLOCK, blocks)
 
 
 _CHECKED = set()   # argument signatures whose shapes and dtypes passed
@@ -144,7 +173,12 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
     too few blocks to fill the card, K is split over blocks in the same
     launch: the last block of each channel tile sums the fp32 partials in
     split order (a self-resetting arrival counter in a per-device
-    workspace), so two calls give bit-equal results.
+    workspace), so two calls give bit-equal results. fp32 x (the fp32
+    reference runs) takes an FMA body, bound by operations: blocks of 128
+    channels stream W and fp32 x through the same kind of ring, each lane
+    widens 16 weights of each of its 4 channels exactly and does 16 fp32
+    FMAs per read of x from shared memory, and K splits over blocks with
+    the same merge (no TF32: the products stay in full fp32).
     """
     out_dtype = out_dtype or x.dtype
     kernel = use_kernel(x, w_q, scale)

@@ -22,45 +22,64 @@ from handwritten_ocr_tpu_torch.ops.dispatch import check, use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128,)        # the text models' head width
-_ROW_TILE = 16             # query rows per block of every body
+_ROW_TILE = 16             # query rows per tile of every body
 _KEY_TILE = 64             # context cols per tile of every body
-# Context cols per block of the split over the context (a multiple of the
-# key tile). The fp32 body: 256, at a 1k-token decode 4 blocks per live
-# (slot, kv-head). The tensor-core bodies stream faster per block, so they
-# split finer: about _BLOCKS_PER_SM[body] blocks per SM over the grid,
-# which measured best on the H100 at both engines' decode shapes (8 of 24
-# slots live over 2048-col tables). int8: 12 (128 cols at 24 x 4
-# kv-heads, 256 at 24 x 8). bf16: 8 (192 cols at 24 x 4, 384 at 24 x 8);
-# its 96 KB ring lets two blocks share an SM, and 12 put the 64:8 step's
-# live blocks past one wave of them.
+# The fp32 body's split of the context over blocks: 256 cols, at a
+# 1k-token decode 4 blocks per (slot, kv-head).
 _SPLIT_COLS = 256
-_BLOCKS_PER_SM = {"int8": 12, "bf16": 8}
-# Bytes of each tensor-core body's ring of K/V stages in shared memory,
-# which the last split of a row tile reuses for the merge weights: 16 x
-# (n_split + 1) fp32 must fit.
-_RING_BYTES = {"int8": 3 * (2 * _KEY_TILE * 128 + 2 * _KEY_TILE * 4),
-               "bf16": 3 * 2 * _KEY_TILE * 128 * 2}
+# The tensor-core bodies (bf16 q): one persistent launch over the live
+# work (``csrc/paged_decode_attention.cu:paged_mma_kernel``). Their K/V
+# ring of shared memory: 3 stages of a 64-col tile, int8 K and V with
+# their fp32 scales or bf16 K and V; over int8 pools also the new rows
+# quantised (T rows of K and V, two scales each) and, at T > 1, the
+# widened bf16 tile (at T = 1 the int8 body widens in registers); then
+# the work list, 5 ints a slot and one.
+_STAGES = 3
+_STAGE_BYTES = {"int8": 2 * _KEY_TILE * 128 + 2 * _KEY_TILE * 4,
+                "bf16": 2 * _KEY_TILE * 128 * 2}
+_WIDE_BYTES = 2 * _KEY_TILE * 128 * 2
+_MERGE_ROW_BYTES = (128 + 2) * 4   # a partial row: O, m and l in fp32
+_SMEM_PER_SM = 228 * 1024  # H100: shared memory of an SM (227 KB a block)
+_SMEM_PER_BLOCK = 227 * 1024
+_STATIC_SMEM = 64          # a block's static shared memory (an mbarrier, a flag)
+_BLOCK_RESERVE = 1024 + _STATIC_SMEM   # and the system's 1 KB a block
+_MAX_WARPS = 12            # row tiles a block serves in one pass (T > 1)
+_FULL_WARPS = 8            # up to 8 warps: 255 registers a thread, q in them
+_MIN_CHUNK_TILES = 2       # the shortest chunk: two ring tiles in flight
 # New tokens per call the int8 kernel quantises in shared memory
 # (decode-shaped calls have T <= 64).
 _MAX_NEW_INT8 = 64
 # The kernel's arguments as one record (``PagedCall`` in the source): 15
-# pointers (0 for none), 10 ints, the float scale, the dtype code.
-_CALL = struct.Struct("=15Q10ifi")
+# pointers (0 for none), 15 ints, the float scale, the dtype code.
+_CALL = struct.Struct("=15Q16ifi")
 _WORKSPACE = build.Workspace()
 
 
 class Plan(NamedTuple):
-    """One launch of the kernel: the context split into ``n_split`` ranges
-    of ``split_cols`` cols, ``row_tiles`` tiles of 16 query rows per
-    kv-head, the grid, and the workspace it takes: ``partials`` rows of
-    fp32 partials (D + 2 floats each) and int32 ``counters`` (the
-    tensor-core bodies')."""
-    split_cols: int
-    n_split: int
+    """One launch of the kernel. Every body: ``row_tiles`` tiles of 16 of
+    the G*T query rows of a kv-head, the ``grid``, ``threads`` a block,
+    and the workspace it takes: ``partials`` rows of fp32 partials (D + 2
+    floats each) and int32 ``counters``. The fp32 body: the context split
+    into ``n_split`` ranges of ``split_cols`` cols. The tensor-core
+    bodies: a 1-D grid of ``grid[0]`` blocks of ``smem`` bytes of dynamic
+    shared memory, ``col_groups`` warps on each row tile (4 at T = 1,
+    where the four warps split each tile's cols; 1 else), chunks of at
+    least ``min_chunk_tiles`` 64-col tiles, at most ``max_chunks`` of them
+    a (slot, kv-head) (whose partials the merge brings into
+    :func:`merge_bytes` of shared memory two rows at a time) and at most
+    ``max_items`` work items."""
     row_tiles: int
-    grid: tuple[int, int, int]
+    grid: tuple
+    threads: int
     partials: int
     counters: int
+    split_cols: int = 0
+    n_split: int = 0
+    smem: int = 0
+    col_groups: int = 0
+    min_chunk_tiles: int = 0
+    max_items: int = 0
+    max_chunks: int = 0
 
 
 def body(q_dtype: torch.dtype, quant: bool) -> str:
@@ -72,30 +91,85 @@ def body(q_dtype: torch.dtype, quant: bool) -> str:
     return "int8" if quant else "bf16"
 
 
+def mma_smem(kind: str, t: int, col_groups: int, q_warps: int,
+             slots: int) -> int:
+    """Dynamic shared memory of a tensor-core launch of body ``kind`` at
+    ``t`` new tokens and ``col_groups`` warps a row tile, whose ``q_warps``
+    warps keep their q tiles in shared memory (blocks of more than 8
+    warps), over ``slots`` slots (``mma_smem_bytes``, ``work_list_offset``
+    and ``work_list_bytes`` in the source)."""
+    smem = _STAGES * _STAGE_BYTES[kind] + q_warps * _ROW_TILE * 128 * 2
+    if kind == "int8":
+        smem += (_WIDE_BYTES if col_groups == 1 else 0) + t * (2 * 128 + 2 * 4)
+    return -(-smem // 16) * 16 + 4 * (5 * slots + 1)
+
+
+def merge_bytes(kind: str, col_groups: int) -> int:
+    """Shared memory the chunk merge may fill: the ring and, over int8
+    pools at ``col_groups`` 1, the widened tile (``merge_bytes`` in the
+    source)."""
+    wide = _WIDE_BYTES if kind == "int8" and col_groups == 1 else 0
+    return _STAGES * _STAGE_BYTES[kind] + wide
+
+
+def blocks_per_sm(kind: str, t: int, col_groups: int, slots: int) -> int:
+    """Blocks of a tensor-core launch that share an SM: at T = 1, where a
+    block is 4 warps of up to 255 registers a thread, two where the shared
+    memory allows (more blocks would shorten the chunks, whose merges cost
+    more than the blocks gain); one block of 8 to 12 warps (255 registers
+    a thread up to 8 warps, 168 above) else."""
+    if col_groups == 1:
+        return 1
+    return max(1, min(2, _SMEM_PER_SM // (mma_smem(kind, t, col_groups, 0,
+                                                   slots)
+                                          + _BLOCK_RESERVE)))
+
+
 @functools.lru_cache(maxsize=None)
 def plan(slots: int, t: int, hq: int, hkv: int, width_cols: int,
          kind: str, sms: int) -> Plan:
     """The launch of body ``kind`` (:func:`body`) for q ``[slots, t, hq,
     128]`` over tables of ``width_cols`` = W*BS cols on a card of ``sms``
-    SMs. A tensor-core body's splits aim at ``_BLOCKS_PER_SM[kind]`` blocks
-    per SM over the whole grid (live or not: the host does not know which
-    slots are live), as long as its merge weights fit its ring. Needs no
-    card."""
-    row_tiles = -(-(hq // hkv) * t // _ROW_TILE)
+    SMs. Needs no card.
+
+    A tensor-core body launches one wave: ``sms`` x :func:`blocks_per_sm`
+    blocks, fewer where the table cannot give that many items; the kernel
+    itself chunks the live cols (``build_work_list`` in the source), so
+    the host needs to know neither which slots are live nor how long
+    their contexts are. A live slot has ceil((start + n_valid) / 64)
+    tiles; the chunk length L is the shortest, at least
+    ``min_chunk_tiles`` and ceil(most tiles / ``max_chunks``), at which
+    Hkv x sum ceil(tiles / L) items fit the grid (else one chunk a pair);
+    a slot's pairs then take ceil(tiles / L) chunks of ceil(tiles /
+    chunks) tiles, the last what is left. Its workspace holds the
+    partials of ``max_items`` = blocks + slots x Hkv items (the chunk rule
+    never makes more), G*T rows each (padded to an even count), and a
+    counter per (slot, kv-head). Raises ValueError where the slots' work
+    list does not fit a block's shared memory."""
+    rows = (hq // hkv) * t
+    row_tiles = -(-rows // _ROW_TILE)
+    if kind == "fp32":
+        n_split = -(-width_cols // _SPLIT_COLS)
+        return Plan(row_tiles, (slots, hkv, row_tiles * n_split), 128,
+                    slots * hkv * row_tiles * _ROW_TILE * n_split, 0,
+                    split_cols=_SPLIT_COLS, n_split=n_split)
+    col_groups = 4 if row_tiles == 1 else 1
+    warps = 4 if col_groups == 4 else min(_MAX_WARPS, max(8, row_tiles))
     tiles = -(-width_cols // _KEY_TILE)
-    mma = kind != "fp32"
-    if mma:
-        want = max(1, round(_BLOCKS_PER_SM[kind] * sms
-                            / (slots * hkv * row_tiles)))
-        want = min(tiles, want, _RING_BYTES[kind] // (4 * _ROW_TILE) - 1)
-        split_cols = _KEY_TILE * -(-tiles // want)
-    else:
-        split_cols = _SPLIT_COLS
-    n_split = -(-width_cols // split_cols)
-    partials = slots * hkv * row_tiles * _ROW_TILE * n_split
-    return Plan(split_cols, n_split, row_tiles,
-                (slots, hkv, row_tiles * n_split), partials,
-                slots * hkv * row_tiles if mma else 0)
+    most_items = slots * hkv * -(-tiles // _MIN_CHUNK_TILES)
+    blocks = max(1, min(sms * blocks_per_sm(kind, t, col_groups, slots),
+                        most_items))
+    max_items = blocks + slots * hkv
+    smem = mma_smem(kind, t, col_groups,
+                    warps if warps > _FULL_WARPS else 0, slots)
+    if smem > _SMEM_PER_BLOCK - _STATIC_SMEM:
+        raise ValueError(f"the work list of {slots} slots does not fit a "
+                         f"block's shared memory ({smem} bytes)")
+    return Plan(row_tiles, (blocks,), 32 * warps, max_items * (rows + rows % 2),
+                slots * hkv, smem=smem, col_groups=col_groups,
+                min_chunk_tiles=_MIN_CHUNK_TILES, max_items=max_items,
+                max_chunks=merge_bytes(kind, col_groups)
+                // (2 * _MERGE_ROW_BYTES))
 
 
 def _int32(x: torch.Tensor) -> torch.Tensor:
@@ -269,18 +343,22 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     each live slot's cached K and V once — about 1 KB per token per layer
     in bf16, 0.5 KB (+ 32 B of scales) in int8 — and does ~4 flops per
     bf16 byte read. The kernel reads only the pages below ``start +
-    n_valid`` of live slots (a slot with n_valid 0 reads nothing), splits
-    each context over blocks so that a few live slots still spread over the
-    SMs, appends the new rows in the same launch, and takes the new cols
-    from ``k_new``/``v_new`` (int8: quantised in each block's shared memory
+    n_valid`` of live slots (a slot with n_valid 0 reads nothing), appends
+    the new rows in the same launch, and takes the new cols from
+    ``k_new``/``v_new`` (int8: quantised in the block's shared memory
     exactly as the append quantises them) rather than from the pool rows
-    another block is writing. With bf16 q (both engines) one block holds
-    all G·T query rows of a kv-head (one ``mma.sync`` tile at a decode
-    step), streams K and V through a 3-stage ``cp.async`` ring of shared
-    memory (bf16 pools: bf16 tiles read by ``ldmatrix``; int8 pools: int8
-    tiles widened in registers), runs both products on the tensor cores (P
-    as bf16 hi + lo parts) and merges the splits in the same launch, in
-    split order, through a self-resetting arrival counter in a per-device
+    another block is writing. With bf16 q (both engines) it is one
+    persistent launch of about one wave whose blocks derive the work from
+    ``start``/``n_valid`` on the card (no host sync, so a decode step stays
+    capturable in a CUDA graph): live (slot, kv-head, chunk of the
+    context) items, the chunk length chosen from the live total of cols
+    (:func:`plan`). One block serves all G·T query rows of its item
+    (a ``mma.sync`` row tile per warp; at T = 1 the four warps share one
+    tile and split its cols), streams K and V through a 3-stage
+    ``cp.async`` ring of shared memory once (int8 tiles widened to bf16
+    once per tile), runs both products on the tensor cores (P as bf16 hi
+    + lo parts) and merges a pair's chunks in the same launch, in chunk
+    order, through a self-resetting arrival counter in a per-device
     workspace. fp32 q (the card's reference runs) takes an fp32 body whose
     splits a second small kernel merges.
 
@@ -332,7 +410,10 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
                             valid32.data_ptr(), out.data_ptr(), part_acc,
                             part_ml, counters, build.current_stream(device),
                             s, t, hq, hkv, d, width, bs, k_pool.shape[1],
-                            layer, launch.split_cols, scale,
+                            layer, launch.split_cols, launch.grid[0],
+                            launch.threads // 32, launch.col_groups,
+                            launch.min_chunk_tiles, launch.max_items,
+                            launch.max_chunks, scale,
                             _DTYPE_CODES[q.dtype]))
     if quant:
         paged_append_attention.int8_launches += 1

@@ -169,3 +169,36 @@ def test_bf16_kernel_unaligned_x_on_cuda():
     got = int8_matmul(x, w, s)
     assert torch.equal(got, int8_matmul(x, w, s))
     assert_close_to_plain(got, int8_matmul_plain(x, w, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 24, 32])
+@pytest.mark.parametrize("d_in,d_out", [
+    (384, 130),        # ragged N, K a whole number of tiles
+    (336, 1187),       # ragged N, ragged last k tile
+    (300, 896),        # K % 16 != 0: the unaligned loads
+    (4100, 259),       # unaligned, split K, ragged N
+    (5120, 1024),      # qwen3:32b k/v: split K
+    (5120, 25600),     # qwen3:32b gate/up: split K over 200 blocks
+])
+def test_fp32_x_kernel_on_cuda(m, d_in, d_out):
+    """The fp32-x FMA body: within 1e-5 of the plain version's largest
+    output (the same fp32 products summed in another order), one launch
+    per call, and two calls bit-equal (the split merge's fixed order and
+    the counters' reset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(m + d_in + d_out)
+    x = torch.randn((m, d_in), generator=gen, device="cuda")
+    w = torch.randint(-127, 128, (d_out, d_in), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(d_out, generator=gen, device="cuda") * 1e-3 + 1e-4
+    before = int8_matmul.launches
+    got = int8_matmul(x, w, s)
+    again = int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    want = int8_matmul_plain(x, w, s)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

@@ -349,3 +349,135 @@ def test_each_body_moves_its_own_counter_on_cuda():
                            scale=D ** -0.5)
     torch.cuda.synchronize()
     assert tuple(x - y for x, y in zip(launch_counts(), before)) == (0, 0, 1)
+
+
+def card_case(quant, hq, hkv, t, start, n_valid, *, slots=24, bs=128,
+              width=32, seed=0):
+    """bf16 q and new rows over int8 (``quant``) or bf16 pools of 2 layers,
+    made on the card: each live slot its own ``width`` shuffled pages of
+    ``bs`` cols, dead slots' tables at block 0. Runs the kernel twice and
+    the plain version once on copies; checks the valid rows within
+    tolerance, dead slots and rows zero, the pools bit-equal to the plain
+    append, one launch a call on the body's counter, and the two calls
+    bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    live = [s for s in range(slots) if n_valid[s] > 0]
+    n_blocks = 1 + len(live) * width
+    shape = (2, n_blocks, bs, hkv, D)
+    tables = torch.zeros((slots, width), dtype=torch.int32, device="cuda")
+    perm = 1 + torch.randperm(len(live) * width, generator=gen,
+                              device="cuda").to(torch.int32)
+    for i, s in enumerate(live):
+        tables[s] = perm[i * width:(i + 1) * width]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    args = dict(q=randn(slots, t, hq, D), k_new=randn(slots, t, hkv, D),
+                v_new=randn(slots, t, hkv, D), tables=tables,
+                start=torch.tensor(start, dtype=torch.int32, device="cuda"),
+                n_valid=torch.tensor(n_valid, dtype=torch.int32,
+                                     device="cuda"))
+    if quant:
+        args.update(
+            k_pool=torch.randint(-127, 128, shape, generator=gen,
+                                 device="cuda", dtype=torch.int8),
+            v_pool=torch.randint(-127, 128, shape, generator=gen,
+                                 device="cuda", dtype=torch.int8),
+            k_scale=torch.rand(shape[:2] + (hkv, bs), generator=gen,
+                               device="cuda") * 0.02 + 0.001,
+            v_scale=torch.rand(shape[:2] + (hkv, bs), generator=gen,
+                               device="cuda") * 0.02 + 0.001)
+    else:
+        args.update(k_pool=randn(*shape), v_pool=randn(*shape))
+    names = NAMES + (POOLS[2:] if quant else ())
+    plain = {k: v.clone() for k, v in args.items()}
+    before = launch_counts()
+    got = paged_append_attention(*(args[k] for k in names), layer=LAYER,
+                                 scale=D ** -0.5)
+    again = paged_append_attention(*(args[k] for k in names), layer=LAYER,
+                                   scale=D ** -0.5)
+    torch.cuda.synchronize()
+    moved = tuple(x - y for x, y in zip(launch_counts(), before))
+    assert moved == ((0, 0, 2) if quant else (2, 0, 0))
+    assert torch.equal(got, again)
+    want = paged_append_attention_plain(*(plain[k] for k in names),
+                                        layer=LAYER, scale=D ** -0.5)
+    rows = [(s, i) for s in live for i in range(n_valid[s])]
+    pick = (torch.tensor([r[0] for r in rows]),
+            torch.tensor([r[1] for r in rows]))
+    assert_close_to_plain(got[pick], want[pick])
+    for s, nv in enumerate(n_valid):
+        assert bool((got[s, nv:] == 0).all())
+    for k in POOLS[:4 if quant else 2]:
+        assert torch.equal(args[k], plain[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(64, 8), (28, 4)])
+@pytest.mark.parametrize("live", [1, 2, 3, 4])
+def test_few_live_slots_at_long_contexts_on_cuda(quant, hq, hkv, live):
+    """A decode step with 1-4 of 24 slots live at long contexts in
+    4096-col tables (32 blocks of 128): the persistent grid's chunks of
+    the live work, the last of them at the table's last col."""
+    start = [4095 - 701 * i if i < live else 0 for i in range(24)]
+    n_valid = [1 if i < live else 0 for i in range(24)]
+    card_case(quant, hq, hkv, 1, start, n_valid, seed=live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(64, 8), (28, 4)])
+def test_verify_round_over_128_col_blocks_on_cuda(quant, hq, hkv):
+    """A verify round (T = 17) with 8 of 24 slots live over 128-col
+    blocks: slot s starts 1 + s rows before a page boundary and appends 17
+    - s rows across it, so all G*T rows of a kv-head share each K/V tile
+    and the appends cross pages with their own counts."""
+    start = [1279 - s if s < 8 else 0 for s in range(24)]
+    n_valid = [17 - s if s < 8 else 0 for s in range(24)]
+    card_case(quant, hq, hkv, 17, start, n_valid, width=16, seed=hq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,hq,hkv,cols", [
+    (True, 28, 4, 8192),      # int8 at T = 1: 64 two-tile chunks uncapped
+    (True, 14, 2, 16384),
+    (True, 7, 1, 16384),
+    (False, 14, 2, 16384),    # bf16: 128 uncapped
+    (False, 28, 4, 16384),
+])
+def test_one_live_slot_over_long_tables_on_cuda(quant, hq, hkv, cols):
+    """One live slot of 24 at the last col of a long table: the chunk rule
+    alone would give its pairs more chunks than the merge's buffer holds;
+    the capped chunks merge in shared memory within bounds."""
+    start = [cols - 1] + [0] * 23
+    n_valid = [1] + [0] * 23
+    card_case(quant, hq, hkv, 1, start, n_valid, width=cols // 128,
+              seed=cols + hkv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(64, 8), (28, 4)])
+@pytest.mark.parametrize("t", [33, 64])
+def test_row_tiles_past_one_pass_on_cuda(quant, hq, hkv, t):
+    """More than 12 row tiles of G*T rows (T = 33: 15-17, T = 64: 28-32):
+    12 warps with q in shared memory walk each chunk once per 12 row
+    tiles; slot s appends t - s rows from 1 + s before a page boundary."""
+    start = [1279 - s if s < 8 else 0 for s in range(24)]
+    n_valid = [t - s if s < 8 else 0 for s in range(24)]
+    card_case(quant, hq, hkv, t, start, n_valid, width=16, seed=t + hq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+def test_more_than_128_slots_on_cuda(quant):
+    """160 slots, four of them live at both ends of the slot range: the
+    work list grows in shared memory with the slot count."""
+    live = {0: 900, 77: 2047, 128: 63, 159: 1500}
+    start = [live.get(s, 0) for s in range(160)]
+    n_valid = [1 if s in live else 0 for s in range(160)]
+    card_case(quant, 28, 4, 1, start, n_valid, slots=160, width=16, seed=160)
