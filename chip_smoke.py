@@ -213,11 +213,14 @@ Phases, each printing one JSON line:
      TP = 4 gives it (heads and channels split; the int8 lm_head at
      75968 and 37984 channels), against its plain version; flash and
      window at a TP = 2 rank's train shapes (path train_sharded);
- 15. kernels_fp32: every fp32 body at full width: flash, window and paged
-     attention at the shapes the convert phase's fp32 read gives them
-     (path convert_fp32), the int8 matmul with fp32 x at a 24-row
-     qwen3:32b gate projection (path reference: the reference phase's
-     fp32 Qwen3 runs it).
+ 15. kernels_fp32: every fp32 body at full width: flash (the vision
+     global layer and the causal prefill), window and paged attention at
+     the shapes the convert phase's fp32 read gives them (path
+     convert_fp32), the int8 matmul with fp32 x at a 24-row qwen3:32b
+     gate projection (path reference: the reference phase's fp32 Qwen3
+     runs it); each held at the fp32 tolerance (FP32_REL_MAX,
+     FP32_REL_RMS), which its plain version run with TF32 products must
+     fail.
 
 Phases 6-9 and 11 decode through ``DenseTokenizer``: every id decodes to one
 character, so random weights write texts of their budget's length (with
@@ -262,9 +265,14 @@ FP32_FLOPS_PER_S = 67e12           # float32 outside the tensor cores
 SEED = 0
 # A kernel agrees with its plain version when its largest error is within
 # BF16_ULPS bf16 ulps of the plain output's largest magnitude, and the RMS
-# of its error within REL_RMS_TOL of the plain output's RMS.
+# of its error within REL_RMS_TOL of the plain output's RMS. An fp32 body
+# is held closer: its largest error within FP32_REL_MAX of max|want| and
+# its RMS error within FP32_REL_RMS of RMS(want), which a TF32 product
+# (10 mantissa bits, ~5e-4 relative) cannot meet.
 BF16_ULPS = 2
 REL_RMS_TOL = 1e-2
+FP32_REL_MAX = 2.0 ** -14
+FP32_REL_RMS = 1e-5
 
 # Every cut below the cell a phase drives: phase function -> {what: [used,
 # full]}. Depth, which brings the phases inside half the script's limit,
@@ -459,7 +467,16 @@ def phase_build() -> None:
          ptxas=usage)
 
 
-def _compare(name: str, got, want) -> dict:
+def _errors(got, want) -> tuple[float, float, float]:
+    """(max |got - want|, RMS(got - want) / RMS(want), max |want|)."""
+    got, want = got.float(), want.float()
+    diff = got - want
+    return (float(diff.abs().max()),
+            float(diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()),
+            float(want.abs().max()))
+
+
+def _compare(name: str, got, want, fp32: bool = False) -> dict:
     """Kernel output against its plain version, at the plain output's own
     scale. A bf16 value carries 8 significant bits: two fp32 sums of the
     same terms in another order round to bf16 values at most one ulp
@@ -467,21 +484,43 @@ def _compare(name: str, got, want) -> dict:
     largest error must stay within BF16_ULPS ulps of max|want|, which
     bounds the worst element, and RMS(error) within REL_RMS_TOL of
     RMS(want), which catches a fault that moves many outputs smaller
-    than the largest."""
-    got, want = got.float(), want.float()
-    diff = got - want
-    err = float(diff.abs().max())
-    peak = float(want.abs().max())
+    than the largest. ``fp32``: the kernel computes in fp32 (an fp32
+    body), so the bounds are FP32_REL_MAX and FP32_REL_RMS: two fp32
+    sums of the same terms in another order."""
+    err, rel_rms, peak = _errors(got, want)
     if not (math.isfinite(peak) and peak > 0):
         raise AssertionError(f"{name}: plain output has max|value| {peak}")
-    tol = BF16_ULPS * 2.0 ** (math.floor(math.log2(peak)) - 7)
-    rel_rms = float(diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
-    if not (err <= tol and rel_rms <= REL_RMS_TOL):      # also catches NaN
+    if fp32:
+        tol, rms_tol = FP32_REL_MAX * peak, FP32_REL_RMS
+    else:
+        tol = BF16_ULPS * 2.0 ** (math.floor(math.log2(peak)) - 7)
+        rms_tol = REL_RMS_TOL
+    if not (err <= tol and rel_rms <= rms_tol):      # also catches NaN
         raise AssertionError(
             f"{name}: kernel vs plain max_abs_err {err} (tolerance {tol}), "
-            f"rel_rms_err {rel_rms} (tolerance {REL_RMS_TOL})")
+            f"rel_rms_err {rel_rms} (tolerance {rms_tol})")
     return dict(max_abs_err=err, tolerance=tol, rel_rms_err=rel_rms,
-                rel_rms_tolerance=REL_RMS_TOL)
+                rel_rms_tolerance=rms_tol)
+
+
+def _refuses_tf32(name: str, plain, want) -> dict:
+    """The fp32 check against a stand-in for a TF32 body: ``plain()`` run
+    with TF32 matrix products allowed must fail ``_compare(..., fp32=
+    True)`` against ``want`` (the plain version in full fp32). Returns
+    the stand-in's errors; raises if the check would pass it."""
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = plain()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+    err, rel_rms, _ = _errors(tf32, want)
+    try:
+        _compare(name, tf32, want, fp32=True)
+    except AssertionError:
+        return dict(tf32_max_abs_err=err, tf32_rel_rms_err=rel_rms)
+    raise AssertionError(f"{name}: the fp32 check passes a TF32 computation "
+                         f"(max_abs_err {err}, rel_rms_err {rel_rms})")
 
 
 def _backward_ms(fn, inputs, library=None) -> dict:
@@ -548,8 +587,12 @@ def _flash_case(case: str, path: str, batch: int, t: int, hq: int,
             for i in range(0, batch, step)])
 
     got = flash_attention(q, k, v, valid, **kw)
-    cmp = _compare(f"flash_attention {case}", got, plain())
-    del got
+    want = plain()
+    fp32 = dtype == torch.float32
+    cmp = _compare(f"flash_attention {case}", got, want, fp32=fp32)
+    if fp32:
+        cmp |= _refuses_tf32(f"flash_attention {case}", plain, want)
+    del got, want
     n_bytes = 2 * q.numel() * size + 2 * k.numel() * size
     if valid is not None:
         live = int(valid.sum())
@@ -615,7 +658,11 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
     kw = dict(num_heads=num_heads, window_len=plan.window_len, scale=scale)
     got = window_attention(qkv, cos, sin, valid, **kw)
     want = window_attention_plain(qkv, cos, sin, valid, **kw)
-    cmp = _compare(f"window_attention {case}", got, want)
+    fp32 = dtype == torch.float32
+    cmp = _compare(f"window_attention {case}", got, want, fp32=fp32)
+    if fp32:
+        cmp |= _refuses_tf32(f"window_attention {case}", lambda: (
+            window_attention_plain(qkv, cos, sin, valid, **kw)), want)
     del got, want
     n_win, wl = plan.n_windows, plan.window_len
     live_per_win = plan.valid.reshape(n_win, wl).sum(axis=1)
@@ -726,7 +773,13 @@ def _paged_case(name: str, case: str, slots: int, live: int, context: int,
                                         tables, start, n_valid, *refs[2:],
                                         layer=layer, scale=tscale)
     real = torch.arange(t, device=dev)[None] < n_valid[:, None]   # [S, t]
-    cmp = _compare(f"{name} {case}", got[real], want[real])
+    fp32 = dtype == torch.float32
+    cmp = _compare(f"{name} {case}", got[real], want[real], fp32=fp32)
+    if fp32:   # the pools hold the appended rows: a second append rewrites them
+        cmp |= _refuses_tf32(f"{name} {case}", lambda: (
+            paged_append_attention_plain(
+                q, k_new, v_new, refs[0], refs[1], tables, start, n_valid,
+                *refs[2:], layer=layer, scale=tscale)[real]), want[real])
     if not all(torch.equal(a, b) for a, b in zip(pools, refs)):
         raise AssertionError(f"{name} {case}: pools differ from plain")
     if not bool((got[~real] == 0).all()):
@@ -859,7 +912,11 @@ def _int8_matmul_case(case: str, m: int, d_in: int, d_out: int,
     if not torch.equal(got, int8_matmul(x, w_q, scale, out_dtype=out_dtype)):
         raise AssertionError(f"int8_matmul {case}: two calls differ")
     want = int8_matmul_plain(x, w_q, scale, out_dtype)
-    cmp = _compare(f"int8_matmul {case}", got, want)
+    fp32 = x_dtype == torch.float32
+    cmp = _compare(f"int8_matmul {case}", got, want, fp32=fp32)
+    if fp32:
+        cmp |= _refuses_tf32(f"int8_matmul {case}", lambda: (
+            int8_matmul_plain(x, w_q, scale, out_dtype)), want)
     del got, want
     out_bytes = 4 if out_dtype == torch.float32 else 2
     n_bytes = (d_in * d_out + m * d_in * size + d_out * 4
@@ -3744,9 +3801,11 @@ def phase_kernels_paged_table(qcfg) -> list[dict]:
 
 
 def phase_kernels_fp32(cfg, qcfg, prompt_len: int) -> list[dict]:
-    """The kernels' fp32 bodies at full width: flash, window and paged
-    attention at the shapes the convert phase's fp32 read gives them
-    (``TorchOCRBackend`` on the VL snapshot in fp32, fp32 pools: one
+    """The kernels' fp32 bodies at full width, each held at the fp32
+    tolerance and shown to refuse a TF32 stand-in (``_refuses_tf32``):
+    flash (the vision global layer and the causal prefill), window and
+    paged attention at the shapes the convert phase's fp32 read gives
+    them (``TorchOCRBackend`` on the VL snapshot in fp32, fp32 pools: one
     924x672 page, 1 of 24 slots live, 32 new tokens; path convert_fp32),
     and the int8 matmul's fp32-x body at a qwen3:32b gate projection of
     24 rows (path reference: the reference phase's fp32 Qwen3, whose
@@ -3762,6 +3821,9 @@ def phase_kernels_fp32(cfg, qcfg, prompt_len: int) -> list[dict]:
         _flash_case("vision_global_fp32", "convert_fp32", 1, len(plan.valid),
                     vis.num_heads, vis.num_heads, vis.head_dim, gen,
                     valid=valid, dtype=f32),
+        _flash_case("prefill_causal_fp32", "convert_fp32", 1, prompt_len,
+                    txt.num_attention_heads, txt.num_key_value_heads,
+                    txt.head_dim, gen, causal=True, dtype=f32),
         _window_case("vision_window_fp32", "convert_fp32", 1, plan,
                      vis.num_heads, vis.head_dim, gen, dtype=f32),
         _paged_case("paged_append_attention", "decode_step_fp32",
@@ -5218,14 +5280,23 @@ def phase_kernels_train_tp(cfg, tokens: int) -> list[dict]:
     return rows
 
 
-def main() -> int:
+def read_prompt_len() -> int:
+    """Tokens of the read's prompt: the OCR prompt and one 924x672 page's
+    image tokens (merged 2x2 from 14-pixel patches)."""
     from handwritten_ocr_tpu_torch.config import OCR_PROMPT
+    from handwritten_ocr_tpu_torch.models.processor import (ByteTokenizer,
+                                                            vlm_chat_prompt)
+    n_image = (924 // 14) * (672 // 14) // 4
+    return (len(ByteTokenizer().encode(vlm_chat_prompt(OCR_PROMPT, 1)))
+            - 1 + n_image)
+
+
+def main() -> int:
     from handwritten_ocr_tpu_torch.engine.torch_engines import (
         TorchReasoningBackend)
     from handwritten_ocr_tpu_torch.models.init import init_qwen3
     from handwritten_ocr_tpu_torch.models.processor import (ByteTokenizer,
-                                                            llm_chat_prompt,
-                                                            vlm_chat_prompt)
+                                                            llm_chat_prompt)
     from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
     from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
 
@@ -5236,9 +5307,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     cfg = VLConfig()                        # olmOCR-2-7B / Qwen2.5-VL-7B widths
-    n_image = (924 // 14) * (672 // 14) // 4
-    prompt_len = (len(ByteTokenizer().encode(vlm_chat_prompt(OCR_PROMPT, 1)))
-                  - 1 + n_image)
+    prompt_len = read_prompt_len()
     # qwen3:32b at its published widths and depth; no EOS id, so random
     # weights decode to the budget (as bench.py does)
     qcfg = Qwen3Config(eos_token_id=-1)
@@ -5314,7 +5383,10 @@ def main() -> int:
                                        "rel_rms_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "library_ratio")}
-            | {key: r.get(key) for key in ("graph_ms", "library_graph_ms",
+            | {key: r.get(key) for key in ("rel_rms_tolerance",
+                                           "tf32_max_abs_err",
+                                           "tf32_rel_rms_err",
+                                           "graph_ms", "library_graph_ms",
                                            "backward_ms",
                                            "library_backward_ms",
                                            "backward_bound_ms")}

@@ -56,165 +56,37 @@
 //   swizzle, so P.V runs at N = 80 over whole swizzle atoms and does no
 //   padded work. TMA zero-fills rows past T and S; the stores of rows past
 //   T are skipped.
-// - fp32: plain FMA. 256 threads as a 16 x 16 grid, each owning 4 rows x 4
-//   strided columns of the 64 x 64 score tile and 4 rows x D/16 output
-//   columns; Q in shared memory, the K tile then the V tile in one buffer.
+// - fp32 (the reference runs' dtype): FMAs, bound by the FMA pipe (67
+//   TFLOP/s) and, one step before it, by shared memory, which hands an SM
+//   128 bytes a clock whether or not lanes share an address: a thread must
+//   read at most 1 byte per FMA to let the FMA pipe set the pace.
+//   Persistent like the bf16 body: one block of 256 threads per SM walks
+//   work items of 128 q rows, causal items heaviest first and in a snake
+//   over the rounds (a block with a heavy item takes a light one next),
+//   their tiles aligned to the last row so the ragged tile is the first
+//   rows', which see the fewest keys. A thread owns rows ty + 16i (i < 8; ty =
+//   2 warp + lane / 16) and keys tx + 16j (tx = lane % 16) of each key
+//   tile's scores, and the same 8 rows x D/16 columns of O (4tx .. 4tx+3
+//   and 64 + 4tx .. 64 + 4tx+3; at D = 80, 64 + tx). At D = 80 a key tile
+//   is 128 keys, j < 8 (8 x 8 scores: 8 q and 8 k float4s a 4-d step for
+//   256 FMAs, 1 byte an FMA), in a 2-stage ring; at D = 128 the shared
+//   memory holds 64 keys, j < 4 (8 x 4: 1.5 bytes an FMA), in 3 stages. Q
+//   sits in shared memory for the whole item and K and V stream through
+//   a cp.async ring in stages of their own (K0, V0, K1, V1, ...: one
+//   barrier a stage, the next stages in flight during the math; a K stage
+//   carries the tile's mask bytes). Layout: Q, K and V row-major with rows
+//   of D + 4 floats, read as float4 along d (lanes of one ty read the same
+//   q address; the 16 tx lanes read 16 consecutive K rows, which the
+//   4-float pad spreads over distinct 16-byte bank groups, eight rows at
+//   a time). P goes through a buffer of the warp's own ([keys][16 rows +
+//   4 pad], the 16 rows of its two ty, so no block barrier), read back as
+//   two float4s per key beside V's float4s, consecutive across tx. The
+//   softmax runs in registers in the exp2 domain, scale.log2e folded into
+//   one FMA, row max over the 16 lanes of a ty by shuffles, the row sum
+//   per thread until the end.
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-
-template <int D> constexpr size_t flash_smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BQ * (BK + 1));
-}
-
-// ---- fp32 body: plain FMA ----------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const uint8_t* __restrict__ mask,
-             T* __restrict__ out, int t_len, int s_len, int hq, int hkv,
-             int mask_rows, int causal, float scale) {
-  extern __shared__ float smem[];
-  constexpr int QS = D + 1;
-  constexpr int PS = BK + 1;
-  constexpr int NC = D / 16;
-  float* sq = smem;               // [BQ][QS]
-  float* skv = sq + BQ * QS;      // [BK][QS]: the K tile, then the V tile
-  float* sp = skv + BK * QS;      // [BQ][PS]
-
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int h = bh % hq;
-  const int hk = h / (hq / hkv);
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  const size_t q_row = (size_t)hq * D;
-  const size_t kv_row = (size_t)hkv * D;
-  const T* qb = q + (size_t)b * t_len * q_row + (size_t)h * D;
-  const T* kb = k + (size_t)b * s_len * kv_row + (size_t)hk * D;
-  const T* vb = v + (size_t)b * s_len * kv_row + (size_t)hk * D;
-  const uint8_t* mb =
-      mask ? mask + (size_t)(mask_rows == 1 ? 0 : b) * s_len : nullptr;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    sq[r * QS + c] = (q0 + r < t_len) ? to_f(qb[(size_t)(q0 + r) * q_row + c]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  // Causal: key tiles strictly above the diagonal are skipped.
-  const int k_end = causal ? min(s_len, q0 + BQ) : s_len;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers of skv / sp are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      skv[r * QS + c] = (k0 + r < s_len) ? to_f(kb[(size_t)(k0 + r) * kv_row + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sq[(ty * 4 + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = skv[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    }
-
-    bool key_ok[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      key_ok[j] = col < s_len && (mb == nullptr || mb[col] != 0);
-    }
-    float corr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      bool ok[4];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        ok[j] = key_ok[j] && (!causal || col <= row);
-        s[i][j] = ok[j] ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = group_max<16>(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - safe) : 0.f;
-        sum += p;
-        sp[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(p);
-      }
-      sum = group_sum<16>(sum);
-      corr[i] = (m[i] == -INFINITY) ? 0.f : expf(m[i] - safe);
-      l[i] = corr[i] * l[i] + sum;
-      m[i] = m_new;
-    }
-    __syncthreads();  // every thread is done reading the K tile
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      skv[r * QS + c] = (k0 + r < s_len) ? to_f(vb[(size_t)(k0 + r) * kv_row + c]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr[i];
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sp[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = skv[kk * QS + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-  T* ob = out + (size_t)b * t_len * q_row + (size_t)h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= t_len) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      ob[(size_t)row * q_row + tx + 16 * c] = from_f<T>(acc[i][c] / denom);
-  }
-}
 
 // ---- bf16 body: wgmma + TMA, warp-specialised ----------------------------
 constexpr int WQ = 128;        // q rows per block: two consumer warpgroups
@@ -534,6 +406,254 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ---- fp32 body: register-tiled FMAs, persistent ---------------------------
+constexpr int FQ = 128;        // q rows per work item
+constexpr int F_THREADS = 256;
+constexpr int F_PW = 16 + 4;   // a warp's P rows: its 16 q rows and a pad
+
+// BK keys a K / V tile: 64 at D = 128 (a thread's score block 8 x 4, 3
+// ring stages), 128 at D = 80 (8 x 8, 2 stages), as the shared memory
+// allows.
+template <int D> struct F32Tiles {
+  static constexpr int BK = D == 80 ? 128 : 64;
+  static constexpr int NJ = BK / 16;                    // a thread's keys
+  static constexpr int STAGES = D == 80 ? 2 : 3;        // each a K or a V tile
+  static constexpr int LD = D + 4;                      // floats a Q / K / V row
+  static constexpr int CH = D / 4;                      // 16-byte chunks a row
+  static constexpr int NOB = D == 128 ? 4 : 1;          // O cols past 64
+  static constexpr int Q_BYTES = FQ * LD * 4;
+  static constexpr int STAGE_BYTES = BK * LD * 4 + BK;  // a tile; K's mask bytes
+  static constexpr int P_BYTES = (F_THREADS / 32) * BK * F_PW * 4;
+  static constexpr size_t SMEM = (size_t)Q_BYTES + STAGES * STAGE_BYTES + P_BYTES;
+  static_assert(D == 80 || D == 128, "head widths 80 and 128");
+  static_assert(STAGE_BYTES % 16 == 0, "stages keep 16-byte alignment");
+  static_assert(SMEM <= 232448, "more shared memory than a block may use");
+};
+
+// One fp32 work item: rows q0 .. q0 + 127 of (batch, q-head), of which
+// those in 0 .. T-1 are real, and the key tiles they need. Causal items
+// come heaviest first across all heads, and their tiles are aligned to
+// the last row, so the ragged tile is the first rows', which see the
+// fewest keys, not the last rows', which see them all.
+struct F32Work {
+  int b, h, hk, q0, n_tiles;
+  __device__ __forceinline__ F32Work(int w, int n_qt, int n_bh, int hq, int hkv,
+                                     int t_len, int s_len, int causal, int bk) {
+    const int bh = causal ? w % n_bh : w / n_qt;
+    const int qt = causal ? w / n_bh : w % n_qt;
+    b = bh / hq;
+    h = bh % hq;
+    hk = h / (hq / hkv);
+    q0 = causal ? t_len - (qt + 1) * FQ : qt * FQ;
+    const int k_end = causal ? min(s_len, q0 + FQ) : s_len;
+    n_tiles = (k_end + bk - 1) / bk;
+  }
+};
+
+// Persistent: block b takes items in a snake over the rounds (b, then 2G
+// - 1 - b, then 2G + b, ...; G blocks), so a block that took one of the
+// heaviest causal items takes one of the lightest next.
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                 int mask_stride, float* __restrict__ out, int t_len, int s_len,
+                 int hq, int hkv, int n_work, int mask_rows, int causal,
+                 float scale_log2) {
+  using L = F32Tiles<D>;
+  constexpr int LD = L::LD, CH = L::CH, NOB = L::NOB, BK = L::BK, NJ = L::NJ;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* sq = reinterpret_cast<float*>(smem_f32);
+  unsigned char* ring = smem_f32 + L::Q_BYTES;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = lane % 16, tyl = lane / 16, ty = 2 * warp + tyl;
+  float* sp = reinterpret_cast<float*>(ring + STAGES * L::STAGE_BYTES) + warp * BK * F_PW;
+  const int n_qt = (t_len + FQ - 1) / FQ;
+  const size_t q_row = (size_t)hq * D, kv_row = (size_t)hkv * D;
+
+  for (int round = 0;; ++round) {
+    const int w = round * gridDim.x +
+                  ((round & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+    if (w >= n_work) break;
+    const F32Work wk(w, n_qt, n_work / n_qt, hq, hkv, t_len, s_len, causal, BK);
+    const float* qb = q + (size_t)wk.b * t_len * q_row + (size_t)wk.h * D;
+    const float* kb = k + (size_t)wk.b * s_len * kv_row + (size_t)wk.hk * D;
+    const float* vb = v + (size_t)wk.b * s_len * kv_row + (size_t)wk.hk * D;
+    const uint8_t* mb =
+        mask ? mask + (size_t)(mask_rows == 1 ? 0 : wk.b) * mask_stride : nullptr;
+    const int n_loads = 2 * wk.n_tiles;   // K0, V0, K1, V1, ...
+    // Load j (K of tile j / 2 if j is even, else its V) into its stage;
+    // rows past S arrive as zeros.
+    auto load = [&](int j) {
+      unsigned char* st = ring + (j % STAGES) * L::STAGE_BYTES;
+      float* dst = reinterpret_cast<float*>(st);
+      const int k0 = (j / 2) * BK;
+      const float* src = (j & 1) ? vb : kb;
+      for (int i = tid; i < BK * CH; i += F_THREADS) {
+        const int r = i / CH, c = i % CH;
+        const bool ok = k0 + r < s_len;
+        cp_async16_zfill(dst + r * LD + 4 * c,
+                         src + (ok ? (size_t)(k0 + r) * kv_row + 4 * c : 0), ok);
+      }
+      if (!(j & 1) && mb != nullptr && tid < BK / 16)
+        cp_async16(st + BK * LD * 4 + 16 * tid, mb + k0 + 16 * tid);
+    };
+
+    __syncthreads();   // the block's previous item is done with Q and the ring
+    for (int i = tid; i < FQ * CH; i += F_THREADS) {   // Q, rows outside 0 .. T-1 as zeros
+      const int r = i / CH, c = i % CH;
+      const bool ok = wk.q0 + r >= 0 && wk.q0 + r < t_len;
+      cp_async16_zfill(sq + r * LD + 4 * c,
+                       qb + (ok ? (size_t)(wk.q0 + r) * q_row + 4 * c : 0), ok);
+    }
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) {   // group 0 holds Q too
+      if (j < n_loads) load(j);
+      cp_async_commit();
+    }
+
+    float o[8][4 + NOB], m[8], l[8], s[8][NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4 + NOB; ++c) o[i][c] = 0.f;
+    }
+
+    for (int j = 0; j < n_loads; ++j) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();   // load j landed for all; the stage of load j - 1 is free
+      if (j + STAGES - 1 < n_loads) load(j + STAGES - 1);
+      cp_async_commit();
+      const unsigned char* st = ring + (j % STAGES) * L::STAGE_BYTES;
+      const float* kv = reinterpret_cast<const float*>(st);
+      const int k0 = (j / 2) * BK;
+      if (!(j & 1)) {
+        // S = Q.K^T: rows ty + 16i, keys tx + 16jj, 4 d a step.
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) s[i][jj] = 0.f;
+#pragma unroll(NJ == 4 ? 2 : 1)
+        for (int d = 0; d < D; d += 4) {
+          float4 a[8], b[NJ];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            a[i] = *reinterpret_cast<const float4*>(sq + (ty + 16 * i) * LD + d);
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj)
+            b[jj] = *reinterpret_cast<const float4*>(kv + (tx + 16 * jj) * LD + d);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int jj = 0; jj < NJ; ++jj) {
+              s[i][jj] = fmaf(a[i].x, b[jj].x, s[i][jj]);
+              s[i][jj] = fmaf(a[i].y, b[jj].y, s[i][jj]);
+              s[i][jj] = fmaf(a[i].z, b[jj].z, s[i][jj]);
+              s[i][jj] = fmaf(a[i].w, b[jj].w, s[i][jj]);
+            }
+        }
+        // Masked keys (col >= S, mask 0, col > row when causal) at -inf;
+        // only a key mask, the ragged last tile and the diagonal need it.
+        const bool edge = k0 + BK > s_len || (causal && k0 + BK - 1 > wk.q0);
+        if (mb != nullptr || edge) {
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) {
+            const int col = k0 + tx + 16 * jj;
+            const bool key_ok = col < s_len && (mb == nullptr || st[BK * LD * 4 + tx + 16 * jj] != 0);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              if (!key_ok || (causal && col > wk.q0 + ty + 16 * i)) s[i][jj] = -INFINITY;
+          }
+        }
+        // Online softmax in the exp2 domain; P into the warp's buffer.
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float mx = s[i][0];
+#pragma unroll
+          for (int jj = 1; jj < NJ; ++jj) mx = fmaxf(mx, s[i][jj]);
+          const float m_new = fmaxf(m[i], group_max<16>(mx) * scale_log2);
+          const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+          const float corr = (m[i] == -INFINITY) ? 0.f : fast_exp2(m[i] - safe);
+          m[i] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) {
+            s[i][jj] = fast_exp2(fmaf(s[i][jj], scale_log2, -safe));   // 0 where masked
+            sum += s[i][jj];
+          }
+          l[i] = corr * l[i] + sum;
+#pragma unroll
+          for (int c = 0; c < 4 + NOB; ++c) o[i][c] *= corr;
+        }
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          float* dst = sp + (tx + 16 * jj) * F_PW + 8 * tyl;
+          *reinterpret_cast<float4*>(dst) = make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+          *reinterpret_cast<float4*>(dst + 4) = make_float4(s[4][jj], s[5][jj], s[6][jj], s[7][jj]);
+        }
+      } else {
+        // O += P.V over the tile's keys (P written by this warp at load
+        // j - 1, behind this stage's barrier).
+#pragma unroll 4
+        for (int kk = 0; kk < BK; ++kk) {
+          const float4 p0 = *reinterpret_cast<const float4*>(sp + kk * F_PW + 8 * tyl);
+          const float4 p1 = *reinterpret_cast<const float4*>(sp + kk * F_PW + 8 * tyl + 4);
+          const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+          const float4 va = *reinterpret_cast<const float4*>(kv + kk * LD + 4 * tx);
+          float vb4[NOB];
+          if constexpr (NOB == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(kv + kk * LD + 64 + 4 * tx);
+            vb4[0] = x.x; vb4[1] = x.y; vb4[2] = x.z; vb4[3] = x.w;
+          } else {
+            vb4[0] = kv[kk * LD + 64 + tx];
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            o[i][0] = fmaf(p[i], va.x, o[i][0]);
+            o[i][1] = fmaf(p[i], va.y, o[i][1]);
+            o[i][2] = fmaf(p[i], va.z, o[i][2]);
+            o[i][3] = fmaf(p[i], va.w, o[i][3]);
+#pragma unroll
+            for (int e = 0; e < NOB; ++e) o[i][4 + e] = fmaf(p[i], vb4[e], o[i][4 + e]);
+          }
+        }
+      }
+    }
+
+    float* ob = out + (size_t)wk.b * t_len * q_row + (size_t)wk.h * D;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float den = fmaxf(group_sum<16>(l[i]), 1e-30f);
+      const int row = wk.q0 + ty + 16 * i;
+      if (row < 0 || row >= t_len) continue;
+      float* dst = ob + (size_t)row * q_row;
+      *reinterpret_cast<float4*>(dst + 4 * tx) =
+          make_float4(o[i][0] / den, o[i][1] / den, o[i][2] / den, o[i][3] / den);
+      if constexpr (NOB == 4)
+        *reinterpret_cast<float4*>(dst + 64 + 4 * tx) =
+            make_float4(o[i][4] / den, o[i][5] / den, o[i][6] / den, o[i][7] / den);
+      else
+        dst[64 + tx] = o[i][4] / den;
+    }
+  }
+}
+
+// The device's SM count, looked up once per device.
+cudaError_t sm_count(int& sms) {
+  static int counts[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  sms = dev < kMaxDevices ? counts[dev] : 0;
+  if (sms != 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) counts[dev] = sms;
+  return err;
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const uint8_t* mask, int mask_stride, void* out, int b,
@@ -553,18 +673,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                                   : CU_TENSOR_MAP_SWIZZLE_32B);
   if (err != cudaSuccess) return err;
   static bool configured[kMaxDevices] = {};
-  static int sm_count[kMaxDevices] = {};
   err = set_smem_once(flash_wgmma_kernel<D>, L::SMEM, configured);
   if (err != cudaSuccess) return err;
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  int sms = 0;
+  err = sm_count(sms);
   if (err != cudaSuccess) return err;
-  int sms = dev < kMaxDevices ? sm_count[dev] : 0;
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) sm_count[dev] = sms;
-  }
   const int n_work = (t_len + WQ - 1) / WQ * b * hq;
   flash_wgmma_kernel<D><<<min(n_work, sms), WTHREADS, L::SMEM, stream>>>(
       map_q, map_k, map_v, mask, mask_stride,
@@ -575,26 +688,32 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
-                        const uint8_t* mask, void* out, int b, int t_len,
-                        int s_len, int hq, int hkv, int mask_rows, int causal,
-                        float scale, cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<D>();
+                        const uint8_t* mask, int mask_stride, void* out, int b,
+                        int t_len, int s_len, int hq, int hkv, int mask_rows,
+                        int causal, float scale, cudaStream_t stream) {
+  using L = F32Tiles<D>;
+  if (mask != nullptr && (mask_stride % L::BK != 0 || mask_stride < s_len))
+    return cudaErrorInvalidValue;
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem_once(flash_kernel<float, D>, smem, configured);
+  cudaError_t err = set_smem_once(flash_f32_kernel<D>, L::SMEM, configured);
   if (err != cudaSuccess) return err;
-  dim3 grid((t_len + BQ - 1) / BQ, b * hq);
-  flash_kernel<float, D><<<grid, NT, smem, stream>>>(
+  int sms = 0;
+  err = sm_count(sms);
+  if (err != cudaSuccess) return err;
+  const int n_work = (t_len + FQ - 1) / FQ * b * hq;
+  flash_f32_kernel<D><<<min(n_work, sms), F_THREADS, L::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), mask, static_cast<float*>(out), t_len,
-      s_len, hq, hkv, mask_rows, causal, scale);
+      static_cast<const float*>(v), mask, mask_stride, static_cast<float*>(out),
+      t_len, s_len, hq, hkv, n_work, mask_rows, causal,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched). `mask_stride`
-// is the row stride of the mask in bytes: S for fp32, S rounded up to a
-// multiple of 128 for bf16.
+// is the row stride of the mask in bytes, S rounded up to a multiple of
+// 128.
 HOCR_EXPORT int hocr_flash_attention(const void* q, const void* k,
                                      const void* v, const void* mask,
                                      int mask_stride, void* out, int b,
@@ -611,10 +730,10 @@ HOCR_EXPORT int hocr_flash_attention(const void* q, const void* k,
     return launch_bf16<128>(q, k, v, m, mask_stride, out, b, t_len, s_len, hq,
                             hkv, mask_rows, causal, scale, st);
   if (dtype == kFloat32 && d == 80)
-    return launch_fp32<80>(q, k, v, m, out, b, t_len, s_len, hq, hkv,
-                           mask_rows, causal, scale, st);
+    return launch_fp32<80>(q, k, v, m, mask_stride, out, b, t_len, s_len, hq,
+                           hkv, mask_rows, causal, scale, st);
   if (dtype == kFloat32 && d == 128)
-    return launch_fp32<128>(q, k, v, m, out, b, t_len, s_len, hq, hkv,
-                            mask_rows, causal, scale, st);
+    return launch_fp32<128>(q, k, v, m, mask_stride, out, b, t_len, s_len, hq,
+                            hkv, mask_rows, causal, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -33,15 +33,8 @@
 //   pools (both engines' default): paged_mma_kernel, on the tensor cores,
 //   one persistent launch over the live work only (described above it).
 // - fp32 q, over fp32 or int8 pools (the card's reference runs):
-//   paged_kernel, fp32 FMAs out of shared memory, grid (slot, kv-head, row
-//   tile of 16 of the G*T query rows x split of `split_cols` cols); the
-//   block (row tile 0, split 0) appends, each block writes its partial (m,
-//   l, unnormalised acc) and a second kernel combines the splits of each
-//   row. Key tiles of 64 cols stream through shared memory: the tile's row
-//   addresses are looked up once (one table read per col), then every
-//   thread issues all its 16-byte loads of the tile before using any. 128
-//   threads, each owning one query row x 8 strided cols of the scores and
-//   D/8 output cols; q is scaled before the dot.
+//   paged_f32_kernel, FMAs, the same persistent launch over the live work
+//   and the same merge in the launch (described above it).
 //
 // int8 pools (P = int8_t). Append: per (slot, token, head) amax = max|k|
 // over D in fp32, scale = max(amax, 1e-6) / 127 by a true division, q =
@@ -59,9 +52,8 @@
 
 namespace {
 
-constexpr int RT = 16;   // query rows per block
+constexpr int RT = 16;   // query rows of a tensor-core row tile
 constexpr int KT = 64;   // key cols per tile
-constexpr int NT = 128;
 constexpr int MAX_NEW_INT8 = 64;   // new tokens per call over int8 pools
 
 struct PagedArgs {
@@ -76,328 +68,14 @@ struct PagedArgs {
   const int* start;
   const int* n_valid;
   void* out;
-  float* part_acc;   // unnormalised P.V: fp32 [S, Hkv, G*T, n_split, D];
-                     // tensor-core bodies [work item, G*T, D]
+  float* part_acc;   // unnormalised P.V: fp32 [work item, G*T, D]
   float* part_ml;    // running max, denominator: the same rows, 2 each
-  int* counters;     // tensor-core bodies: [S, Hkv], 0 between launches
+  int* counters;     // [S, Hkv], 0 between launches
   int slots, t_len, hq, hkv, width, bs, n_blocks, layer;
-  int split_cols, n_split;                      // the fp32 body
-  int blocks, warps, col_groups, min_chunk_tiles, max_chunks;   // the tensor-core bodies
+  int blocks, warps, col_groups, min_chunk_tiles, max_chunks;
   int bs_log2;       // log2(bs) for power-of-two pages, else -1
   float scale;
 };
-
-template <int D> constexpr size_t paged_smem_bytes(bool quant) {
-  // fp32 q / K / V / P tiles, then (int8 pools) the new rows quantised:
-  // int8 K and V [MAX_NEW_INT8][D] and their scales.
-  return sizeof(float) * (size_t)(RT * (D + 1) + KT * (D + 1) + KT * D + RT * (KT + 1)) +
-         (quant ? (size_t)MAX_NEW_INT8 * (2 * D + 2 * sizeof(float)) : 0);
-}
-
-// Quantises the first nv new rows of head h of slot s into shared memory:
-// int8 rows s_kq/s_vq [nv][D] and scales s_ks/s_vs [nv]. One thread per
-// element (D == NT); `red` is 2 * NT/32 floats of scratch.
-template <typename T, int D>
-__device__ void quantize_new_rows(const T* k_new, const T* v_new, int s, int h,
-                                  int t_len, int hkv, int nv, int8_t* s_kq,
-                                  int8_t* s_vq, float* s_ks, float* s_vs,
-                                  float* red) {
-  static_assert(D == NT, "one thread per element of a row");
-  const int tid = threadIdx.x, warp = tid / 32;
-  for (int i = 0; i < nv; ++i) {
-    const size_t src = ((size_t)(s * t_len + i) * hkv + h) * D + tid;
-    const float kx = to_f(k_new[src]);
-    const float vx = to_f(v_new[src]);
-    const float ka = group_max<32>(fabsf(kx));
-    const float va = group_max<32>(fabsf(vx));
-    if (tid % 32 == 0) {
-      red[warp] = ka;
-      red[NT / 32 + warp] = va;
-    }
-    __syncthreads();
-    float kmax = red[0], vmax = red[NT / 32];
-#pragma unroll
-    for (int w = 1; w < NT / 32; ++w) {
-      kmax = fmaxf(kmax, red[w]);
-      vmax = fmaxf(vmax, red[NT / 32 + w]);
-    }
-    const float ksc = __fdiv_rn(fmaxf(kmax, 1e-6f), 127.f);
-    const float vsc = __fdiv_rn(fmaxf(vmax, 1e-6f), 127.f);
-    s_kq[i * D + tid] = static_cast<int8_t>(__float2int_rn(__fdiv_rn(kx, ksc)));
-    s_vq[i * D + tid] = static_cast<int8_t>(__float2int_rn(__fdiv_rn(vx, vsc)));
-    if (tid == 0) {
-      s_ks[i] = ksc;
-      s_vs[i] = vsc;
-    }
-    __syncthreads();   // red is reused by the next row
-  }
-}
-
-// Appends the nv new rows of head h of slot s to the pools at pos =
-// min(start + i, cap) through the slot's table; int8 pools take the rows
-// and scales that quantize_new_rows left in shared memory.
-template <typename T, typename P, int D>
-__device__ void append_rows(const PagedArgs& a, int s, int h,
-                            const int8_t* s_kq, const int8_t* s_vq,
-                            const float* s_ks, const float* s_vs) {
-  constexpr bool QUANT = std::is_same<P, int8_t>::value;
-  const T* k_new = static_cast<const T*>(a.k_new);
-  const T* v_new = static_cast<const T*>(a.v_new);
-  P* k_pool = static_cast<P*>(a.k_pool);
-  P* v_pool = static_cast<P*>(a.v_pool);
-  const int st = a.start[s], nv = a.n_valid[s], bs = a.bs, hkv = a.hkv;
-  const int* tab = a.tables + (size_t)s * a.width;
-  const int cap = a.width * bs - 1;
-  const size_t row_elems = (size_t)hkv * D;
-  const size_t page_elems = (size_t)bs * row_elems;
-  const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
-  for (int idx = threadIdx.x; idx < nv * D; idx += NT) {
-    const int i = idx / D, c = idx % D;
-    const int pos = min(st + i, cap);
-    const int blk = tab[pos / bs];
-    const size_t dst = layer_off + (size_t)blk * page_elems +
-                       (size_t)(pos % bs) * row_elems + (size_t)h * D + c;
-    if constexpr (QUANT) {
-      k_pool[dst] = s_kq[idx];
-      v_pool[dst] = s_vq[idx];
-      if (c == 0) {
-        const size_t sc = (((size_t)a.layer * a.n_blocks + blk) * hkv + h) * bs + pos % bs;
-        a.k_scale[sc] = s_ks[i];
-        a.v_scale[sc] = s_vs[i];
-      }
-    } else {
-      const size_t src = ((size_t)(s * a.t_len + i) * hkv + h) * D + c;
-      k_pool[dst] = k_new[src];
-      v_pool[dst] = v_new[src];
-    }
-  }
-}
-
-template <typename T, typename P, int D>
-__global__ void __launch_bounds__(NT)
-paged_kernel(const PagedArgs a) {
-  constexpr bool QUANT = std::is_same<P, int8_t>::value;
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k_new = static_cast<const T*>(a.k_new);
-  const T* __restrict__ v_new = static_cast<const T*>(a.v_new);
-  P* __restrict__ k_pool = static_cast<P*>(a.k_pool);
-  P* __restrict__ v_pool = static_cast<P*>(a.v_pool);
-  const int t_len = a.t_len, hq = a.hq, hkv = a.hkv, bs = a.bs;
-  extern __shared__ float smem[];
-  constexpr int QS = D + 1;
-  constexpr int PS = KT + 1;
-  constexpr int NC = D / 8;
-  float* sq = smem;            // [RT][QS]
-  float* sk = sq + RT * QS;    // [KT][QS]
-  float* sv = sk + KT * QS;    // [KT][D]
-  float* sp = sv + KT * D;     // [RT][PS]
-  float* s_ks = sp + RT * PS;                          // [MAX_NEW_INT8] (int8)
-  float* s_vs = s_ks + MAX_NEW_INT8;
-  int8_t* s_kq = reinterpret_cast<int8_t*>(s_vs + MAX_NEW_INT8);  // [MAX_NEW_INT8][D]
-  int8_t* s_vq = s_kq + MAX_NEW_INT8 * D;
-  __shared__ float s_red[2 * NT / 32];
-
-  const int s = blockIdx.x;
-  const int h = blockIdx.y;
-  const int row_tiles = gridDim.z / a.n_split;
-  const int tile = blockIdx.z % row_tiles;
-  const int split = blockIdx.z / row_tiles;
-  const int tid = threadIdx.x;
-  const int group = hq / hkv;
-  const int rows = group * t_len;
-  const int st = a.start[s];
-  const int nv = a.n_valid[s];
-  const int* tab = a.tables + (size_t)s * a.width;
-  const size_t row_elems = (size_t)hkv * D;
-  const size_t page_elems = (size_t)bs * row_elems;
-  const size_t layer_off = (size_t)a.layer * a.n_blocks * page_elems;
-
-  if constexpr (QUANT)
-    quantize_new_rows<T, D>(k_new, v_new, s, h, t_len, hkv, nv, s_kq, s_vq,
-                            s_ks, s_vs, s_red);
-
-  if (tile == 0 && split == 0)   // the append: one block per slot and head
-    append_rows<T, P, D>(a, s, h, s_kq, s_vq, s_ks, s_vs);
-
-  // ---- query rows of this tile: row r is (g = r / T, token i = r % T) ----
-  const int my_row = tid / 8;       // 0..15
-  const int lane8 = tid % 8;
-  const int r_glob = tile * RT + my_row;
-  const int my_tok = r_glob % t_len;
-  const bool row_ok = r_glob < rows && my_tok < nv;
-  for (int idx = tid; idx < RT * D; idx += NT) {
-    const int rr = idx / D, c = idx % D;
-    const int r = tile * RT + rr;
-    const int i = r % t_len, g = r / t_len;
-    float val = 0.f;
-    if (r < rows && i < nv)
-      val = to_f(q[((size_t)(s * t_len + i) * hq + h * group + g) * D + c]) * a.scale;
-    sq[rr * QS + c] = val;
-  }
-
-  float m = -INFINITY, l = 0.f, acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
-  const int limit = st + nv;
-  const int row_max = st + my_tok;
-
-  constexpr int VEC = 16 / sizeof(P);   // elements per 16-byte load
-  constexpr int VPR = D / VEC;           // 16-byte loads per K/V row
-  constexpr int ITERS = KT * VPR / NT;   // loads per thread per tile
-  __shared__ const P* s_kp[KT];          // source row of each tile col
-  __shared__ const P* s_vp[KT];          // (nullptr: past the limit)
-  __shared__ float s_kcs[KT];            // int8: scale of each tile col
-  __shared__ float s_vcs[KT];
-
-  const int c_begin = split * a.split_cols;
-  const int c_end = min(limit, c_begin + a.split_cols);
-  for (int k0 = c_begin; k0 < c_end; k0 += KT) {
-    __syncthreads();
-    if (tid < KT) {
-      // One table lookup per col: cached cols come from their pool page,
-      // this call's new cols straight from k_new / v_new.
-      const int col = k0 + tid;
-      const P* kp = nullptr;
-      const P* vp = nullptr;
-      float kcs = 0.f, vcs = 0.f;
-      if (col < st) {
-        const int blk = tab[col / bs];
-        const size_t off = layer_off + (size_t)blk * page_elems +
-                           (size_t)(col % bs) * row_elems + (size_t)h * D;
-        kp = k_pool + off;
-        vp = v_pool + off;
-        if constexpr (QUANT) {
-          const size_t sc = (((size_t)a.layer * a.n_blocks + blk) * hkv + h) * bs + col % bs;
-          kcs = a.k_scale[sc];
-          vcs = a.v_scale[sc];
-        }
-      } else if (col < limit) {
-        if constexpr (QUANT) {   // this call's rows, quantised in shared memory
-          kp = s_kq + (col - st) * D;
-          vp = s_vq + (col - st) * D;
-          kcs = s_ks[col - st];
-          vcs = s_vs[col - st];
-        } else {
-          const size_t src = ((size_t)(s * t_len + col - st) * hkv + h) * D;
-          kp = k_new + src;
-          vp = v_new + src;
-        }
-      }
-      s_kp[tid] = kp;
-      s_vp[tid] = vp;
-      s_kcs[tid] = kcs;
-      s_vcs[tid] = vcs;
-    }
-    __syncthreads();
-    // All of a thread's 16-byte loads are issued before any is used, so
-    // 2 * ITERS loads per thread are in flight at once.
-    uint4 kraw[ITERS], vraw[ITERS];
-#pragma unroll
-    for (int it = 0; it < ITERS; ++it) {
-      const int i = it * NT + tid, r = i / VPR, cv = i % VPR;
-      const P* kp = s_kp[r];
-      const P* vp = s_vp[r];
-      kraw[it] = kp ? *reinterpret_cast<const uint4*>(kp + cv * VEC) : make_uint4(0, 0, 0, 0);
-      vraw[it] = vp ? *reinterpret_cast<const uint4*>(vp + cv * VEC) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int it = 0; it < ITERS; ++it) {
-      const int i = it * NT + tid, r = i / VPR, cv = i % VPR;
-      float kf[VEC], vf[VEC];
-      unpack16(kraw[it], kf, P());
-      unpack16(vraw[it], vf, P());
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        sk[r * QS + cv * VEC + e] = kf[e];
-        sv[r * D + cv * VEC + e] = vf[e];
-      }
-    }
-    __syncthreads();
-
-    float sc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sc[j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qd = sq[my_row * QS + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sc[j] = fmaf(qd, sk[(lane8 + 8 * j) * QS + d], sc[j]);
-    }
-    float mx = -INFINITY;
-    bool ok[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = k0 + lane8 + 8 * j;
-      if constexpr (QUANT) sc[j] *= s_kcs[lane8 + 8 * j];
-      ok[j] = row_ok && col < limit && col <= row_max;
-      sc[j] = ok[j] ? sc[j] : -INFINITY;
-      mx = fmaxf(mx, sc[j]);
-    }
-    mx = group_max<8>(mx);
-    const float m_new = fmaxf(m, mx);
-    const float safe = (m_new == -INFINITY) ? 0.f : m_new;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p = ok[j] ? expf(sc[j] - safe) : 0.f;
-      sum += p;   // l sums the probabilities before any v scale
-      sp[my_row * PS + lane8 + 8 * j] = QUANT ? p * s_vcs[lane8 + 8 * j] : p;
-    }
-    sum = group_sum<8>(sum);
-    const float corr = (m == -INFINITY) ? 0.f : expf(m - safe);
-    l = corr * l + sum;
-    m = m_new;
-    __syncwarp();  // a row's 8 threads share a warp: P row visible to them
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] *= corr;
-#pragma unroll 4
-    for (int kk = 0; kk < KT; ++kk) {
-      const float p = sp[my_row * PS + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[c] = fmaf(p, sv[kk * D + lane8 + 8 * c], acc[c]);
-    }
-  }
-
-  if (r_glob < rows) {
-    const size_t part = (((size_t)s * hkv + h) * rows + r_glob) * a.n_split + split;
-    if (lane8 == 0) {
-      a.part_ml[2 * part] = m;
-      a.part_ml[2 * part + 1] = l;
-    }
-#pragma unroll
-    for (int c = 0; c < NC; ++c) a.part_acc[part * D + lane8 + 8 * c] = acc[c];
-  }
-}
-
-// One block per query row, one thread per output element: merge the row's
-// split partials (rescaled to the largest running max), divide by the
-// guarded denominator, write in the q dtype. A row no split saw is 0.
-template <typename T, int D>
-__global__ void __launch_bounds__(D) combine_kernel(const PagedArgs a) {
-  const int rows = (a.hq / a.hkv) * a.t_len;
-  const int idx = blockIdx.x;             // ((s * Hkv + h) * rows + r)
-  const int r = idx % rows;
-  const int h = (idx / rows) % a.hkv;
-  const int s = idx / rows / a.hkv;
-  const int d = threadIdx.x;
-  const float* ml = a.part_ml + (size_t)idx * a.n_split * 2;
-  const float* acc = a.part_acc + (size_t)idx * a.n_split * D;
-  float m_max = -INFINITY;
-  for (int i = 0; i < a.n_split; ++i) m_max = fmaxf(m_max, ml[2 * i]);
-  float l = 0.f, sum = 0.f;
-  if (m_max != -INFINITY) {
-    for (int i = 0; i < a.n_split; ++i) {
-      if (ml[2 * i] == -INFINITY) continue;
-      const float w = expf(ml[2 * i] - m_max);
-      l += ml[2 * i + 1] * w;
-      sum += acc[(size_t)i * D + d] * w;
-    }
-  }
-  const int g = r / a.t_len, tok = r % a.t_len;
-  T* out = static_cast<T*>(a.out);
-  out[((size_t)(s * a.t_len + tok) * a.hq + h * (a.hq / a.hkv) + g) * D + d] =
-      from_f<T>(sum / fmaxf(l, 1e-30f));
-}
 
 // ---- the tensor-core bodies (bf16 q, D = 128): live work only ------------
 //
@@ -511,11 +189,14 @@ __device__ __forceinline__ int page_of(const PagedArgs& a, int c) {
 }
 
 // Output row r of (slot s, kv-head h): group member r / T, token r % T.
-__device__ __forceinline__ __nv_bfloat16* out_row_ptr(const PagedArgs& a, int s, int h,
-                                                      int r) {
-  return static_cast<__nv_bfloat16*>(a.out) +
+template <typename OutT>
+__device__ __forceinline__ OutT* out_row_ptr(const PagedArgs& a, int s, int h, int r) {
+  return static_cast<OutT*>(a.out) +
          ((size_t)(s * a.t_len + r % a.t_len) * a.hq + h * (a.hq / a.hkv) + r / a.t_len) * HD;
 }
+
+// The pool element of a tensor-core body: int8 or bf16.
+template <bool QUANT> using Pool16 = std::conditional_t<QUANT, int8_t, __nv_bfloat16>;
 
 // The launch's work list, the same in every block, in the block's shared
 // memory (work_list_bytes(slots) at work_list_offset).
@@ -597,8 +278,9 @@ __device__ __forceinline__ int slot_of(const WorkList& w, int slots, int item) {
 
 // Every dead slot's output rows are 0, written by all blocks in a strided
 // pass (16 bytes a store).
+template <typename OutT>
 __device__ void zero_dead_slots(const PagedArgs& a, const WorkList& w) {
-  const size_t per_slot = (size_t)a.t_len * a.hq * HD / 8;
+  const size_t per_slot = (size_t)a.t_len * a.hq * HD * sizeof(OutT) / 16;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   uint4* out = static_cast<uint4*>(a.out);
   for (int s = 0; s < a.slots; ++s) {
@@ -608,24 +290,41 @@ __device__ void zero_dead_slots(const PagedArgs& a, const WorkList& w) {
   }
 }
 
-// The nv new rows of head h of slot s quantised into shared memory, one
-// warp per row (lane: d 4 lane .. 4 lane + 3): int8 rows s_kq / s_vq
-// [nv][HD] and scales s_ks / s_vs [nv], bit-equal to quantize_new_rows.
+// Elements 0..3 of p (bf16 or fp32) as floats.
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  x[0] = lo.x;
+  x[1] = lo.y;
+  x[2] = hi.x;
+  x[3] = hi.y;
+}
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  x[0] = f.x;
+  x[1] = f.y;
+  x[2] = f.z;
+  x[3] = f.w;
+}
+
+// The nv new rows (of type T: q's dtype) of head h of slot s quantised
+// into shared memory, one warp per row (lane: d 4 lane .. 4 lane + 3):
+// int8 rows s_kq / s_vq [nv][HD] and scales s_ks / s_vs [nv]: scale =
+// max(amax, 1e-6) / 127 by a true division, q = round-half-even(x /
+// scale), bit-equal to the wrapper's quantize_rows and JAX's
+// _quantize_rows.
+template <typename T>
 __device__ void quantize_rows_warp(const PagedArgs& a, int s, int h, int nv, int8_t* s_kq,
                                    int8_t* s_vq, float* s_ks, float* s_vs) {
-  const __nv_bfloat16* k_new = static_cast<const __nv_bfloat16*>(a.k_new);
-  const __nv_bfloat16* v_new = static_cast<const __nv_bfloat16*>(a.v_new);
+  const T* k_new = static_cast<const T*>(a.k_new);
+  const T* v_new = static_cast<const T*>(a.v_new);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
   for (int i = warp; i < nv; i += warps) {
     const size_t src = ((size_t)(s * a.t_len + i) * a.hkv + h) * HD + 4 * lane;
-    const uint2 kr = *reinterpret_cast<const uint2*>(k_new + src);
-    const uint2 vr = *reinterpret_cast<const uint2*>(v_new + src);
-    const float2 k01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kr.x));
-    const float2 k23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kr.y));
-    const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vr.x));
-    const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vr.y));
-    const float kx[4] = {k01.x, k01.y, k23.x, k23.y};
-    const float vx[4] = {v01.x, v01.y, v23.x, v23.y};
+    float kx[4], vx[4];
+    load4(k_new + src, kx);
+    load4(v_new + src, vx);
     float ka = 0.f, va = 0.f;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -652,13 +351,15 @@ __device__ void quantize_rows_warp(const PagedArgs& a, int s, int h, int nv, int
 }
 
 // Appends the nv new rows of head h of slot s at pos = min(start + i,
-// cap) through the slot's table, 16 bytes a store: int8 pools take the
-// rows and scales quantised in shared memory, bf16 pools k_new / v_new.
-template <bool QUANT>
+// cap) through the slot's table, 16 bytes a store: int8 pools (P = int8_t)
+// take the rows and scales quantised in shared memory, bf16 and fp32
+// pools k_new / v_new.
+template <typename P>
 __device__ void append_new_rows(const PagedArgs& a, const int* tab, int s, int h, int st, int nv,
                                 const int8_t* s_kq, const int8_t* s_vq, const float* s_ks,
                                 const float* s_vs) {
-  constexpr int ELT = QUANT ? 1 : 2;
+  constexpr bool QUANT = std::is_same<P, int8_t>::value;
+  constexpr int ELT = sizeof(P);
   constexpr int CPR = HD * ELT / 16;   // 16-byte chunks per row
   const int cap = a.width * a.bs - 1;
   const size_t row_elems = (size_t)a.hkv * HD;
@@ -681,7 +382,7 @@ __device__ void append_new_rows(const PagedArgs& a, const int* tab, int s, int h
         a.v_scale[sc] = s_vs[i];
       }
     } else {
-      const size_t src = (((size_t)(s * a.t_len + i) * a.hkv + h) * HD) * 2 + 16 * j;
+      const size_t src = (((size_t)(s * a.t_len + i) * a.hkv + h) * HD) * ELT + 16 * j;
       *reinterpret_cast<uint4*>(kp) =
           *reinterpret_cast<const uint4*>(static_cast<const uint8_t*>(a.k_new) + src);
       *reinterpret_cast<uint4*>(vp) =
@@ -692,20 +393,22 @@ __device__ void append_new_rows(const PagedArgs& a, const int* tab, int s, int h
 
 // Cols k0 .. k0+63 of head h of slot s into one ring stage: cached cols
 // from their page, this call's cols from the new rows, the rest zero.
-// int8: K [64][HD], V [64][HD] row-major, then k/v scales [64] each; bf16:
-// K, V [64][HD] with chunk j of col c at kv16_chunk(c, j).
+// int8 (P = int8_t): K [64][HD], V [64][HD] row-major, then k/v scales
+// [64] each; bf16: K, V [64][HD] with chunk j of col c at kv16_chunk(c,
+// j); fp32: K, V [64][HD] row-major.
 // REGW (int8 at T = 1): chunk j of K col c sits at chunk j ^ 4(c & 1), of
 // V col c at j ^ 2((c >> 1) & 3), conflict-free for tile_mma_regw's reads;
 // else int8 tiles are row-major (widen_tile reads them).
 __device__ __forceinline__ int k_chunk(int c, int j) { return j ^ ((c & 1) << 2); }
 __device__ __forceinline__ int v_chunk(int c, int j) { return j ^ (((c >> 1) & 3) << 1); }
 
-template <bool QUANT, int MIN_THREADS, bool REGW>
+template <typename P, int MIN_THREADS, bool REGW>
 __device__ __forceinline__ void load_tile(const PagedArgs& a, uint8_t* stage, int k0, int s,
                                           int h, int st, int limit, const int* tab,
                                           const int8_t* s_kq, const int8_t* s_vq,
                                           const float* s_ks, const float* s_vs) {
-  constexpr int ELT = QUANT ? 1 : 2;
+  constexpr bool QUANT = std::is_same<P, int8_t>::value;
+  constexpr int ELT = sizeof(P);
   constexpr int CPR = HD * ELT / 16;          // 16-byte chunks per col
   constexpr int TOTAL = KT * CPR;
   constexpr int MAXIT = TOTAL / MIN_THREADS;
@@ -729,8 +432,8 @@ __device__ __forceinline__ void load_tile(const PagedArgs& a, uint8_t* stage, in
     const int idx = tid + it * nth;
     if (idx >= TOTAL) break;
     const int col = idx / CPR, j = idx % CPR, c = k0 + col;
-    const int kslot = QUANT ? (REGW ? k_chunk(col, j) : j) : kv16_chunk(col, j);
-    const int vslot = QUANT ? (REGW ? v_chunk(col, j) : j) : kv16_chunk(col, j);
+    const int kslot = QUANT ? (REGW ? k_chunk(col, j) : j) : ELT == 2 ? kv16_chunk(col, j) : j;
+    const int vslot = QUANT ? (REGW ? v_chunk(col, j) : j) : ELT == 2 ? kv16_chunk(col, j) : j;
     uint8_t* dk = sk + (col * CPR + kslot) * 16;
     uint8_t* dv = sv + (col * CPR + vslot) * 16;
     if (c < st) {
@@ -744,7 +447,7 @@ __device__ __forceinline__ void load_tile(const PagedArgs& a, uint8_t* stage, in
         *reinterpret_cast<uint4*>(dk) = *reinterpret_cast<const uint4*>(s_kq + (c - st) * HD + 16 * j);
         *reinterpret_cast<uint4*>(dv) = *reinterpret_cast<const uint4*>(s_vq + (c - st) * HD + 16 * j);
       } else {
-        const size_t src = (((size_t)(s * a.t_len + c - st) * a.hkv + h) * HD) * 2 + 16 * j;
+        const size_t src = (((size_t)(s * a.t_len + c - st) * a.hkv + h) * HD) * ELT + 16 * j;
         cp_async16(dk, static_cast<const uint8_t*>(a.k_new) + src);
         cp_async16(dv, static_cast<const uint8_t*>(a.v_new) + src);
       }
@@ -1032,6 +735,7 @@ __device__ __forceinline__ size_t part_index(const PagedArgs& a, int item, int r
 // copies, every chunk's O rows and (m, l) at once on one mbarrier, so a
 // batch costs one round trip and no registers; then one thread per output
 // quad (four d) of a row weighs the chunks in order.
+template <typename OutT>
 __device__ void merge_chunks(const PagedArgs& a, uint8_t* buf, int buf_bytes, int s, int h,
                              int first, int chunks) {
   constexpr int QD = HD / 4;
@@ -1082,12 +786,39 @@ __device__ void merge_chunks(const PagedArgs& a, uint8_t* buf, int buf_bytes, in
         }
       }
       const float den = fmaxf(ll, 1e-30f);
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out_row_ptr(a, s, h, r0 + r) + 4 * q);
-      dst[0] = __floats2bfloat162_rn(acc.x / den, acc.y / den);
-      dst[1] = __floats2bfloat162_rn(acc.z / den, acc.w / den);
+      OutT* dst = out_row_ptr<OutT>(a, s, h, r0 + r) + 4 * q;
+      if constexpr (std::is_same<OutT, float>::value) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+      } else {
+        __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+        d2[0] = __floats2bfloat162_rn(acc.x / den, acc.y / den);
+        d2[1] = __floats2bfloat162_rn(acc.z / den, acc.w / den);
+      }
     }
     __syncthreads();   // buf is refilled by the next batch
   }
+}
+
+// The end of a chunk's item of a pair of `chunks` chunks: its partials
+// are released at GPU scope before the pair's counter moves; the last
+// block to arrive acquires every chunk's, merges them (merge_chunks, in
+// `buf`) and resets the counter for the next launch.
+template <typename OutT>
+__device__ void arrive_and_merge(const PagedArgs& a, uint8_t* buf, int buf_bytes,
+                                 const WorkList& w, int s, int h, int chunks) {
+  __shared__ int s_last;
+  __syncthreads();
+  const int pair = s * a.hkv + h;
+  if (threadIdx.x == 0) {
+    fence_acq_rel_gpu();
+    s_last = atomicAdd(a.counters + pair, 1) == chunks - 1;
+    if (s_last) fence_acq_rel_gpu();
+  }
+  __syncthreads();
+  if (!s_last) return;
+  merge_chunks<OutT>(a, buf, buf_bytes, s, h, w.base[s] + h * chunks, chunks);
+  if (threadIdx.x == 0) a.counters[pair] = 0;   // ready for the next launch
 }
 
 // One work item: every query row of (slot s, kv-head h) against the cols
@@ -1099,7 +830,7 @@ __device__ void run_item(const PagedArgs& a, uint8_t* smem, const WorkList& w, i
   constexpr int STAGE = QUANT ? KV8_STAGE : KV16_STAGE;
   constexpr int MIN_THREADS = C == 4 ? 128 : 32 * MIN_WARPS;
   constexpr bool REGW = QUANT && C == 4;   // int8 widened in registers (tile_mma_regw)
-  __shared__ int s_last;
+  using P = Pool16<QUANT>;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int chunks = w.chunks[s];
@@ -1125,11 +856,11 @@ __device__ void run_item(const PagedArgs& a, uint8_t* smem, const WorkList& w, i
 
   __syncthreads();   // the block's previous item is done with shared memory
   if (QUANT && c_end > st) {
-    quantize_rows_warp(a, s, h, nv, s_kq, s_vq, s_ks, s_vs);
+    quantize_rows_warp<__nv_bfloat16>(a, s, h, nv, s_kq, s_vq, s_ks, s_vs);
     __syncthreads();
   }
   if (chunk == chunks - 1)   // the pair's last chunk appends the new rows
-    append_new_rows<QUANT>(a, tab, s, h, st, nv, s_kq, s_vq, s_ks, s_vs);
+    append_new_rows<P>(a, tab, s, h, st, nv, s_kq, s_vq, s_ks, s_vs);
 
   const int per_pass = warps / C;
   for (int rt0 = 0; rt0 < row_tiles; rt0 += per_pass) {
@@ -1197,7 +928,7 @@ __device__ void run_item(const PagedArgs& a, uint8_t* smem, const WorkList& w, i
 #pragma unroll
     for (int i = 0; i < MMA_STAGES - 1; ++i) {
       if (i < n_tiles)
-        load_tile<QUANT, MIN_THREADS, REGW>(a, ring + i * STAGE, c_begin + i * KT, s, h, st, limit, tab, s_kq, s_vq,
+        load_tile<P, MIN_THREADS, REGW>(a, ring + i * STAGE, c_begin + i * KT, s, h, st, limit, tab, s_kq, s_vq,
                          s_ks, s_vs);
       cp_async_commit();
     }
@@ -1206,7 +937,7 @@ __device__ void run_item(const PagedArgs& a, uint8_t* smem, const WorkList& w, i
       __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES is free
       const int nxt = i + MMA_STAGES - 1;
       if (nxt < n_tiles)
-        load_tile<QUANT, MIN_THREADS, REGW>(a, ring + (nxt % MMA_STAGES) * STAGE, c_begin + nxt * KT, s, h, st,
+        load_tile<P, MIN_THREADS, REGW>(a, ring + (nxt % MMA_STAGES) * STAGE, c_begin + nxt * KT, s, h, st,
                          limit, tab, s_kq, s_vq, s_ks, s_vs);
       cp_async_commit();
       const uint8_t* stage = ring + (i % MMA_STAGES) * STAGE;
@@ -1244,7 +975,7 @@ __device__ void run_item(const PagedArgs& a, uint8_t* smem, const WorkList& w, i
         if (rt >= row_tiles || r >= rows) continue;
         if (chunks == 1) {
           const float den = fmaxf(l_run[hi], 1e-30f);
-          __nv_bfloat16* dst = out_row_ptr(a, s, h, r);
+          __nv_bfloat16* dst = out_row_ptr<__nv_bfloat16>(a, s, h, r);
 #pragma unroll
           for (int n = 0; n < 16; ++n)
             *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * t) =
@@ -1311,7 +1042,8 @@ __device__ void run_item(const PagedArgs& a, uint8_t* smem, const WorkList& w, i
           }
         }
         if (chunks == 1) {
-          out_row_ptr(a, s, h, r_glob)[tid] = __float2bfloat16(acc / fmaxf(ll, 1e-30f));
+          out_row_ptr<__nv_bfloat16>(a, s, h, r_glob)[tid] =
+              __float2bfloat16(acc / fmaxf(ll, 1e-30f));
         } else {
           const size_t p = part_index(a, item, r_glob);
           a.part_acc[p * HD + tid] = acc;
@@ -1325,19 +1057,7 @@ __device__ void run_item(const PagedArgs& a, uint8_t* smem, const WorkList& w, i
     }
   }
   if (chunks == 1) return;
-  // Arrive: the block's partials are released at GPU scope before the
-  // counter moves; the last block acquires every chunk's.
-  __syncthreads();
-  const int pair = s * a.hkv + h;
-  if (tid == 0) {
-    fence_acq_rel_gpu();
-    s_last = atomicAdd(a.counters + pair, 1) == chunks - 1;
-    if (s_last) fence_acq_rel_gpu();
-  }
-  __syncthreads();
-  if (!s_last) return;
-  merge_chunks(a, smem, (int)merge_bytes(QUANT, C), s, h, w.base[s] + h * chunks, chunks);
-  if (tid == 0) a.counters[pair] = 0;   // ready for the next launch
+  arrive_and_merge<__nv_bfloat16>(a, smem, (int)merge_bytes(QUANT, C), w, s, h, chunks);
 }
 
 // MAXW: the most warps a launch may have (4 when C == 4); the SM's four
@@ -1355,7 +1075,367 @@ paged_mma_kernel(const PagedArgs a) {
   const int total = w.base[a.slots];
   for (int item = blockIdx.x; item < total; item += gridDim.x)
     run_item<QUANT, C, MAXW <= FULL_WARPS>(a, smem_mma, w, item, slot_of(w, a.slots, item));
-  zero_dead_slots(a, w);   // last: no fence of an item waits for these stores
+  zero_dead_slots<__nv_bfloat16>(a, w);   // last: no fence of an item waits for these stores
+}
+
+// ---- the fp32 body (fp32 q, D = 128): live work only, FMAs ---------------
+//
+// paged_f32_kernel<P, RPL>: fp32 q over fp32 pools (P = float) or int8
+// pools (P = int8_t), the reference runs' decode attention. Replaces an
+// earlier fp32 body with the faults the earlier tensor-core bodies had:
+// a grid of (slot, kv-head, row tile of 16 x context split of 256
+// cols) sized from the shapes, so that at a decode step nearly every
+// block belonged to a dead slot or to a split past the context and exited
+// at once; a row tile of its own per block, so every K/V tile was read once
+// per row tile; synchronous loads into registers and then shared memory;
+// and a second kernel that merged the splits one row a block, through
+// device memory.
+//
+// Bound: bytes at T = 1 (fp32 pools: 2 x 512 bytes per cached token and
+// kv-head; int8: 2 x 128 + 8), and at few live slots the same chain of
+// dependent round trips as the tensor-core bodies; operations at T = 17
+// (~70 flops per byte, FMAs at 67 TFLOP/s).
+//
+// Design, the tensor-core bodies' where it can be:
+// - The same persistent grid of live work (build_work_list, one wave of
+//   blocks), the same chunk merge in the launch (arrive_and_merge,
+//   merge_chunks: the fp32 partials rows merged in chunk order, so two
+//   calls are bit-equal) and the same pass over the dead slots. 256 threads
+//   (8 warps), one block an SM.
+// - One block serves every query row of its item. A warp takes a row tile
+//   of 8 RPL rows (RPL = 1 where G*T <= 8, the decode step; 2 else); lane
+//   (r8 = lane / 4, dq = lane % 4) holds rows r8 + 8e (e < RPL) with q
+//   (times the softmax scale) at d 16j + 4dq .. +3 (j < 8) in registers and
+//   O at the same d. A pass gives each of its n <= 8 row tiles 8 / n warps
+//   (rounded down to a power of 2), which split each 64-col tile's cols and
+//   run online softmaxes of their own, merged in warp order through shared
+//   memory at the pass's end; more than 8 row tiles take more passes.
+// - K/V tiles stream through a 3-stage cp.async ring once a pass (load_tile,
+//   its table lookups in flight together); an int8 tile is widened to fp32
+//   once, in shared memory, by the whole block.
+// - For each col, a lane reads its quarter of the K row as 8 float4s (the
+//   four dq lanes 64 contiguous bytes, conflict-free; the eight row lanes
+//   the same bytes), 32 FMAs a row; two shuffles sum the quarters, so every
+//   lane holds its rows' scores, times k_scale[col] over int8 pools, masked
+//   per row's token. The online softmax runs in steps of 8 cols, p summed
+//   into l before it is multiplied by v_scale[col]; P.V reads V as K is
+//   read. Shared memory hands an SM 128 bytes a clock, shared or not, so at
+//   2 bytes a lane per FMA (RPL = 2) a verify round runs at half the FMA
+//   rate at most.
+// - The pair's last chunk appends the new rows (int8: quantised in shared
+//   memory by quantize_rows_warp); every chunk reads the new cols from
+//   k_new / v_new (int8: those quantised rows), never from the pool rows
+//   being written.
+constexpr int F32_WARPS = 8;
+constexpr int KV32_STAGE = 2 * KT * HD * (int)sizeof(float);   // fp32 K, V
+constexpr int WIDE32_BYTES = KV32_STAGE;                       // an int8 tile widened
+
+// Dynamic shared memory of an fp32 launch before the work list: the ring;
+// over int8 pools the widened tile and the new rows quantised.
+__host__ __device__ constexpr size_t f32_smem_bytes(bool quant, int t_len) {
+  return (size_t)MMA_STAGES * (quant ? KV8_STAGE : KV32_STAGE) +
+         (quant ? WIDE32_BYTES + (size_t)t_len * (2 * HD + 2 * sizeof(float)) : 0);
+}
+// The merges' buffer: the ring and, over int8 pools, the widened tile.
+__host__ __device__ constexpr size_t f32_merge_bytes(bool quant) {
+  return (size_t)MMA_STAGES * (quant ? KV8_STAGE : KV32_STAGE) + (quant ? WIDE32_BYTES : 0);
+}
+static_assert((size_t)F32_WARPS * 16 * (HD + 2) * sizeof(float) <= f32_merge_bytes(true),
+              "the col groups' merge fits the buffer");
+
+// An int8 ring stage's K and V ([64][HD] each) widened, exactly, to fp32.
+__device__ __forceinline__ void widen_tile_f32(const uint8_t* stage, float* wide) {
+  for (int idx = threadIdx.x; idx < 2 * KT * HD / 16; idx += blockDim.x) {
+    float f[16];
+    unpack16(*reinterpret_cast<const uint4*>(stage + 16 * idx), f, int8_t());
+    float4* dst = reinterpret_cast<float4*>(wide + 16 * idx);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[e] = make_float4(f[4 * e], f[4 * e + 1], f[4 * e + 2], f[4 * e + 3]);
+  }
+}
+
+// One warp's rows against cols cb .. cb + nc - 1 of the fp32 tile (kt,
+// vt), 8 cols a step: S, the mask, the online softmax, O += P.V. ks / vs:
+// the int8 tile's scales.
+template <bool QUANT, int RPL>
+__device__ __forceinline__ void tile_f32(const float* kt, const float* vt, const float* ks,
+                                         const float* vs, int cb, int nc, int k0, int limit,
+                                         const float (&qr)[RPL][32], const int (&row_max)[RPL],
+                                         const bool (&row_ok)[RPL], float (&o)[RPL][32],
+                                         float (&m_run)[RPL], float (&l_run)[RPL]) {
+  const int dq = threadIdx.x % 4;
+  for (int c0 = cb; c0 < cb + nc; c0 += 8) {
+    float sc[RPL][8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float* krow = kt + (c0 + c) * HD + 4 * dq;
+      float acc[RPL];
+#pragma unroll
+      for (int e = 0; e < RPL; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 k4 = *reinterpret_cast<const float4*>(krow + 16 * j);
+#pragma unroll
+        for (int e = 0; e < RPL; ++e) {
+          acc[e] = fmaf(qr[e][4 * j], k4.x, acc[e]);
+          acc[e] = fmaf(qr[e][4 * j + 1], k4.y, acc[e]);
+          acc[e] = fmaf(qr[e][4 * j + 2], k4.z, acc[e]);
+          acc[e] = fmaf(qr[e][4 * j + 3], k4.w, acc[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < RPL; ++e) sc[e][c] = acc[e];
+    }
+#pragma unroll
+    for (int e = 0; e < RPL; ++e) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {   // the four d quarters' sums
+        float x = sc[e][c];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        const int col = k0 + c0 + c;
+        const bool ok = row_ok[e] && col < limit && col <= row_max[e];
+        sc[e][c] = ok ? (QUANT ? x * ks[c0 + c] : x) : -INFINITY;
+        mx = fmaxf(mx, sc[e][c]);
+      }
+      const float m_new = fmaxf(m_run[e], mx);
+      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+      const float corr = (m_run[e] == -INFINITY) ? 0.f : expf(m_run[e] - safe);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float p = expf(sc[e][c] - safe);   // 0 where masked
+        sum += p;                                 // l sums p before any v scale
+        sc[e][c] = QUANT ? p * vs[c0 + c] : p;
+      }
+      l_run[e] = corr * l_run[e] + sum;
+      m_run[e] = m_new;
+#pragma unroll
+      for (int d = 0; d < 32; ++d) o[e][d] *= corr;
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float* vrow = vt + (c0 + c) * HD + 4 * dq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 v4 = *reinterpret_cast<const float4*>(vrow + 16 * j);
+#pragma unroll
+        for (int e = 0; e < RPL; ++e) {
+          o[e][4 * j] = fmaf(sc[e][c], v4.x, o[e][4 * j]);
+          o[e][4 * j + 1] = fmaf(sc[e][c], v4.y, o[e][4 * j + 1]);
+          o[e][4 * j + 2] = fmaf(sc[e][c], v4.z, o[e][4 * j + 2]);
+          o[e][4 * j + 3] = fmaf(sc[e][c], v4.w, o[e][4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+// One work item of the fp32 body: every query row of (slot s, kv-head h)
+// against the cols of chunk `chunk`.
+template <typename P, int RPL>
+__device__ void run_item_f32(const PagedArgs& a, uint8_t* smem, const WorkList& w, int item,
+                             int s) {
+  constexpr bool QUANT = std::is_same<P, int8_t>::value;
+  constexpr int STAGE = QUANT ? KV8_STAGE : KV32_STAGE;
+  constexpr int TR = 8 * RPL;   // rows of a warp's row tile
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int r8 = lane / 4, dq = lane % 4;
+  const int chunks = w.chunks[s];
+  const int local = item - w.base[s];
+  const int h = local / chunks, chunk = local % chunks;
+  const int st = w.start[s], nv = w.n_valid[s], limit = st + nv;
+  const int c_begin = chunk * w.len[s] * KT;
+  const int c_end = min(limit, c_begin + w.len[s] * KT);
+  const int n_tiles = (c_end - c_begin + KT - 1) / KT;
+  const int t_len = a.t_len, group = a.hq / a.hkv, rows = group * t_len;
+  const int row_tiles = (rows + TR - 1) / TR;
+  const int* tab = a.tables + (size_t)s * a.width;
+  const float* q = static_cast<const float*>(a.q);
+
+  uint8_t* ring = smem;
+  float* wide = reinterpret_cast<float*>(smem + MMA_STAGES * STAGE);   // int8 pools only
+  int8_t* s_kq = reinterpret_cast<int8_t*>(smem + MMA_STAGES * STAGE + (QUANT ? WIDE32_BYTES : 0));
+  int8_t* s_vq = s_kq + t_len * HD;
+  float* s_ks = reinterpret_cast<float*>(s_vq + t_len * HD);
+  float* s_vs = s_ks + t_len;
+
+  __syncthreads();   // the block's previous item is done with shared memory
+  if (QUANT && c_end > st) {
+    quantize_rows_warp<float>(a, s, h, nv, s_kq, s_vq, s_ks, s_vs);
+    __syncthreads();
+  }
+  if (chunk == chunks - 1)   // the pair's last chunk appends the new rows
+    append_new_rows<P>(a, tab, s, h, st, nv, s_kq, s_vq, s_ks, s_vs);
+
+  for (int rt0 = 0; rt0 < row_tiles; rt0 += F32_WARPS) {
+    const int n_rt = min(F32_WARPS, row_tiles - rt0);
+    const int groups = n_rt == 1 ? 8 : n_rt == 2 ? 4 : n_rt <= 4 ? 2 : 1;   // warps a row tile
+    const bool active = warp / groups < n_rt;
+    const int rt = rt0 + warp / groups, nc = KT / groups;
+    float qr[RPL][32], o[RPL][32], m_run[RPL], l_run[RPL];
+    int row_max[RPL];
+    bool row_ok[RPL];
+#pragma unroll
+    for (int e = 0; e < RPL; ++e) {
+      const int r = rt * TR + r8 + 8 * e, tok = r % t_len;
+      row_ok[e] = active && r < rows && tok < nv;
+      row_max[e] = st + tok;
+      const float* qrow =
+          q + ((size_t)(s * t_len + tok) * a.hq + h * group + r / t_len) * HD + 4 * dq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = row_ok[e] ? __ldg(reinterpret_cast<const float4*>(qrow + 16 * j))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        qr[e][4 * j] = x.x * a.scale;
+        qr[e][4 * j + 1] = x.y * a.scale;
+        qr[e][4 * j + 2] = x.z * a.scale;
+        qr[e][4 * j + 3] = x.w * a.scale;
+      }
+#pragma unroll
+      for (int d = 0; d < 32; ++d) o[e][d] = 0.f;
+      m_run[e] = -INFINITY;
+      l_run[e] = 0.f;
+    }
+
+#pragma unroll
+    for (int i = 0; i < MMA_STAGES - 1; ++i) {
+      if (i < n_tiles)
+        load_tile<P, 32 * F32_WARPS, false>(a, ring + i * STAGE, c_begin + i * KT, s, h, st,
+                                            limit, tab, s_kq, s_vq, s_ks, s_vs);
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      cp_async_wait<MMA_STAGES - 2>();
+      __syncthreads();   // tile i landed for all; stage (i - 1) % STAGES is free
+      const int nxt = i + MMA_STAGES - 1;
+      if (nxt < n_tiles)
+        load_tile<P, 32 * F32_WARPS, false>(a, ring + (nxt % MMA_STAGES) * STAGE,
+                                            c_begin + nxt * KT, s, h, st, limit, tab, s_kq,
+                                            s_vq, s_ks, s_vs);
+      cp_async_commit();
+      const uint8_t* stage = ring + (i % MMA_STAGES) * STAGE;
+      const float* kt = reinterpret_cast<const float*>(stage);
+      const float* ks = nullptr;
+      const float* vs = nullptr;
+      if constexpr (QUANT) {
+        widen_tile_f32(stage, wide);
+        ks = reinterpret_cast<const float*>(stage + 2 * KT * HD);
+        vs = ks + KT;
+        kt = wide;
+        __syncthreads();   // the widened tile is complete
+      }
+      if (active)
+        tile_f32<QUANT, RPL>(kt, kt + KT * HD, ks, vs, (warp % groups) * nc, nc,
+                             c_begin + i * KT, limit, qr, row_max, row_ok, o, m_run, l_run);
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // the ring is free for the merges below
+
+    if (groups == 1) {
+      // The warp's rows straight out: final rows of a one-chunk pair, else
+      // this chunk's partials.
+#pragma unroll
+      for (int e = 0; e < RPL; ++e) {
+        const int r = rt * TR + r8 + 8 * e;
+        if (!active || r >= rows) continue;
+        if (chunks == 1) {
+          const float den = fmaxf(l_run[e], 1e-30f);
+          float* dst = out_row_ptr<float>(a, s, h, r) + 4 * dq;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float4*>(dst + 16 * j) =
+                make_float4(o[e][4 * j] / den, o[e][4 * j + 1] / den, o[e][4 * j + 2] / den,
+                            o[e][4 * j + 3] / den);
+        } else {
+          const size_t p = part_index(a, item, r);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float4*>(a.part_acc + p * HD + 16 * j + 4 * dq) =
+                make_float4(o[e][4 * j], o[e][4 * j + 1], o[e][4 * j + 2], o[e][4 * j + 3]);
+          if (dq == 0) {
+            a.part_ml[2 * p] = m_run[e];
+            a.part_ml[2 * p + 1] = l_run[e];
+          }
+        }
+      }
+    } else {
+      // The warps of a row tile hold its rows over different cols: their
+      // (m, l, O) through shared memory, merged in warp order, one thread
+      // per quad of d of a row.
+      float* s_o = reinterpret_cast<float*>(smem);        // [warp][TR][HD]
+      float* s_ml = s_o + F32_WARPS * TR * HD;            // [warp][TR][2]
+      if (active) {
+#pragma unroll
+        for (int e = 0; e < RPL; ++e) {
+          const int rr = r8 + 8 * e;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float4*>(s_o + (warp * TR + rr) * HD + 16 * j + 4 * dq) =
+                make_float4(o[e][4 * j], o[e][4 * j + 1], o[e][4 * j + 2], o[e][4 * j + 3]);
+          if (dq == 0) {
+            s_ml[(warp * TR + rr) * 2] = m_run[e];
+            s_ml[(warp * TR + rr) * 2 + 1] = l_run[e];
+          }
+        }
+      }
+      __syncthreads();
+      for (int idx = tid; idx < n_rt * TR * (HD / 4); idx += blockDim.x) {
+        const int rl = idx / (HD / 4), qd = idx % (HD / 4);
+        const int t = rl / TR, rr = rl % TR, r = (rt0 + t) * TR + rr;
+        if (r >= rows) continue;
+        float mm = -INFINITY;
+        for (int g = 0; g < groups; ++g) mm = fmaxf(mm, s_ml[((t * groups + g) * TR + rr) * 2]);
+        float ll = 0.f;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (mm != -INFINITY) {
+          for (int g = 0; g < groups; ++g) {   // in warp order: deterministic
+            const int wr = (t * groups + g) * TR + rr;
+            const float mw = s_ml[wr * 2];
+            if (mw == -INFINITY) continue;
+            const float f = expf(mw - mm);
+            ll += s_ml[wr * 2 + 1] * f;
+            const float4 x = *reinterpret_cast<const float4*>(s_o + wr * HD + 4 * qd);
+            acc.x += x.x * f;
+            acc.y += x.y * f;
+            acc.z += x.z * f;
+            acc.w += x.w * f;
+          }
+        }
+        if (chunks == 1) {
+          const float den = fmaxf(ll, 1e-30f);
+          *reinterpret_cast<float4*>(out_row_ptr<float>(a, s, h, r) + 4 * qd) =
+              make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+        } else {
+          const size_t p = part_index(a, item, r);
+          *reinterpret_cast<float4*>(a.part_acc + p * HD + 4 * qd) = acc;
+          if (qd == 0) {
+            a.part_ml[2 * p] = mm;
+            a.part_ml[2 * p + 1] = ll;
+          }
+        }
+      }
+      __syncthreads();   // s_o is read before the next pass's ring fills it
+    }
+  }
+  if (chunks == 1) return;
+  arrive_and_merge<float>(a, smem, (int)f32_merge_bytes(QUANT), w, s, h, chunks);
+}
+
+template <typename P, int RPL>
+__global__ void __launch_bounds__(32 * F32_WARPS, 1)
+paged_f32_kernel(const PagedArgs a) {
+  constexpr bool QUANT = std::is_same<P, int8_t>::value;
+  extern __shared__ __align__(128) uint8_t smem_f32[];
+  int* list = reinterpret_cast<int*>(smem_f32 + work_list_offset(f32_smem_bytes(QUANT, a.t_len)));
+  const WorkList w{list, list + a.slots + 1, list + 2 * a.slots + 1, list + 3 * a.slots + 1,
+                   list + 4 * a.slots + 1};
+  build_work_list(a, w);
+  const int total = w.base[a.slots];
+  for (int item = blockIdx.x; item < total; item += gridDim.x)
+    run_item_f32<P, RPL>(a, smem_f32, w, item, slot_of(w, a.slots, item));
+  zero_dead_slots<float>(a, w);   // last: no fence of an item waits for these stores
 }
 
 // Opts the kernel into `bytes` of dynamic shared memory where no earlier
@@ -1395,19 +1475,23 @@ cudaError_t dispatch_mma(const PagedArgs& a, cudaStream_t stream) {
   return launch_mma<QUANT, 1, MAX_WARPS>(a, stream);
 }
 
-template <typename T, typename P, int D>
-cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
-  const size_t smem = paged_smem_bytes<D>(std::is_same<P, int8_t>::value);
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem_once(paged_kernel<T, P, D>, smem, configured);
+template <typename P, int RPL>
+cudaError_t launch_f32(const PagedArgs& a, cudaStream_t stream) {
+  constexpr bool QUANT = std::is_same<P, int8_t>::value;
+  static size_t allowed[kMaxDevices] = {};
+  if ((size_t)a.max_chunks * 2 * MERGE_ROW_BYTES > f32_merge_bytes(QUANT))
+    return cudaErrorInvalidValue;
+  const size_t smem = work_list_offset(f32_smem_bytes(QUANT, a.t_len)) + work_list_bytes(a.slots);
+  cudaError_t err = allow_smem(paged_f32_kernel<P, RPL>, smem, allowed);
   if (err != cudaSuccess) return err;
-  const int rows = (a.hq / a.hkv) * a.t_len;
-  dim3 grid(a.slots, a.hkv, ((rows + RT - 1) / RT) * a.n_split);
-  paged_kernel<T, P, D><<<grid, NT, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  combine_kernel<T, D><<<a.slots * a.hkv * rows, D, 0, stream>>>(a);
+  paged_f32_kernel<P, RPL><<<a.blocks, 32 * F32_WARPS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename P>
+cudaError_t dispatch_f32(const PagedArgs& a, cudaStream_t stream) {
+  if ((a.hq / a.hkv) * a.t_len <= 8) return launch_f32<P, 1>(a, stream);
+  return launch_f32<P, 2>(a, stream);
 }
 
 // bf16 q: the tensor-core bodies (int8 or bf16 pools); fp32 q: the fp32
@@ -1417,24 +1501,22 @@ cudaError_t dispatch(int dtype, int d, bool quant, const PagedArgs& a, cudaStrea
   if (dtype == kBFloat16)
     return quant ? dispatch_mma<true>(a, stream) : dispatch_mma<false>(a, stream);
   if (dtype != kFloat32) return cudaErrorInvalidValue;
-  return quant ? launch<float, int8_t, HD>(a, stream) : launch<float, float, HD>(a, stream);
+  return quant ? dispatch_f32<int8_t>(a, stream) : dispatch_f32<float>(a, stream);
 }
 
 }  // namespace
 
 // One call's arguments in one record, as the Python wrapper packs them
-// (struct format "=15Q16ifi"): one ctypes argument to convert instead of
-// 33. k_scale / v_scale non-null: the pools are int8 and T <= 64.
-// fp32 q (dtype 0) takes the fp32 body: split_cols, a multiple of 64;
-// part_acc and part_ml fp32 scratch of S*Hkv*ceil(G*T/16)*16*n_split*D
-// and *2 elements, n_split = ceil(W*BS / split_cols). bf16 q (dtype 1)
-// takes a tensor-core body (one launch, over int8 or bf16 pools):
-// `blocks` blocks of `warps` warps, col_groups 4 (warps == 4) or 1 (8 <=
-// warps <= 12), chunks of at least min_chunk_tiles 64-col tiles and at
-// most max_chunks a (slot, kv-head) (max_chunks * 2 * (D + 2) floats fit
-// merge_bytes); part_acc / part_ml of max_items*G*T*D and *2 fp32
-// (max_items >= blocks + S*Hkv), `counters`: S*Hkv int32 that are 0 (it
-// leaves them 0).
+// (struct format "=15Q15ifi"): one ctypes argument to convert instead of
+// 32. k_scale / v_scale non-null: the pools are int8 and T <= 64. Every
+// body is one launch of `blocks` blocks of `warps` warps, chunks of at
+// least min_chunk_tiles 64-col tiles and at most max_chunks a (slot,
+// kv-head) (max_chunks * 2 * (D + 2) floats fit the body's merge buffer);
+// part_acc / part_ml of max_items*G*T*D and *2 fp32 (max_items >= blocks
+// + S*Hkv), `counters`: S*Hkv int32 that are 0 (it leaves them 0). bf16
+// q (dtype 1) takes a tensor-core body (over int8 or bf16 pools):
+// col_groups 4 (warps == 4) or 1 (8 <= warps <= 12); fp32 q (dtype 0)
+// the fp32 body (over int8 or fp32 pools): 8 warps.
 struct PagedCall {
   const void* q;
   const void* k_new;
@@ -1451,7 +1533,7 @@ struct PagedCall {
   void* part_ml;
   void* counters;
   void* stream;
-  int slots, t_len, hq, hkv, d, width, bs, n_blocks, layer, split_cols;
+  int slots, t_len, hq, hkv, d, width, bs, n_blocks, layer;
   int blocks, warps, col_groups, min_chunk_tiles, max_items, max_chunks;
   float scale;
   int dtype;
@@ -1464,15 +1546,13 @@ HOCR_EXPORT int hocr_paged_append_attention(const PagedCall* call) {
   const bool quant = c.k_scale != nullptr;
   if (quant != (c.v_scale != nullptr) || (quant && c.t_len > MAX_NEW_INT8))
     return cudaErrorInvalidValue;
-  if (c.dtype == kBFloat16) {
-    const bool shape_ok = c.col_groups == 4 ? c.warps == 4
-                          : c.col_groups == 1 && c.warps >= MIN_WARPS && c.warps <= MAX_WARPS;
-    if (!shape_ok || c.blocks < 1 || c.min_chunk_tiles < 1 || c.max_chunks < 1 ||
-        c.max_items < c.blocks + c.slots * c.hkv || c.counters == nullptr)
-      return cudaErrorInvalidValue;
-  } else if (c.split_cols <= 0 || c.split_cols % KT != 0) {
+  const bool shape_ok =
+      c.dtype != kBFloat16 ? c.warps == F32_WARPS
+      : c.col_groups == 4  ? c.warps == 4
+                           : c.col_groups == 1 && c.warps >= MIN_WARPS && c.warps <= MAX_WARPS;
+  if (!shape_ok || c.blocks < 1 || c.min_chunk_tiles < 1 || c.max_chunks < 1 ||
+      c.max_items < c.blocks + c.slots * c.hkv || c.counters == nullptr)
     return cudaErrorInvalidValue;
-  }
   PagedArgs a;
   a.q = c.q;
   a.k_new = c.k_new;
@@ -1496,8 +1576,6 @@ HOCR_EXPORT int hocr_paged_append_attention(const PagedCall* call) {
   a.bs = c.bs;
   a.n_blocks = c.n_blocks;
   a.layer = c.layer;
-  a.split_cols = c.split_cols;
-  a.n_split = c.split_cols > 0 ? (c.width * c.bs + c.split_cols - 1) / c.split_cols : 0;
   a.blocks = c.blocks;
   a.warps = c.warps;
   a.col_groups = c.col_groups;

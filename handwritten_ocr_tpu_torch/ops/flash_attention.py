@@ -20,8 +20,8 @@ from handwritten_ocr_tpu_torch.ops.dispatch import check, use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (80, 128)     # vision and text head widths
-_KEY_TILE = 128            # the bf16 body's key tile; its mask rows are padded to it
-_MAX_GRID_Y = 65535        # batch x q-heads: the fp32 body's grid y extent
+_KEY_TILE = 128            # the bf16 body's key tile; mask rows are padded to it
+_MAX_GRID_Y = 65535        # batch x q-heads a launch takes (work items stay an int)
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_void_p)
              + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_int,
                                       ctypes.c_void_p))
@@ -168,7 +168,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the other's softmax; the scores and P stay in registers and never
     reach device memory, and a key mask is applied as bits. Causal key tiles
     above the diagonal are skipped and causal q tiles come heaviest first
-    across all heads. fp32 inputs run a plain FMA body.
+    across all heads. fp32 inputs (the reference runs) run an FMA body
+    of the same persistent shape, bound by the FMA pipe and, before it,
+    by shared memory's bandwidth: 128-row q tiles whose Q stays in shared
+    memory while K and V tiles (128 keys at D = 80, 64 at D = 128) stream
+    through a ``cp.async`` ring, each thread an 8 x 8 (8 x 4) block of
+    the score tile and 8 rows of O in registers.
 
     With grad mode on and q, k or v requiring grad it runs as an
     ``autograd.Function`` (forward as above, backward through
@@ -201,8 +206,7 @@ def _flash_forward(q, k, v, kv_mask, causal: bool, scale: float):
           "q, k and v must be contiguous")
     check(all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
           "q, k and v must be 16-byte aligned")
-    mask = _normalize_mask(kv_mask, b, s, q.device,
-                           _KEY_TILE if q.dtype == torch.bfloat16 else 1)
+    mask = _normalize_mask(kv_mask, b, s, q.device, _KEY_TILE)
     out = torch.empty_like(q)
     fn = build.function("flash_attention", "hocr_flash_attention", _ARGTYPES)
     build.launch(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -24,20 +24,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128,)        # the text models' head width
 _ROW_TILE = 16             # query rows per tile of every body
 _KEY_TILE = 64             # context cols per tile of every body
-# The fp32 body's split of the context over blocks: 256 cols, at a
-# 1k-token decode 4 blocks per (slot, kv-head).
-_SPLIT_COLS = 256
-# The tensor-core bodies (bf16 q): one persistent launch over the live
-# work (``csrc/paged_decode_attention.cu:paged_mma_kernel``). Their K/V
-# ring of shared memory: 3 stages of a 64-col tile, int8 K and V with
-# their fp32 scales or bf16 K and V; over int8 pools also the new rows
-# quantised (T rows of K and V, two scales each) and, at T > 1, the
-# widened bf16 tile (at T = 1 the int8 body widens in registers); then
+# Every body is one persistent launch over the live work
+# (``csrc/paged_decode_attention.cu``: ``paged_mma_kernel`` for bf16 q,
+# ``paged_f32_kernel`` for fp32 q). Their K/V ring of shared memory: 3
+# stages of a 64-col tile, int8 K and V with their fp32 scales, bf16 K and
+# V, or fp32 K and V; over int8 pools also the new rows quantised (T rows
+# of K and V, two scales each) and the widened tile: bf16 at T > 1 (at T =
+# 1 the int8 tensor-core body widens in registers), fp32 for fp32 q; then
 # the work list, 5 ints a slot and one.
 _STAGES = 3
 _STAGE_BYTES = {"int8": 2 * _KEY_TILE * 128 + 2 * _KEY_TILE * 4,
-                "bf16": 2 * _KEY_TILE * 128 * 2}
+                "bf16": 2 * _KEY_TILE * 128 * 2,
+                "fp32": 2 * _KEY_TILE * 128 * 4}
 _WIDE_BYTES = 2 * _KEY_TILE * 128 * 2
+_F32_WARPS = 8             # the fp32 body's block
 _MERGE_ROW_BYTES = (128 + 2) * 4   # a partial row: O, m and l in fp32
 _SMEM_PER_SM = 228 * 1024  # H100: shared memory of an SM (227 KB a block)
 _SMEM_PER_BLOCK = 227 * 1024
@@ -51,30 +51,27 @@ _MIN_CHUNK_TILES = 2       # the shortest chunk: two ring tiles in flight
 _MAX_NEW_INT8 = 64
 # The kernel's arguments as one record (``PagedCall`` in the source): 15
 # pointers (0 for none), 15 ints, the float scale, the dtype code.
-_CALL = struct.Struct("=15Q16ifi")
+_CALL = struct.Struct("=15Q15ifi")
 _WORKSPACE = build.Workspace()
 
 
 class Plan(NamedTuple):
-    """One launch of the kernel. Every body: ``row_tiles`` tiles of 16 of
-    the G*T query rows of a kv-head, the ``grid``, ``threads`` a block,
-    and the workspace it takes: ``partials`` rows of fp32 partials (D + 2
-    floats each) and int32 ``counters``. The fp32 body: the context split
-    into ``n_split`` ranges of ``split_cols`` cols. The tensor-core
-    bodies: a 1-D grid of ``grid[0]`` blocks of ``smem`` bytes of dynamic
-    shared memory, ``col_groups`` warps on each row tile (4 at T = 1,
-    where the four warps split each tile's cols; 1 else), chunks of at
-    least ``min_chunk_tiles`` 64-col tiles, at most ``max_chunks`` of them
-    a (slot, kv-head) (whose partials the merge brings into
-    :func:`merge_bytes` of shared memory two rows at a time) and at most
-    ``max_items`` work items."""
+    """One launch of the kernel: ``row_tiles`` tiles of 16 of the G*T
+    query rows of a kv-head, a 1-D grid of ``grid[0]`` blocks of
+    ``threads`` threads and ``smem`` bytes of dynamic shared memory, the
+    workspace it takes (``partials`` rows of fp32 partials, D + 2 floats
+    each, and int32 ``counters``), chunks of at least ``min_chunk_tiles``
+    64-col tiles, at most ``max_chunks`` of them a (slot, kv-head) (whose
+    partials the merge brings into :func:`merge_bytes` of shared memory
+    two rows at a time) and at most ``max_items`` work items. The
+    tensor-core bodies: ``col_groups`` warps on each row tile (4 at T =
+    1, where the four warps split each tile's cols; 1 else); the fp32
+    body chooses its own per pass (0 here)."""
     row_tiles: int
     grid: tuple
     threads: int
     partials: int
     counters: int
-    split_cols: int = 0
-    n_split: int = 0
     smem: int = 0
     col_groups: int = 0
     min_chunk_tiles: int = 0
@@ -85,7 +82,7 @@ class Plan(NamedTuple):
 def body(q_dtype: torch.dtype, quant: bool) -> str:
     """The kernel body a call runs: ``"bf16"`` (bf16 q over bf16 pools,
     tensor cores), ``"int8"`` (bf16 q over int8 pools, tensor cores) or
-    ``"fp32"`` (fp32 q over either, fp32 FMAs and a merge kernel)."""
+    ``"fp32"`` (fp32 q over either, FMAs)."""
     if q_dtype == torch.float32:
         return "fp32"
     return "int8" if quant else "bf16"
@@ -104,10 +101,22 @@ def mma_smem(kind: str, t: int, col_groups: int, q_warps: int,
     return -(-smem // 16) * 16 + 4 * (5 * slots + 1)
 
 
+def f32_smem(slots: int) -> int:
+    """Dynamic shared memory of an fp32 launch over fp32 pools, the larger
+    of its two (``f32_smem_bytes``, ``work_list_offset`` and
+    ``work_list_bytes`` in the source): the ring of fp32 tiles, then the
+    work list. Over int8 pools (T <= 64) the ring of int8 tiles, the
+    widened fp32 tile and the new rows take less."""
+    return _STAGES * _STAGE_BYTES["fp32"] + 4 * (5 * slots + 1)
+
+
 def merge_bytes(kind: str, col_groups: int) -> int:
     """Shared memory the chunk merge may fill: the ring and, over int8
     pools at ``col_groups`` 1, the widened tile (``merge_bytes`` in the
-    source)."""
+    source). ``"fp32"``: the smaller of the fp32 body's two buffers, the
+    int8 ring and the widened fp32 tile (``f32_merge_bytes(true)``)."""
+    if kind == "fp32":
+        return _STAGES * _STAGE_BYTES["int8"] + _STAGE_BYTES["fp32"]
     wide = _WIDE_BYTES if kind == "int8" and col_groups == 1 else 0
     return _STAGES * _STAGE_BYTES[kind] + wide
 
@@ -132,13 +141,14 @@ def plan(slots: int, t: int, hq: int, hkv: int, width_cols: int,
     128]`` over tables of ``width_cols`` = W*BS cols on a card of ``sms``
     SMs. Needs no card.
 
-    A tensor-core body launches one wave: ``sms`` x :func:`blocks_per_sm`
-    blocks, fewer where the table cannot give that many items; the kernel
-    itself chunks the live cols (``build_work_list`` in the source), so
-    the host needs to know neither which slots are live nor how long
-    their contexts are. A live slot has ceil((start + n_valid) / 64)
-    tiles; the chunk length L is the shortest, at least
-    ``min_chunk_tiles`` and ceil(most tiles / ``max_chunks``), at which
+    Every body launches one wave: ``sms`` x :func:`blocks_per_sm` blocks
+    (the fp32 body: one block of 8 warps an SM), fewer where the table
+    cannot give that many items; the kernel itself chunks the live cols
+    (``build_work_list`` in the source), so the host needs to know
+    neither which slots are live nor how long their contexts are. A live
+    slot has ceil((start + n_valid) / 64) tiles; the chunk length L is
+    the shortest, at least ``min_chunk_tiles`` and ceil(most tiles /
+    ``max_chunks``), at which
     Hkv x sum ceil(tiles / L) items fit the grid (else one chunk a pair);
     a slot's pairs then take ceil(tiles / L) chunks of ceil(tiles /
     chunks) tiles, the last what is left. Its workspace holds the
@@ -149,19 +159,18 @@ def plan(slots: int, t: int, hq: int, hkv: int, width_cols: int,
     rows = (hq // hkv) * t
     row_tiles = -(-rows // _ROW_TILE)
     if kind == "fp32":
-        n_split = -(-width_cols // _SPLIT_COLS)
-        return Plan(row_tiles, (slots, hkv, row_tiles * n_split), 128,
-                    slots * hkv * row_tiles * _ROW_TILE * n_split, 0,
-                    split_cols=_SPLIT_COLS, n_split=n_split)
-    col_groups = 4 if row_tiles == 1 else 1
-    warps = 4 if col_groups == 4 else min(_MAX_WARPS, max(8, row_tiles))
+        col_groups, warps, per_sm = 0, _F32_WARPS, 1
+        smem = f32_smem(slots)
+    else:
+        col_groups = 4 if row_tiles == 1 else 1
+        warps = 4 if col_groups == 4 else min(_MAX_WARPS, max(8, row_tiles))
+        per_sm = blocks_per_sm(kind, t, col_groups, slots)
+        smem = mma_smem(kind, t, col_groups,
+                        warps if warps > _FULL_WARPS else 0, slots)
     tiles = -(-width_cols // _KEY_TILE)
     most_items = slots * hkv * -(-tiles // _MIN_CHUNK_TILES)
-    blocks = max(1, min(sms * blocks_per_sm(kind, t, col_groups, slots),
-                        most_items))
+    blocks = max(1, min(sms * per_sm, most_items))
     max_items = blocks + slots * hkv
-    smem = mma_smem(kind, t, col_groups,
-                    warps if warps > _FULL_WARPS else 0, slots)
     if smem > _SMEM_PER_BLOCK - _STATIC_SMEM:
         raise ValueError(f"the work list of {slots} slots does not fit a "
                          f"block's shared memory ({smem} bytes)")
@@ -359,8 +368,12 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     once per tile), runs both products on the tensor cores (P as bf16 hi
     + lo parts) and merges a pair's chunks in the same launch, in chunk
     order, through a self-resetting arrival counter in a per-device
-    workspace. fp32 q (the card's reference runs) takes an fp32 body whose
-    splits a second small kernel merges.
+    workspace. fp32 q (the card's reference runs) takes an FMA body of the
+    same shape: the same work list and merge, one block of 8 warps for
+    all G·T rows of its item (q rows in registers, a warp's row tile
+    sharing each 64-col tile's cols with the other warps of its tile where
+    there are few rows), K/V through a 3-stage ``cp.async`` ring (int8
+    tiles widened to fp32 once, in shared memory).
 
     ``launches`` counts launches over fp pools, ``int8_launches`` over
     int8 pools, and ``fp32_launches`` those of the fp32 body (either
@@ -410,7 +423,7 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
                             valid32.data_ptr(), out.data_ptr(), part_acc,
                             part_ml, counters, build.current_stream(device),
                             s, t, hq, hkv, d, width, bs, k_pool.shape[1],
-                            layer, launch.split_cols, launch.grid[0],
+                            layer, launch.grid[0],
                             launch.threads // 32, launch.col_groups,
                             launch.min_chunk_tiles, launch.max_items,
                             launch.max_chunks, scale,

@@ -160,5 +160,51 @@ def test_kernel_matches_plain_on_cuda(dtype, causal, d, mask_rows, t, hq, hkv):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     rel_rms = float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
     assert rel_rms <= 1e-2
+    if dtype == torch.float32:
+        assert_fp32_close(got, want)
     if mask_rows == 2:
         assert bool((got[1] == 0).all())
+
+
+def assert_fp32_close(got, want):
+    """fp32 output against the plain version at ``chip_smoke.py``'s fp32
+    bound: the largest error within 2^-14 of max|want|, the RMS error
+    within 1e-5 of RMS(want) (two fp32 sums in another order, exp2 for
+    exp; a TF32 product, ~5e-4, fails it)."""
+    diff = got - want
+    assert float(diff.abs().max()) <= 2.0 ** -14 * float(want.abs().max())
+    assert float(diff.pow(2).mean().sqrt()) <= 1e-5 * float(
+        want.pow(2).mean().sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("t,hq,hkv", [(77, 28, 4), (333, 64, 8), (914, 28, 4)])
+def test_fp32_body_on_cuda(causal, d, t, hq, hkv):
+    """The fp32 body at lengths that are no multiple of its 128-row items
+    or 64-key tiles, GQA 28:4 and 64:8, both head widths, with a [B, S]
+    key mask: batch 0 loses key 0, keys 64-127 (a whole tile) and a
+    scattered tenth; batch 1 loses every key, so its output is exactly 0,
+    and under causal so is batch 0's row 0, which sees only key 0. One
+    launch a call, within the fp32 bound (and 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = make(2, t, t, hq, hkv, d, seed=t + d)
+    rng = np.random.default_rng(t)
+    mask = rng.random((2, t)) > 0.1
+    mask[0, 0] = False
+    mask[0, 64:128] = False
+    mask[1] = False
+    args = [torch.from_numpy(x).cuda() for x in (q, k, v)]
+    m = torch.from_numpy(mask).cuda()
+    before = flash_attention.launches
+    got = flash_attention(*args, m, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(*args, m, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert_fp32_close(got[0], want[0])
+    assert bool((got[1] == 0).all())
+    if causal:
+        assert bool((got[0, 0] == 0).all())

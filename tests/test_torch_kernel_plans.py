@@ -4,8 +4,8 @@ kernels' workspace: pure Python, no card.
 The plans are what the wrappers cache per shape (splits, tiles, grid,
 workspace sizes); the kernels trust them, so a plan that left a k tile or
 a context col uncovered, or a split empty, would compute a wrong result on
-the card without any error. The paged kernel's tensor-core bodies derive
-their work list on the card from start / n_valid (``build_work_list`` in
+the card without any error. Every body of the paged kernel derives its
+work list on the card from start / n_valid (``build_work_list`` in
 ``csrc/paged_decode_attention.cu``); ``work_items`` below is the same rule
 in Python, held here against every live pattern.
 """
@@ -100,7 +100,7 @@ def test_int8_plan_fp32_x_splits_cover_k(model, name, d_in, d_out, m):
 
 
 class Item(NamedTuple):
-    """A work item of a tensor-core launch: cols ``begin`` .. ``end`` - 1
+    """A work item of a paged launch: cols ``begin`` .. ``end`` - 1
     of (``slot``, ``head``), chunk ``chunk`` of the pair's ``chunks``."""
     slot: int
     head: int
@@ -111,7 +111,7 @@ class Item(NamedTuple):
 
 
 def work_items(p, start, n_valid, hkv: int) -> list[Item]:
-    """The work list of a tensor-core launch of plan ``p``, as every block
+    """The work list of a paged launch of plan ``p``, as every block
     of the kernel derives it from ``start`` and ``n_valid`` (the rule of
     :func:`paged_mod.plan`'s docstring). Items go by slot, then kv-head,
     then chunk; block b takes items b, b + blocks, ..."""
@@ -160,32 +160,29 @@ def live_patterns(slots, t, width_cols, seed):
 
 
 def check_paged_plan(p, s, t, hq, hkv, width_cols, kind):
-    """The fp32 body: the splits cover the table, the grid and workspace
-    match them. A tensor-core body: one wave at most, its shared memory
-    and workspace within bounds, and for every live pattern its work items
-    cover every live col of every (slot, kv-head) exactly once, none of a
-    dead slot, no more than ``max_items``, and no pair more chunks than
-    the merge's buffer holds two rows of."""
+    """Every body: one 1-D wave at most, its shared memory and workspace
+    within bounds, and for every live pattern its work items cover every
+    live col of every (slot, kv-head) exactly once, none of a dead slot,
+    no more than ``max_items``, and no pair more chunks than the merge's
+    buffer holds two rows of. The fp32 body: one block of 8 warps an SM,
+    the shared memory of its fp32 ring and work list."""
     rows = (hq // hkv) * t
     assert (p.row_tiles - 1) * 16 < rows <= p.row_tiles * 16
-    if kind == "fp32":
-        assert p.split_cols % 64 == 0
-        assert p.n_split * p.split_cols >= width_cols
-        assert (p.n_split - 1) * p.split_cols < width_cols
-        assert p.grid == (s, hkv, p.row_tiles * p.n_split)
-        assert p.partials == s * hkv * p.row_tiles * 16 * p.n_split
-        assert p.counters == 0
-        return
     (blocks,) = p.grid
-    per_sm = paged_mod.blocks_per_sm(kind, t, p.col_groups, s)
-    assert 1 <= blocks <= H100_SMS * per_sm
     warps = p.threads // 32
-    q_warps = warps if warps > 8 else 0
-    assert p.smem == paged_mod.mma_smem(kind, t, p.col_groups, q_warps, s)
+    if kind == "fp32":
+        per_sm = 1
+        assert warps == 8 and p.col_groups == 0
+        assert p.smem == paged_mod.f32_smem(s)
+    else:
+        per_sm = paged_mod.blocks_per_sm(kind, t, p.col_groups, s)
+        q_warps = warps if warps > 8 else 0
+        assert p.smem == paged_mod.mma_smem(kind, t, p.col_groups, q_warps, s)
+        assert p.col_groups in (1, 4) and warps % p.col_groups == 0
+        assert (warps == 4) if p.col_groups == 4 else 8 <= warps <= 12
+    assert 1 <= blocks <= H100_SMS * per_sm
     assert p.smem + paged_mod._STATIC_SMEM <= paged_mod._SMEM_PER_BLOCK
     assert per_sm * (p.smem + paged_mod._BLOCK_RESERVE) <= paged_mod._SMEM_PER_SM
-    assert p.col_groups in (1, 4) and warps % p.col_groups == 0
-    assert (warps == 4) if p.col_groups == 4 else 8 <= warps <= 12
     assert p.min_chunk_tiles >= 2
     assert p.max_items == blocks + s * hkv
     assert p.partials == p.max_items * (rows + rows % 2) and p.counters == s * hkv
@@ -274,16 +271,17 @@ def test_paged_plan_serves_every_row_in_one_pass(kind, model, hq, hkv,
     assert p.grid == (H100_SMS,)
 
 
-@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("kind", ["int8", "bf16", "fp32"])
 @pytest.mark.parametrize("t", [1, 17])
 @pytest.mark.parametrize("hkv", [1, 2, 4])
 @pytest.mark.parametrize("width_cols", [8192, 16384])
 def test_paged_plan_caps_the_chunks_for_the_merge(kind, t, hkv, width_cols):
     """Long tables with few live slots: the chunk rule alone would give
     one pair more chunks than the merge's buffer holds (at T = 1 over
-    int8 pools 64 of 2-tile chunks at 8192 cols against 48); the cap
-    lengthens the chunks instead, and the work items still cover every
-    live col."""
+    int8 pools 64 of 2-tile chunks at 8192 cols against 48; the fp32
+    body's smaller buffer, int8 tiles and the widened fp32 tile, holds
+    111: 128 chunks at 16384 cols and Hkv 1); the cap lengthens the
+    chunks instead, and the work items still cover every live col."""
     hq = 7 * hkv
     p = paged_mod.plan(24, t, hq, hkv, width_cols, kind, H100_SMS)
     check_paged_plan(p, 24, t, hq, hkv, width_cols, kind)
@@ -292,6 +290,10 @@ def test_paged_plan_caps_the_chunks_for_the_merge(kind, t, hkv, width_cols):
     uncapped = work_items(p._replace(max_chunks=width_cols), start, n_valid, hkv)
     if kind == "int8" and t == 1:   # the smallest buffer: the cap binds
         assert max(it.chunks for it in uncapped) > p.max_chunks == 48
+    if kind == "fp32":
+        assert p.max_chunks == 111
+        if width_cols == 16384 and hkv == 1:
+            assert max(it.chunks for it in uncapped) > p.max_chunks
 
 
 @pytest.mark.parametrize("kind", ["int8", "bf16"])
@@ -307,7 +309,7 @@ def test_paged_plan_serves_more_row_tiles_in_passes(kind, model, hq, hkv, t):
     check_paged_plan(p, 24, t, hq, hkv, 2048, kind)
 
 
-@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("kind", ["int8", "bf16", "fp32"])
 @pytest.mark.parametrize("slots", [129, 512])
 def test_paged_plan_takes_any_slot_count_that_fits(kind, slots):
     """The work list grows with the slots (5 ints each) in the block's

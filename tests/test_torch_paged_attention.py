@@ -147,6 +147,10 @@ def test_kernel_matches_plain_on_cuda(dtype, t):
                                         layer=LAYER, scale=D ** -0.5).float()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        live = [(s, i) for s, nv in enumerate(a["n_valid"]) for i in range(nv)]
+        pick = tuple(torch.tensor(x) for x in zip(*live))
+        assert_fp32_close(got[pick], want[pick])
     assert torch.equal(dev["k_pool"], plain["k_pool"])
     assert torch.equal(dev["v_pool"], plain["v_pool"])
 
@@ -174,6 +178,10 @@ def test_int8_kernel_matches_plain_on_cuda(dtype, t):
                                         layer=LAYER, scale=D ** -0.5).float()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        live = [(s, i) for s, nv in enumerate(a["n_valid"]) for i in range(nv)]
+        pick = tuple(torch.tensor(x) for x in zip(*live))
+        assert_fp32_close(got[pick], want[pick])
     for k in POOLS:
         assert torch.equal(dev[k], plain[k]), k
 
@@ -208,6 +216,17 @@ def make_decode(seed, t, group, start, n_valid, hkv=2, bs=16, width=80,
         v_scale=rng.uniform(0.001, 0.02, (2, n_blocks, hkv, bs))
         .astype(np.float32))
     return a
+
+
+def assert_fp32_close(got, want):
+    """fp32 output against the plain version at ``chip_smoke.py``'s fp32
+    bound: the largest error within 2^-14 of max|want|, the RMS error
+    within 1e-5 of RMS(want) (two fp32 sums in another order; a TF32
+    product, ~5e-4, fails it)."""
+    diff = got - want
+    assert float(diff.abs().max()) <= 2.0 ** -14 * float(want.abs().max())
+    assert float(diff.pow(2).mean().sqrt()) <= 1e-5 * float(
+        want.pow(2).mean().sqrt())
 
 
 def assert_close_to_plain(got, want):
@@ -352,14 +371,15 @@ def test_each_body_moves_its_own_counter_on_cuda():
 
 
 def card_case(quant, hq, hkv, t, start, n_valid, *, slots=24, bs=128,
-              width=32, seed=0):
-    """bf16 q and new rows over int8 (``quant``) or bf16 pools of 2 layers,
-    made on the card: each live slot its own ``width`` shuffled pages of
-    ``bs`` cols, dead slots' tables at block 0. Runs the kernel twice and
-    the plain version once on copies; checks the valid rows within
-    tolerance, dead slots and rows zero, the pools bit-equal to the plain
-    append, one launch a call on the body's counter, and the two calls
-    bit-equal."""
+              width=32, seed=0, dtype=torch.bfloat16):
+    """q and new rows in ``dtype`` (bf16: a tensor-core body; fp32: the
+    fp32 body) over int8 (``quant``) or ``dtype`` pools of 2 layers, made
+    on the card: each live slot its own ``width`` shuffled pages of ``bs``
+    cols, dead slots' tables at block 0. Runs the kernel twice and the
+    plain version once on copies; checks the valid rows within tolerance
+    (fp32: ``assert_fp32_close``), dead slots and rows zero, the pools
+    bit-equal to the plain append, one launch a call on the body's
+    counters, and the two calls bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -373,7 +393,7 @@ def card_case(quant, hq, hkv, t, start, n_valid, *, slots=24, bs=128,
         tables[s] = perm[i * width:(i + 1) * width]
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     args = dict(q=randn(slots, t, hq, D), k_new=randn(slots, t, hkv, D),
                 v_new=randn(slots, t, hkv, D), tables=tables,
@@ -401,14 +421,17 @@ def card_case(quant, hq, hkv, t, start, n_valid, *, slots=24, bs=128,
                                    scale=D ** -0.5)
     torch.cuda.synchronize()
     moved = tuple(x - y for x, y in zip(launch_counts(), before))
-    assert moved == ((0, 0, 2) if quant else (2, 0, 0))
+    fp32 = 2 if dtype == torch.float32 else 0
+    assert moved == ((0, fp32, 2) if quant else (2, fp32, 0))
     assert torch.equal(got, again)
     want = paged_append_attention_plain(*(plain[k] for k in names),
                                         layer=LAYER, scale=D ** -0.5)
     rows = [(s, i) for s in live for i in range(n_valid[s])]
-    pick = (torch.tensor([r[0] for r in rows]),
-            torch.tensor([r[1] for r in rows]))
-    assert_close_to_plain(got[pick], want[pick])
+    if rows:
+        pick = (torch.tensor([r[0] for r in rows]),
+                torch.tensor([r[1] for r in rows]))
+        close = assert_fp32_close if fp32 else assert_close_to_plain
+        close(got[pick].float(), want[pick].float())
     for s, nv in enumerate(n_valid):
         assert bool((got[s, nv:] == 0).all())
     for k in POOLS[:4 if quant else 2]:
@@ -481,3 +504,57 @@ def test_more_than_128_slots_on_cuda(quant):
     start = [live.get(s, 0) for s in range(160)]
     n_valid = [1 if s in live else 0 for s in range(160)]
     card_case(quant, 28, 4, 1, start, n_valid, slots=160, width=16, seed=160)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(64, 8), (28, 4)])
+@pytest.mark.parametrize("t", [1, 2, 5])
+@pytest.mark.parametrize("live", [1, 8])
+def test_fp32_body_on_cuda(quant, hq, hkv, t, live):
+    """The fp32 body (fp32 q over int8 or fp32 pools): 1 or 8 of 24 slots
+    live at contexts of 900-4000 cols in 4096-col tables, 1, 2 or 5 new
+    tokens (one row tile of 8 rows, one of 16, several), one launch a
+    call, two calls bit-equal, within the fp32 bound."""
+    start = [4094 - t - 397 * i if i < live else 0 for i in range(24)]
+    n_valid = [t if i < live else 0 for i in range(24)]
+    card_case(quant, hq, hkv, t, start, n_valid, seed=t + live,
+              dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(64, 8), (28, 4)])
+def test_fp32_verify_round_across_a_page_on_cuda(quant, hq, hkv):
+    """T = 17 under fp32 q: slot s starts 1 + s rows before a page
+    boundary and appends 17 - s rows across it; 119 or 136 query rows a
+    kv-head, one pass of 8 row tiles or two."""
+    start = [1279 - s if s < 8 else 0 for s in range(24)]
+    n_valid = [17 - s if s < 8 else 0 for s in range(24)]
+    card_case(quant, hq, hkv, 17, start, n_valid, width=16, seed=hq,
+              dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,hq,hkv,cols", [
+    (True, 28, 4, 8192),
+    (False, 28, 4, 8192),
+    (True, 7, 1, 16384),      # 128 two-tile chunks uncapped, 111 fit
+    (False, 14, 2, 16384),
+])
+def test_fp32_one_live_slot_over_long_tables_on_cuda(quant, hq, hkv, cols):
+    """One live slot of 24 at the last col of a long table under fp32 q:
+    the chunks capped by the fp32 body's merge buffer merge within it."""
+    start = [cols - 1] + [0] * 23
+    n_valid = [1] + [0] * 23
+    card_case(quant, hq, hkv, 1, start, n_valid, width=cols // 128,
+              seed=cols + hkv, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False])
+def test_fp32_all_slots_dead_on_cuda(quant):
+    """No live slot: the fp32 body's launch writes zeros everywhere and
+    leaves the pools as they were."""
+    card_case(quant, 28, 4, 1, [0] * 24, [0] * 24, width=4, seed=5,
+              dtype=torch.float32)
