@@ -641,7 +641,8 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
     or fp32: the fp32 body; the vision tower's window layers, rope on
     load) against its plain
     version; the library yardstick is SDPA per window over q/k that are
-    not roped. ``backward``: also the training backward's time."""
+    not roped. ``graph_ms``: the kernel's device time without the host's
+    per-call work. ``backward``: also the training backward's time."""
     import torch.nn.functional as F
 
     from handwritten_ocr_tpu_torch.ops.window_attention import (
@@ -681,6 +682,8 @@ def _window_case(case: str, path: str, batch: int, plan, num_heads: int,
         replaces="handwritten_ocr_tpu/ops/window_attention.py:194",
         shape=[batch, p_len, 3 * d], dtype=name, **_body(dtype), **cmp,
         ms=time_ms(lambda: window_attention(qkv, cos, sin, valid, **kw)),
+        graph_ms=graph_ms([lambda: window_attention(qkv, cos, sin, valid,
+                                                    **kw)]),
         plain_ms=time_ms(lambda: window_attention_plain(qkv, cos, sin, valid,
                                                         **kw), iters=3),
         library="F.scaled_dot_product_attention per window (q/k not roped)",

@@ -1,7 +1,8 @@
-// Tensor-core and data-movement primitives of the bf16 attention kernels,
+// Tensor-core and data-movement primitives of the attention kernels,
 // as inline PTX for sm_90a:
-// - mma.sync.m16n8k16 (bf16 in, fp32 accumulate), ldmatrix and cp.async,
-//   used where one warp owns a 16-row tile (window attention);
+// - mma.sync.m16n8k16 (bf16 in, fp32 accumulate), m16n8k8 (tf32 in, and
+//   3xTF32 from it), ldmatrix and cp.async, used where one warp owns a
+//   16-row tile (window attention);
 // - TMA tile loads and bulk copies completing on mbarriers, wgmma with
 //   shared-memory descriptors, setmaxnreg (flash attention);
 // - host: a TMA descriptor for a 4-D bf16 tensor, encoded through the
@@ -35,6 +36,47 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D += A.B for one m16n8k8 tile of tf32 values (fp32 registers whose low
+// 13 mantissa bits are zero). Fragments (g = lane / 4, t = lane % 4): A
+// holds rows g and g+8 at col t (a0, a1) and col t+4 (a2, a3); B holds col
+// g at rows t (b0) and t+4 (b1); D as m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x as hi + lo, both tf32 values (the 13 low mantissa bits zero): hi is x
+// with those bits cleared, lo is x - hi (exact) with its own cleared. hi
+// carries 11 of x's 24 bits and lo the next 11 or more, so hi + lo is
+// within 2^-21 of x. Three integer and float operations; rounding both to
+// nearest (cvt.rna.tf32.f32, or its add-and-mask) takes five.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// D[n] += A.B[n] for N tiles of 8 columns at fp32 accuracy, in three tf32
+// products each (3xTF32): the small terms lo.hi and hi.lo first, hi.hi
+// last, all into D; lo.lo (< 2^-20 of the product) is dropped. Each tf32
+// product is exact in fp32. The products go pass by pass over the N
+// tiles, so that no product waits on the one before it.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_rows(float (&d)[N][4], const uint32_t (&ah)[4],
+                                                const uint32_t (&al)[4],
+                                                const uint32_t (&bh)[N][2],
+                                                const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], ah, bh[n][0], bh[n][1]);
 }
 
 // Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix

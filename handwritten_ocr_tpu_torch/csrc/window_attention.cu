@@ -13,8 +13,9 @@
 // Math, as the TPU kernel: cos/sin rounded to the qkv dtype; q and k roped
 // (x*cos + rotate_half(x)*sin, fp32 then one rounding to the qkv dtype);
 // scores fp32, dead keys -inf; softmax with the all-masked guard (such a row
-// returns 0); P divided by its denominator and rounded to the qkv dtype
-// BEFORE the P.V product; fp32 accumulation.
+// returns 0); P divided by its denominator (the fp32 body multiplies by its
+// reciprocal, within an ulp) and rounded to the qkv dtype BEFORE the P.V
+// product; fp32 accumulation.
 //
 // What bounds it: bytes. At the tower's shape (qkv [8, 3456, 3840] bf16,
 // 16 heads of 80) it reads 212 MB and writes 71 MB against ~9 GFLOP, so
@@ -37,129 +38,258 @@
 //   warp stages its 16 x 80 output in its own q rows and writes whole head
 //   rows as 16-byte vectors. 88 KB of shared memory: two blocks per SM, so
 //   one block's loads overlap another's products.
-// - fp32: the 64 x hd q, k, v tiles and the 64 x 64 score tile sit in
-//   shared memory (~70 KB at hd 80). 256 threads as 16 x 16; each owns 4
-//   rows x 4 strided columns of the scores and 4 rows x hd/16 output
-//   columns. Plain fp32 FMA.
+// - fp32 (the reference and fp32 reads): one block of 128 threads per
+//   (page, window, head), heads fastest. At the fp32 read's shape (qkv
+//   [1, 3456, 3840]) it moves 73 MB against 1.1 GFLOP (both products;
+//   3.4 GFLOP of tf32 products in 3xTF32, 0.007 ms at the 495 TFLOP/s tf32
+//   peak): bound by bytes, 0.022 ms at 3.35 TB/s. What holds it back is
+//   latency: each block loads, ropes, multiplies and writes in turn, so
+//   the design keeps many blocks on an SM. Two tiles of 64 rows padded to
+//   84 floats (43 KB): four blocks an SM, 16 warps. cp.async brings q and
+//   k in 16-byte vectors; rope runs in place on 16-byte vectors (vector j
+//   of a head row pairs with j + 10), one thread owning both halves of
+//   its pairs, with the window's cos/sin read once and each product and
+//   sum rounded in fp32 as PyTorch rounds them. Warps 0-3 take 16 query
+//   rows each. Q.K^T runs on the tensor cores as 3xTF32 (mma.sync.m16n8k8:
+//   each operand split into tf32 hi + lo, the products lo.hi, hi.lo and
+//   hi.hi summed in fp32, within ~2^-20 of a product, where one TF32 pass
+//   errs ~2^-11). v then comes into k's tile, landing while the softmax
+//   runs and the SM's other blocks compute. The 64 scores of a row stay in
+//   registers (max and sum as quad shuffles); P is normalised there and
+//   becomes P.V's A operand as it stands: score tile j's columns 2t and
+//   2t+1 serve as k-slots t and t+4, and V's rows are read in that same
+//   order. The stride of 84 (20 mod 32 banks) keeps every fragment load,
+//   q's and k's rows g and V's rows 2t and 2t+1, free of bank conflicts.
+//   Output staged in the warp's own q rows and written as 16-byte vectors.
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int WL = 64;  // window length
-constexpr int NT = 256;
 
-template <int HD> constexpr size_t window_smem_bytes() {
-  return sizeof(float) * (size_t)(2 * WL * (HD + 1) + WL * HD + WL * (WL + 1));
+// ---- fp32 body: 3xTF32 on the tensor cores, one head per block ----------
+constexpr int FT = 128;    // 4 warps, 16 query rows each
+constexpr int FS = 84;     // row stride (floats) of the q and k/v tiles
+
+template <int HD> struct F32Tiles {
+  static constexpr int TILE = WL * FS;     // one [64][FS] tile
+  static constexpr int VEC = HD / 4;       // 16-byte vectors per head row
+  static constexpr int HV = HD / 8;        // vectors in half a head row
+  static constexpr int PAIRS = WL * HV / FT;  // rope pairs a thread
+  // q, then k and after Q.K^T v in the same tile; the valid bytes.
+  static constexpr size_t SMEM = sizeof(float) * 2 * TILE + WL;
+  static_assert(HD == 80 && PAIRS == 5, "the rope pairs cover 10 vectors a half row");
+  static_assert(FS % 4 == 0 && FS >= HD, "rows stay 16-byte aligned");
+};
+
+// Rope pair u of thread tid: (row r, vector j of the first half, vector
+// j + HV). Pairs 0-3 take vectors 0-7 of each row, eight lanes a row, so
+// that a quarter warp reads 128 contiguous bytes of cos/sin and of a tile
+// row (every bank once); pair 4 takes vectors 8 and 9, two lanes a row.
+__device__ __forceinline__ void rope_pair(int tid, int u, int& r, int& j) {
+  const int i = tid + u * FT;
+  r = u < 4 ? i / 8 : tid / 2;
+  j = u < 4 ? i % 8 : 8 + tid % 2;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-window_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
-              const float* __restrict__ sin_t, const uint8_t* __restrict__ valid,
-              T* __restrict__ out, int p_len, int heads, float scale) {
-  extern __shared__ float smem[];
-  constexpr int QS = HD + 1;
-  constexpr int PS = WL + 1;
-  constexpr int NC = HD / 16;
-  constexpr int HALF = HD / 2;
-  float* sq = smem;             // [WL][QS]
-  float* sk = sq + WL * QS;     // [WL][QS]
-  float* sv = sk + WL * QS;     // [WL][HD]
-  float* sp = sv + WL * HD;     // [WL][PS]
+template <int HD>
+__global__ void __launch_bounds__(FT, 4)
+window_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ cos_t,
+                  const float* __restrict__ sin_t, const uint8_t* __restrict__ valid,
+                  float* __restrict__ out, int p_len, int heads, float scale) {
+  using L = F32Tiles<HD>;
+  extern __shared__ __align__(16) float fsm[];
+  float* sq = fsm;                 // [WL][FS] q, roped in place
+  float* skv = sq + L::TILE;       // [WL][FS] k, roped in place; then v
+  uint8_t* svalid = reinterpret_cast<uint8_t*>(skv + L::TILE);
 
-  const int w = blockIdx.x;
-  const int h = blockIdx.y;
+  // Heads fastest, so that the blocks in flight together read whole qkv
+  // rows of a few windows and share their cos/sin in L2.
+  const int h = blockIdx.x;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
   const int d_model = heads * HD;
-  const size_t row_stride = 3 * (size_t)d_model;
-  const int p0 = w * WL;
-  const T* base = qkv + ((size_t)b * p_len + p0) * row_stride + (size_t)h * HD;
+  const int p0 = blockIdx.y * WL;
+  const float* rows = qkv + ((size_t)b * p_len + p0) * 3 * d_model + (size_t)h * HD;
 
-  for (int i = tid; i < WL * HD; i += NT) {
-    const int r = i / HD, c = i % HD;
-    const T* row = base + (size_t)r * row_stride;
-    const int partner = c < HALF ? c + HALF : c - HALF;
-    const float sign = c < HALF ? -1.f : 1.f;
-    const float cs = round_to<T>(cos_t[(size_t)(p0 + r) * HD + c]);
-    const float sn = round_to<T>(sin_t[(size_t)(p0 + r) * HD + c]);
-    const float qx = to_f(row[c]), qr = sign * to_f(row[partner]);
-    const float kx = to_f(row[d_model + c]), kr = sign * to_f(row[d_model + partner]);
-    sq[r * QS + c] = round_to<T>(qx * cs + qr * sn);
-    sk[r * QS + c] = round_to<T>(kx * cs + kr * sn);
-    sv[r * HD + c] = to_f(row[2 * d_model + c]);
+  // q and k (and the valid bytes) as 16-byte cp.async copies.
+  for (int i = tid; i < 2 * WL * L::VEC; i += FT) {
+    const int part = i / (WL * L::VEC), r = (i / L::VEC) % WL, vec = i % L::VEC;
+    cp_async16(sq + part * L::TILE + r * FS + vec * 4,
+               rows + (size_t)r * 3 * d_model + part * d_model + vec * 4);
+  }
+  if (tid < WL / 16) cp_async16(svalid + tid * 16, valid + p0 + tid * 16);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // Rope q and k in place, with the window's cos/sin read once. A thread
+  // owns its pairs' both halves, so it reads them all before it writes and
+  // no barrier sits in between. Each product and the sum round in fp32 as
+  // PyTorch rounds them.
+  const float4* cos4 = reinterpret_cast<const float4*>(cos_t + (size_t)p0 * HD);
+  const float4* sin4 = reinterpret_cast<const float4*>(sin_t + (size_t)p0 * HD);
+#pragma unroll
+  for (int u = 0; u < L::PAIRS; ++u) {
+    int r, j;
+    rope_pair(tid, u, r, j);
+    const float4 cl = cos4[r * L::VEC + j], ch = cos4[r * L::VEC + j + L::HV];
+    const float4 sl = sin4[r * L::VEC + j], sh = sin4[r * L::VEC + j + L::HV];
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      float4* xl = reinterpret_cast<float4*>(sq + part * L::TILE + r * FS) + j;
+      float4* xh = xl + L::HV;
+      const float4 lo = *xl, hi = *xh;
+      *xl = make_float4(__fadd_rn(__fmul_rn(lo.x, cl.x), __fmul_rn(-hi.x, sl.x)),
+                        __fadd_rn(__fmul_rn(lo.y, cl.y), __fmul_rn(-hi.y, sl.y)),
+                        __fadd_rn(__fmul_rn(lo.z, cl.z), __fmul_rn(-hi.z, sl.z)),
+                        __fadd_rn(__fmul_rn(lo.w, cl.w), __fmul_rn(-hi.w, sl.w)));
+      *xh = make_float4(__fadd_rn(__fmul_rn(hi.x, ch.x), __fmul_rn(lo.x, sh.x)),
+                        __fadd_rn(__fmul_rn(hi.y, ch.y), __fmul_rn(lo.y, sh.y)),
+                        __fadd_rn(__fmul_rn(hi.z, ch.z), __fmul_rn(lo.z, sh.z)),
+                        __fadd_rn(__fmul_rn(hi.w, ch.w), __fmul_rn(lo.w, sh.w)));
+    }
   }
   __syncthreads();
 
-  float s[4][4];
+  // Q.K^T: warp w takes query rows 16w..16w+15 against all 64 keys. With
+  // the row stride of 84 floats (84 = 20 mod 32) the lanes' rows g start
+  // on banks 20g mod 32, eight distinct multiples of 4, and t adds 0-3:
+  // every A and B fragment load hits 32 distinct banks.
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rb = warp * 16;
+  const float* qa = sq + (rb + g) * FS + t;
+  float sc[WL / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < WL / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    float a[4], kk[4];
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = sq[(ty * 4 + i) * QS + d];
+  for (int ks = 0; ks < HD / 8; ++ks) {
+    uint32_t ah[4], al[4];
+    split_tf32(qa[ks * 8], ah[0], al[0]);
+    split_tf32(qa[8 * FS + ks * 8], ah[1], al[1]);
+    split_tf32(qa[ks * 8 + 4], ah[2], al[2]);
+    split_tf32(qa[8 * FS + ks * 8 + 4], ah[3], al[3]);
+    uint32_t bh[WL / 8][2], bl[WL / 8][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) kk[j] = sk[(tx + 16 * j) * QS + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+    for (int nt = 0; nt < WL / 8; ++nt) {
+      const float* kb = skv + (nt * 8 + g) * FS + ks * 8 + t;
+      split_tf32(kb[0], bh[nt][0], bl[nt][0]);
+      split_tf32(kb[4], bh[nt][1], bl[nt][1]);
+    }
+    mma_3xtf32_rows<WL / 8>(sc, ah, al, bh, bl);
   }
 
-  bool ok[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) ok[j] = valid[p0 + tx + 16 * j] != 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[i][j] = ok[j] ? s[i][j] * scale : -INFINITY;
-      mx = fmaxf(mx, s[i][j]);
-    }
-    mx = group_max<16>(mx);
-    const float safe = (mx == -INFINITY) ? 0.f : mx;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[i][j] = ok[j] ? expf(s[i][j] - safe) : 0.f;
-      sum += s[i][j];
-    }
-    const float denom = fmaxf(group_sum<16>(sum), 1e-30f);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sp[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(s[i][j] / denom);
+  // Every warp is done with k: v goes into its tile and lands while the
+  // softmax runs (and other blocks on the SM compute).
+  __syncthreads();
+  for (int i = tid; i < WL * L::VEC; i += FT) {
+    const int r = i / L::VEC, vec = i % L::VEC;
+    cp_async16(skv + r * FS + vec * 4, rows + (size_t)r * 3 * d_model + 2 * d_model + vec * 4);
   }
+  cp_async_commit();
+
+  // Scores in registers: sc[j][e] is row g + 8 (e >> 1), key 8j + 2t +
+  // (e & 1); bit k of `live` says whether key k is live.
+  const uint64_t live =
+      (uint64_t)__ballot_sync(0xffffffffu, svalid[32 + lane] != 0) << 32 |
+      __ballot_sync(0xffffffffu, svalid[lane] != 0);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < WL / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = (live >> (j * 8 + 2 * t + (e & 1))) & 1;
+      sc[j][e] = ok ? sc[j][e] * scale : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+    }
+  float safe[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = group_max<4>(mx[r]);
+    safe[r] = (mx[r] == -INFINITY) ? 0.f : mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < WL / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[j][e] = sc[j][e] == -INFINITY ? 0.f : expf(sc[j][e] - safe[e >> 1]);
+      sum[e >> 1] += sc[j][e];
+    }
+  // P normalised by the reciprocal of its denominator (one division a
+  // row, within an ulp of dividing each term).
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(group_sum<4>(sum[r]), 1e-30f);
+#pragma unroll
+  for (int j = 0; j < WL / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] *= inv[e >> 1];
+
+  cp_async_wait_all();
   __syncthreads();
 
-  float acc[4][NC];
+  // P.V with P straight from registers. Score tile j's C layout (row g,
+  // keys 8j + 2t and 8j + 2t + 1) becomes k-step j's A fragment by taking
+  // key 8j + 2t as k-slot t and 8j + 2t + 1 as slot t + 4; V's B fragment
+  // reads its rows in the same order: row 8j + 2t (b0) and 8j + 2t + 1
+  // (b1) at col 8n + g. Rows 2t start on banks 8t mod 32 (168 = 8 mod 32)
+  // and 2t + 1 on 8t + 20, so with g's 0-7 both loads are conflict free.
+  float o[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < WL; ++kk) {
-    float p[4];
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = sp[(ty * 4 + i) * PS + kk];
+  for (int j = 0; j < WL / 8; ++j) {
+    uint32_t ph[4], pl[4];
+    split_tf32(sc[j][0], ph[0], pl[0]);
+    split_tf32(sc[j][2], ph[1], pl[1]);
+    split_tf32(sc[j][1], ph[2], pl[2]);
+    split_tf32(sc[j][3], ph[3], pl[3]);
+    const float* vb = skv + (j * 8 + 2 * t) * FS + g;
+    uint32_t bh[HD / 8][2], bl[HD / 8][2];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float vv = sv[kk * HD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+    for (int n = 0; n < HD / 8; ++n) {
+      split_tf32(vb[n * 8], bh[n][0], bl[n][0]);
+      split_tf32(vb[FS + n * 8], bh[n][1], bl[n][1]);
     }
+    mma_3xtf32_rows<HD / 8>(o, ph, pl, bh, bl);
   }
-  T* ob = out + ((size_t)b * p_len + p0) * d_model + (size_t)h * HD;
+
+  // Stage the warp's 16 output rows in its own q rows (no other warp reads
+  // them), then write whole head rows as 16-byte vectors.
+  float* so = sq + rb * FS;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      ob[(size_t)(ty * 4 + i) * d_model + tx + 16 * c] = from_f<T>(acc[i][c]);
+  for (int n = 0; n < HD / 8; ++n) {
+    *reinterpret_cast<float2*>(so + g * FS + n * 8 + 2 * t) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(so + (g + 8) * FS + n * 8 + 2 * t) = make_float2(o[n][2], o[n][3]);
+  }
+  __syncwarp();
+  float* ob = out + ((size_t)b * p_len + p0 + rb) * d_model + (size_t)h * HD;
+  for (int i = lane; i < 16 * L::VEC; i += 32) {
+    const int r = i / L::VEC, v = i % L::VEC;
+    *reinterpret_cast<float4*>(ob + (size_t)r * d_model + v * 4) =
+        *reinterpret_cast<const float4*>(so + r * FS + v * 4);
+  }
+}
+
+// Opt the fp32 body into its shared memory and the largest carveout, so
+// that four blocks share an SM; once per device.
+template <int HD> cudaError_t configure_f32() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(window_f32_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)F32Tiles<HD>::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(window_f32_kernel<HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
 
 // ---- bf16 body: tensor cores, a pair of heads per block -----------------
@@ -366,12 +496,10 @@ cudaError_t launch(const void* qkv, const float* cos_t, const float* sin_t,
         static_cast<const __nv_bfloat16*>(qkv), cos_t, sin_t, valid,
         static_cast<__nv_bfloat16*>(out), p_len, heads, scale);
   } else if (dtype == kFloat32) {
-    const size_t smem = window_smem_bytes<HD>();
-    static bool configured[kMaxDevices] = {};
-    cudaError_t err = set_smem_once(window_kernel<float, HD>, smem, configured);
+    cudaError_t err = configure_f32<HD>();
     if (err != cudaSuccess) return err;
-    grid.y = heads;
-    window_kernel<float, HD><<<grid, NT, smem, stream>>>(
+    const dim3 heads_first(heads, p_len / WL, b);
+    window_f32_kernel<HD><<<heads_first, FT, F32Tiles<HD>::SMEM, stream>>>(
         static_cast<const float*>(qkv), cos_t, sin_t, valid,
         static_cast<float*>(out), p_len, heads, scale);
   } else {

@@ -13,6 +13,7 @@ kernel (the plain version on the CPU) and the backward is autograd through
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,11 +28,13 @@ _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
+@functools.lru_cache(maxsize=None)
 def check_kernel_shapes(qkv_shape, dtype: torch.dtype, *, num_heads: int,
                         window_len: int) -> None:
     """Raise ValueError unless the kernel takes packed qkv ``[B, P, 3·H·hd]``
     of ``dtype`` in windows of ``window_len``: the limits of the kernel
-    itself, on top of the function's. Needs no card."""
+    itself, on top of the function's. Needs no card; a shape that passed
+    is not checked again."""
     hd = qkv_shape[2] // 3 // num_heads
     check(dtype in _DTYPE_CODES, f"unsupported dtype {dtype}")
     check(hd in _HEAD_DIMS, f"head dim {hd} not in {_HEAD_DIMS}")
@@ -39,7 +42,7 @@ def check_kernel_shapes(qkv_shape, dtype: torch.dtype, *, num_heads: int,
           f"the kernel takes windows of {_KERNEL_WINDOW}, got {window_len}")
     check(num_heads % _HEAD_GROUP == 0,
           f"{num_heads} heads do not split into groups of {_HEAD_GROUP}")
-    row_bytes = hd * torch.empty((), dtype=dtype).element_size()
+    row_bytes = hd * dtype.itemsize
     check(row_bytes % 16 == 0,
           f"head rows of {row_bytes} bytes do not split into 16-byte vectors")
 
@@ -166,6 +169,13 @@ def window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     (``mma.sync`` bf16 → fp32) with the scores in registers, and writes
     whole head rows.
 
+    fp32 qkv (the reference tower, fp32 reads) takes the fp32 body: one
+    block per (page, window, head), four on an SM (q, then k and v in
+    one tile: 43 KB), both products on the tensor cores in 3xTF32 (each
+    operand split into two tf32 parts, three ``mma.sync`` products
+    summed in fp32), the scores and P in registers. It errs ~1e-6 of the
+    output, inside the fp32 bound that a single TF32 pass fails.
+
     With grad mode on and qkv requiring grad it runs as an
     ``autograd.Function`` (forward as above, backward through
     :func:`window_attention_reference`); otherwise, as in serving, it
@@ -204,7 +214,11 @@ def _window_forward(qkv, cos, sin, valid, *, num_heads: int,
     sin32 = sin.float().contiguous()
     check(all(x.data_ptr() % 16 == 0 for x in (qkv, cos32, sin32)),
           "qkv and cos/sin must be 16-byte aligned")
-    valid8 = (valid != 0).to(torch.uint8).contiguous()
+    # The kernel reads one byte a slot (0 = dead) and copies a window's
+    # 64 bytes at once: a bool or uint8 mask is read as it is.
+    valid8 = valid.view(torch.uint8) if (
+        valid.dtype in (torch.bool, torch.uint8) and valid.is_contiguous()
+        and valid.data_ptr() % 16 == 0) else (valid != 0).to(torch.uint8)
     out = torch.empty((b, p_len, d), dtype=qkv.dtype, device=qkv.device)
     fn = build.function("window_attention", "hocr_window_attention",
                         _ARGTYPES)

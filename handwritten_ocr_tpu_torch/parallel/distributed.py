@@ -21,7 +21,8 @@ Env contract (the JAX package's, letter for letter):
 
   ``HOCR_DIST_COORD``    coordinator ``host:port`` (process 0's address)
   ``HOCR_DIST_NPROCS``   total number of processes in the job
-  ``HOCR_DIST_PROC_ID``  this process's rank, ``0..NPROCS-1``
+  ``HOCR_DIST_PROC_ID``  this process's rank, ``0..NPROCS-1`` (required:
+                         the JAX package defaults it to 0)
 
 With ``initialize_from_env(auto=True)`` and none of these set, torchrun's
 ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` (and
@@ -45,15 +46,23 @@ from handwritten_ocr_tpu_torch.parallel.mesh import (axis_rank, axis_size,
 
 
 def distributed_env() -> dict | None:
-    """The HOCR_DIST_* job description, or None when unset/solo."""
+    """The HOCR_DIST_* job description, or None when unset/solo.
+
+    A job of two or more processes must give each its HOCR_DIST_PROC_ID:
+    without it every process would take rank 0 and serve the rendezvous
+    store, so this raises ValueError instead of defaulting to 0."""
     coord = os.environ.get("HOCR_DIST_COORD")
     nprocs = os.environ.get("HOCR_DIST_NPROCS")
     if not coord or not nprocs or int(nprocs) < 2:
         return None
+    proc_id = os.environ.get("HOCR_DIST_PROC_ID")
+    if proc_id is None:
+        raise ValueError(f"HOCR_DIST_NPROCS={nprocs} needs HOCR_DIST_PROC_ID "
+                         f"(this process's rank, 0..{int(nprocs) - 1})")
     return {
         "coordinator_address": coord,
         "num_processes": int(nprocs),
-        "process_id": int(os.environ.get("HOCR_DIST_PROC_ID", "0")),
+        "process_id": int(proc_id),
     }
 
 

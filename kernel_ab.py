@@ -1,19 +1,23 @@
 """The paged decode attention of one checkout of the port at the T = 1 and
-T = 17 rows of PERF.md section 6, and the fp32 bodies of flash and paged
-attention at the fp32 read's and the reference runs' shapes, for a
-side-by-side of two checkouts on one CUDA card.
+T = 17 rows of PERF.md section 6, the fp32 bodies of flash and paged
+attention at the fp32 read's and the reference runs' shapes, and window
+attention at the fp32 read's qkv ``[1, 3456, 3840]`` (fp32 body) and the
+read's ``[8, 3456, 3840]`` (bf16 body), for a side-by-side of two
+checkouts on one CUDA card.
 
-    python3 kernel_ab.py ROOT LABEL
+    python3 kernel_ab.py ROOT LABEL [paged] [flash] [window]
 
 Imports ``handwritten_ocr_tpu_torch`` from checkout ROOT (its kernels are
 built there at first use) and the case functions of the ``chip_smoke.py``
-beside this script, and prints one JSON line per row, tagged LABEL: the
-kernel's ms (paged: also graph ms), its error against the plain version
-(paged: pools and two calls bit-equal, or it raises; fp32 rows: held at
-the fp32 tolerance), SDPA's ms (paged: graph ms) at the same shape, the
-bound and the card's name and power limit. Two packages of one name
-cannot share a process, so each checkout runs in its own; run them in the
-order A, B, B, A in one session of one card and compare within it:
+beside this script, and prints one JSON line per row of the kinds named
+(all by default), tagged LABEL: the kernel's ms (paged, window: also
+graph ms), its error against the plain version (paged: pools and two
+calls bit-equal, or it raises; fp32 rows: held at the fp32 tolerance),
+SDPA's ms (paged: graph ms; window: SDPA per window over q/k that are
+not roped) at the same shape, the bound and the card's name and power
+limit. Two packages of one name cannot share a process, so each checkout
+runs in its own; run them in the order A, B, B, A in one session of one
+card and compare within it:
 
     for r in old . . old; do python3 kernel_ab.py $r $r; done
 """
@@ -54,6 +58,7 @@ def _card() -> str:
 
 def main() -> int:
     root, label = os.path.abspath(sys.argv[1]), sys.argv[2]
+    kinds = set(sys.argv[3:]) or {"paged", "flash", "window"}
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -84,29 +89,41 @@ def main() -> int:
             sdpa_graph_ms=row["library_graph_ms"],
             bound_ms=row["bound_ms"])), flush=True)
 
-    for i, (case, *shape) in enumerate(ROWS):
-        for kv_quant in (True, False):
-            paged(i, case, *shape, kv_quant, torch.bfloat16)
-    for i, (case, *shape) in enumerate(FP32_ROWS):
-        paged(len(ROWS) + i, case, *shape, torch.float32)
+    if "paged" in kinds:
+        for i, (case, *shape) in enumerate(ROWS):
+            for kv_quant in (True, False):
+                paged(i, case, *shape, kv_quant, torch.bfloat16)
+        for i, (case, *shape) in enumerate(FP32_ROWS):
+            paged(len(ROWS) + i, case, *shape, torch.float32)
 
     cfg = VLConfig()
     vis, txt = cfg.vision, cfg.text
     plan = plan_grid(vis, (1, 924 // 14, 672 // 14))
     valid = torch.as_tensor(plan.valid, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(200)
-    for row in (
-            smoke._flash_case("vision_global_fp32", "ab", 1, len(plan.valid),
-                              vis.num_heads, vis.num_heads, vis.head_dim,
-                              gen, valid=valid, dtype=torch.float32),
-            smoke._flash_case("prefill_causal_fp32", "ab", 1,
-                              smoke.read_prompt_len(),
-                              txt.num_attention_heads,
-                              txt.num_key_value_heads, txt.head_dim, gen,
-                              causal=True, dtype=torch.float32)):
+    flash = () if "flash" not in kinds else (
+        smoke._flash_case("vision_global_fp32", "ab", 1, len(plan.valid),
+                          vis.num_heads, vis.num_heads, vis.head_dim,
+                          gen, valid=valid, dtype=torch.float32),
+        smoke._flash_case("prefill_causal_fp32", "ab", 1,
+                          smoke.read_prompt_len(),
+                          txt.num_attention_heads,
+                          txt.num_key_value_heads, txt.head_dim, gen,
+                          causal=True, dtype=torch.float32))
+    for row in flash:
         print(json.dumps(tag | {key: row[key] for key in (
             "case", "body", "shape", "kv_heads", "ms", "max_abs_err",
             "tolerance", "rel_rms_err", "library_ms", "bound_ms")}),
+            flush=True)
+    window = ((1, torch.float32), (8, torch.bfloat16))
+    for batch, dtype in window if "window" in kinds else ():
+        row = smoke._window_case(f"vision_window_b{batch}", "ab", batch,
+                                 plan, vis.num_heads, vis.head_dim, gen,
+                                 dtype=dtype)
+        print(json.dumps(tag | {key: row[key] for key in (
+            "case", "shape", "ms", "graph_ms", "max_abs_err", "tolerance",
+            "rel_rms_err", "library_ms", "bound_ms")}
+            | dict(body=row.get("body", "bf16"))),
             flush=True)
     return 0
 

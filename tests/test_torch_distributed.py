@@ -55,6 +55,29 @@ def test_distributed_env_parses(monkeypatch):
     assert distributed.distributed_env() is None
 
 
+def test_distributed_env_requires_the_process_id(monkeypatch):
+    """A job of two or more processes without HOCR_DIST_PROC_ID raises,
+    naming the variable, where two such processes would both take rank 0
+    and both serve the rendezvous store. The JAX package keeps the
+    default of 0 (``handwritten_ocr_tpu/parallel/distributed.py:50``);
+    the port departs from it here. A solo job still needs no rank."""
+    from handwritten_ocr_tpu_torch.parallel import distributed
+
+    monkeypatch.setenv("HOCR_DIST_COORD", "10.0.0.1:1234")
+    monkeypatch.delenv("HOCR_DIST_PROC_ID", raising=False)
+    for nprocs in ("2", "4"):
+        monkeypatch.setenv("HOCR_DIST_NPROCS", nprocs)
+        with pytest.raises(ValueError, match="HOCR_DIST_PROC_ID"):
+            distributed.distributed_env()
+        with pytest.raises(ValueError, match="HOCR_DIST_PROC_ID"):
+            distributed.initialize_from_env()
+    monkeypatch.setenv("HOCR_DIST_NPROCS", "1")
+    assert distributed.distributed_env() is None
+    monkeypatch.setenv("HOCR_DIST_NPROCS", "2")
+    monkeypatch.setenv("HOCR_DIST_PROC_ID", "0")
+    assert distributed.distributed_env()["process_id"] == 0
+
+
 def test_torchrun_env_and_placement(monkeypatch):
     """``auto=True``'s torchrun description, and the backend each
     placement takes: gloo without a card, NCCL with a card per process,
