@@ -45,6 +45,7 @@ from handwritten_ocr_tpu_torch.models.paged import PagedKVCache, paged_forward
 from handwritten_ocr_tpu_torch.models.qwen25vl.language import lm_logits
 from handwritten_ocr_tpu_torch.parallel.mesh import model_group
 from handwritten_ocr_tpu_torch.parallel.sharding import gathered
+from handwritten_ocr_tpu_torch.trace import profile_span
 
 
 _STOP_MASKS: "weakref.WeakKeyDictionary[object, dict[int, np.ndarray]]" = \
@@ -372,20 +373,26 @@ class PagedProgram:
                      table_pages: int | None = None):
         """Up to ``chunk`` greedy steps for every slot; a done slot emits
         EOS and skips its attention. Ends early once every slot is done.
-        Returns (tokens [S, chunk], last [S], done [S]) on the device."""
+        Returns (tokens [S, chunk], last [S], done [S]) on the device.
+
+        Host spans (``trace.profile_span``): ``decode.sync`` around each
+        flag read, ``decode.step`` around each step's enqueue."""
         eos = self.eos_token_id
         n_slots = last.shape[0]
         slot_ids = torch.arange(n_slots, device=last.device)
         tokens = torch.full((n_slots, chunk), eos, dtype=torch.int32,
                             device=last.device)
         for i in range(chunk):
-            if bool(done.all()):
+            with profile_span("decode.sync"):
+                finished = bool(done.all())
+            if finished:
                 break
-            nxt = self._step(cache, slot_ids, last, done, rope_delta,
-                             table_pages)
-            tokens[:, i] = nxt
-            done = done | (nxt == eos) | (i + 1 >= remaining)
-            last = nxt
+            with profile_span("decode.step"):
+                nxt = self._step(cache, slot_ids, last, done, rope_delta,
+                                 table_pages)
+                tokens[:, i] = nxt
+                done = done | (nxt == eos) | (i + 1 >= remaining)
+                last = nxt
         return tokens, last, done
 
     def embed_prompt(self, ids: torch.Tensor) -> torch.Tensor:
@@ -406,11 +413,14 @@ class ContinuousBatcher:
     per-head scales instead (the serving default, ``config.SERVE_KV_INT8``).
 
     ``stats`` accumulates host-clock seconds of prefill and decode (each
-    ends in a device-to-host read, so the times include the device work)
-    and the tokens the decode chunks emitted; guided decode adds its
-    top-k steps, string-chunk steps, committed tokens, the host seconds
-    spent inside the schema sessions, and its sessions (complete or not);
-    verify rounds add their seconds and the tokens they committed.
+    ends in a device-to-host read, so the times include the device work),
+    the tokens the decode chunks emitted, the steps they ran
+    (``decode_steps``: each chunk's longest-running slot's) and the steps
+    their slots ran live (``decode_slot_steps``: each slot's tokens and
+    its EOS step); guided decode adds its top-k steps, string-chunk
+    steps, committed tokens, the host seconds spent inside the schema
+    sessions, and its sessions (complete or not); verify rounds add their
+    seconds and the tokens they committed.
     ``spec_stats`` counts the verify rounds and the tokens drafted and
     accepted, as the JAX batcher does.
     """
@@ -463,7 +473,8 @@ class ContinuousBatcher:
                       "topk_steps": 0, "string_steps": 0,
                       "guided_tokens": 0, "session_s": 0.0, "sessions": 0,
                       "sessions_complete": 0, "verify_s": 0.0,
-                      "verify_tokens": 0}
+                      "verify_tokens": 0, "decode_steps": 0,
+                      "decode_slot_steps": 0}
 
     def _tensor(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array), device=self.device)
@@ -937,18 +948,20 @@ class ContinuousBatcher:
                 self._tensor(remaining), self._tensor(self._rope_delta),
                 chunk,
                 table_pages=self._table_pages(self._slot_req, chunk + 1))
-            tokens = tokens.cpu().numpy()
-            self._last = last.cpu().numpy().astype(np.int32)
+            with profile_span("decode.sync"):
+                tokens = tokens.cpu().numpy()
+                self._last = last.cpu().numpy().astype(np.int32)
             self.stats["decode_s"] += time.perf_counter() - t0
+            longest = 0
             for slot in list(self._slot_req):
                 request = self._slot_req[slot]
                 fresh: list[int] = []
-                finished = False
+                finished = by_eos = False
                 budget = request.max_new - len(request.tokens)
                 for token in tokens[slot]:
                     token = int(token)
                     if token == eos:
-                        finished = True
+                        finished = by_eos = True
                         break
                     fresh.append(token)
                     if len(fresh) >= budget:
@@ -956,8 +969,14 @@ class ContinuousBatcher:
                         break
                 request._emit(fresh, finished)
                 self.stats["decode_tokens"] += len(fresh)
+                # The steps the slot ran live: its tokens and the step
+                # that emitted its EOS.
+                ran = len(fresh) + by_eos
+                self.stats["decode_slot_steps"] += ran
+                longest = max(longest, ran)
                 if finished:
                     self._retire(slot)
+            self.stats["decode_steps"] += longest
             for slot in self._slot_req:
                 # Survivors ran the full chunk (a chunk ends early only
                 # when every slot is done, and done slots are retired).

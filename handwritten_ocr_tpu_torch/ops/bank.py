@@ -23,6 +23,7 @@ from handwritten_ocr_tpu_torch.ops.gray import rgb_to_gray
 from handwritten_ocr_tpu_torch.ops.lines import remove_lines
 from handwritten_ocr_tpu_torch.ops.sharpen import sharpen
 from handwritten_ocr_tpu_torch.ops.threshold import adaptive_threshold_gaussian
+from handwritten_ocr_tpu_torch.trace import profile_span
 
 
 def apply_high_contrast(image: torch.Tensor) -> torch.Tensor:
@@ -42,7 +43,9 @@ def apply_deskew(image: torch.Tensor) -> torch.Tensor:
     data); the bicubic warp runs on the image's device. Images with
     <= 100 dark pixels pass through."""
     gray = rgb_to_gray(image)
-    angle = deskew_angle(gray.cpu().numpy())
+    pixels = gray.cpu().numpy()
+    with profile_span("preprocess.deskew_angle"):
+        angle = deskew_angle(pixels)
     if angle is None:
         return image
     h, w = gray.shape

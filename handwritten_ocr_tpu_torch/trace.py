@@ -5,7 +5,8 @@ Event schema and artifact formats are the JAX package's: ``save_json``
 writes the full pretty-printed event list; ``save_summary`` writes one
 ``[MM:SS] summary`` line per event. :func:`profile_span` names a host
 span in the ``torch.profiler`` timeline (``record_function``), as the JAX
-package's names one in ``jax.profiler``'s.
+package's names one in ``jax.profiler``'s, and keeps its host-clock
+interval for :func:`host_spans` while a profiler records.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import json
 import time
 from datetime import datetime, timezone
 from pathlib import Path
+
+import torch
 
 
 class Trace:
@@ -67,10 +70,6 @@ class Trace:
         lines = [f"[{_mmss(e['elapsed_seconds'])}] {e['output_summary']}" for e in self.events]
         path.write_text("\n".join(lines) + "\n", encoding="utf-8")
 
-    def print_summary(self) -> None:
-        for e in self.events:
-            print(f"[{_mmss(e['elapsed_seconds'])}] {e['output_summary']}")
-
     @classmethod
     def from_events(cls, events: list[dict]) -> "Trace":
         """Rebuild a trace from pre-built event dicts (driver hand-off)."""
@@ -84,10 +83,43 @@ def _mmss(seconds: float) -> str:
     return f"{minutes:02d}:{secs:02d}"
 
 
+# (name, start ns, end ns) of every span closed while a profiler recorded,
+# on the ``time.perf_counter_ns`` clock; see ``profile_span``.
+_HOST_SPANS: list[tuple[str, int, int]] = []
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
 @contextlib.contextmanager
-def profile_span(name: str):
-    """Annotate a host-side span in the ``torch.profiler`` timeline; costs
-    next to nothing while no profiler is recording."""
-    import torch
+def _kept(name: str):
     with torch.profiler.record_function(name):
-        yield
+        start = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            _HOST_SPANS.append((name, start, time.perf_counter_ns()))
+
+
+def profile_span(name: str):
+    """A named host span, recorded only while a profiler records.
+
+    With no profiler recording (the C-level state, which reads False as
+    soon as a profiler is stopped by ``torch.autograd._disable_profiler``)
+    it returns a shared no-op context and costs one check. While one
+    records it opens ``torch.profiler.record_function(name)``, so the
+    span shows in the profiler's timeline (``--profile DIR``), and keeps
+    ``(name, start_ns, end_ns)`` on the ``time.perf_counter_ns`` clock
+    for :func:`host_spans`.
+
+    The port's spans: ``decode.step`` (one decode step's enqueue: the
+    forward, the token write and the done update), ``decode.sync``
+    (every host read that waits on decode work: the per-step done flag,
+    the chunk's tokens at its end) and ``preprocess.deskew_angle``
+    (deskew's angle search on the host). They never nest."""
+    return _kept(name) if _recording() else _OFF
+
+
+def host_spans() -> list[tuple[str, int, int]]:
+    """The spans :func:`profile_span` kept, in the order they ended (the
+    list itself: ``host_spans().clear()`` empties it)."""
+    return _HOST_SPANS
