@@ -1114,31 +1114,15 @@ def phase_kernels_paths(cfg, qcfg, prompt_len: int, seen: dict) -> list[dict]:
     return rows
 
 
-def _counters():
-    """(counter name, wrapper, attribute) of every kernel launch count."""
-    from handwritten_ocr_tpu_torch.ops.flash_attention import flash_attention
-    from handwritten_ocr_tpu_torch.ops.int8_matmul import int8_matmul
-    from handwritten_ocr_tpu_torch.ops.paged_decode_attention import (
-        paged_append_attention)
-    from handwritten_ocr_tpu_torch.ops.window_attention import (
-        window_attention)
-    return (("flash_attention", flash_attention, "launches"),
-            ("window_attention", window_attention, "launches"),
-            ("paged_append_attention", paged_append_attention, "launches"),
-            ("paged_append_attention_int8", paged_append_attention,
-             "int8_launches"),
-            ("paged_append_attention_fp32", paged_append_attention,
-             "fp32_launches"),
-            ("int8_matmul", int8_matmul, "launches"))
-
-
 def reset_launches() -> None:
-    for _, fn, attr in _counters():
+    from handwritten_ocr_tpu_torch.ops import launch_counters
+    for _, fn, attr in launch_counters():
         setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
+    from handwritten_ocr_tpu_torch.ops import launch_counters
+    return {name: getattr(fn, attr) for name, fn, attr in launch_counters()}
 
 
 def require_launches(path: str, launches: dict, names) -> None:

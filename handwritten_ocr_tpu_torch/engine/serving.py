@@ -14,6 +14,9 @@ longest greedy-matching prefix accepted.
 Greedy argmax and the top-k run on fp32 logits on the device, and so do
 the EOS, budget and quote stops; the host reads one flag per step to end
 a chunk early, and the chunk's tokens (or the step's top-k) at its end.
+On one CUDA card (no tensor parallelism, no FSDP) a plain chunk's greedy
+step is replayed from a CUDA graph (``engine/step_graph.py``); guided
+and verify steps run eagerly.
 
 Under tensor parallelism (``PagedProgram(mesh=...)``) every rank of a
 model group runs the same program on its slices: its pools hold its kv
@@ -39,6 +42,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from handwritten_ocr_tpu_torch.engine.step_graph import StepGraphs, graphable
 from handwritten_ocr_tpu_torch.models.layers import (argmax_ids, embed,
                                                      group_size, topk_ids)
 from handwritten_ocr_tpu_torch.models.paged import PagedKVCache, paged_forward
@@ -370,29 +374,53 @@ class PagedProgram:
     def decode_chunk(self, cache: PagedKVCache, last: torch.Tensor,
                      done: torch.Tensor, remaining: torch.Tensor,
                      rope_delta: torch.Tensor, chunk: int,
-                     table_pages: int | None = None):
+                     table_pages: int | None = None,
+                     graphs: StepGraphs | None = None):
         """Up to ``chunk`` greedy steps for every slot; a done slot emits
         EOS and skips its attention. Ends early once every slot is done.
         Returns (tokens [S, chunk], last [S], done [S]) on the device.
 
+        ``graphs`` (the batcher's, over ``cache``): each step replays the
+        step's CUDA graph of this table width and rope path, captured at
+        the key's first step (``engine/step_graph.py``); the tokens, the
+        cache and the launch counts are those of the eager steps.
+
         Host spans (``trace.profile_span``): ``decode.sync`` around each
-        flag read, ``decode.step`` around each step's enqueue."""
+        flag read, ``decode.step`` around each step's enqueue (under a
+        graph: the replay, the token write and the done update)."""
         eos = self.eos_token_id
         n_slots = last.shape[0]
         slot_ids = torch.arange(n_slots, device=last.device)
         tokens = torch.full((n_slots, chunk), eos, dtype=torch.int32,
                             device=last.device)
+        if graphs is not None:
+            if graphs.cache is not cache:
+                raise ValueError("the step graphs belong to another cache")
+            graphs.load(last, done, rope_delta)
+            last, done, rope_delta = graphs.last, graphs.done, graphs.rope_delta
+            slot_ids = graphs.slot_ids
+            # read once a chunk, so that a graph holds one rope path
+            key = (table_pages, bool(os.environ.get("HOCR_TPU_ROPE_FP32")))
         for i in range(chunk):
             with profile_span("decode.sync"):
                 finished = bool(done.all())
             if finished:
                 break
             with profile_span("decode.step"):
-                nxt = self._step(cache, slot_ids, last, done, rope_delta,
-                                 table_pages)
-                tokens[:, i] = nxt
-                done = done | (nxt == eos) | (i + 1 >= remaining)
-                last = nxt
+                if graphs is None:
+                    nxt = self._step(cache, slot_ids, last, done, rope_delta,
+                                     table_pages)
+                    tokens[:, i] = nxt
+                    done = done | (nxt == eos) | (i + 1 >= remaining)
+                    last = nxt
+                else:               # the graph's own buffers, in place
+                    nxt = graphs.step(key, lambda: self._step(
+                        cache, slot_ids, last, done, rope_delta, table_pages))
+                    tokens[:, i] = nxt
+                    done |= (nxt == eos) | (i + 1 >= remaining)
+                    last.copy_(nxt)
+        if graphs is not None:
+            return tokens, last.clone(), done.clone()
         return tokens, last, done
 
     def embed_prompt(self, ids: torch.Tensor) -> torch.Tensor:
@@ -417,7 +445,10 @@ class ContinuousBatcher:
     the tokens the decode chunks emitted, the steps they ran
     (``decode_steps``: each chunk's longest-running slot's) and the steps
     their slots ran live (``decode_slot_steps``: each slot's tokens and
-    its EOS step); guided decode adds its top-k steps, string-chunk
+    its EOS step), and of those the steps replayed from a CUDA graph
+    (``decode_graph_steps``) and the graphs captured
+    (``decode_graph_captures``: one eager step each); guided decode adds
+    its top-k steps, string-chunk
     steps, committed tokens, the host seconds spent inside the schema
     sessions, and its sessions (complete or not); verify rounds add their
     seconds and the tokens they committed.
@@ -474,7 +505,12 @@ class ContinuousBatcher:
                       "guided_tokens": 0, "session_s": 0.0, "sessions": 0,
                       "sessions_complete": 0, "verify_s": 0.0,
                       "verify_tokens": 0, "decode_steps": 0,
-                      "decode_slot_steps": 0}
+                      "decode_slot_steps": 0, "decode_graph_steps": 0,
+                      "decode_graph_captures": 0}
+        # The greedy step as CUDA graphs over this batcher's cache, where
+        # the program allows it; they go with the batcher.
+        self._graphs = (StepGraphs(self.cache, n_slots, self.stats)
+                        if graphable(program, self.device) else None)
 
     def _tensor(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array), device=self.device)
@@ -947,7 +983,8 @@ class ContinuousBatcher:
                 self.cache, self._tensor(self._last), self._tensor(done0),
                 self._tensor(remaining), self._tensor(self._rope_delta),
                 chunk,
-                table_pages=self._table_pages(self._slot_req, chunk + 1))
+                table_pages=self._table_pages(self._slot_req, chunk + 1),
+                graphs=self._graphs)
             with profile_span("decode.sync"):
                 tokens = tokens.cpu().numpy()
                 self._last = last.cpu().numpy().astype(np.int32)

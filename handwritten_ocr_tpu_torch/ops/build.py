@@ -25,6 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -156,11 +157,26 @@ class Workspace:
     counters. A buffer grows (to the next power of two) when a call needs
     more than it holds and is reused by every later call; it is zeroed
     only when it is allocated, which the counters rely on: the kernels
-    reset each counter to 0 before they finish."""
+    reset each counter to 0 before they finish.
+
+    A CUDA graph captures the buffers its launches take: the capture holds
+    :meth:`held` for as long as the graph lives, so a buffer replaced by a
+    larger one stays the graph's. A buffer cannot grow during a capture
+    (its zero fill would become a node of the graph): the call runs once
+    before it is captured."""
+
+    _instances: "weakref.WeakSet[Workspace]" = weakref.WeakSet()
 
     def __init__(self):
         self._buffers = {}
         self.allocations = 0
+        Workspace._instances.add(self)
+
+    @classmethod
+    def held(cls) -> list:
+        """Every buffer the workspaces hold now."""
+        return [buf for workspace in cls._instances
+                for buf in workspace._buffers.values()]
 
     def take(self, device, dtype, numel: int):
         """A ``dtype`` buffer of at least ``numel`` elements on ``device``
@@ -169,6 +185,11 @@ class Workspace:
         key = (device, dtype)
         buf = self._buffers.get(key)
         if buf is None or buf.numel() < numel:
+            if torch.device(device).type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a kernel workspace cannot grow while a "
+                                   "CUDA graph is captured: run the call "
+                                   "once before capturing it")
             size = 1 << max(numel - 1, 1).bit_length()
             buf = torch.zeros(size, dtype=dtype, device=device)
             self._buffers[key] = buf

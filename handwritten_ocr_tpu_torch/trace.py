@@ -112,7 +112,8 @@ def profile_span(name: str):
     for :func:`host_spans`.
 
     The port's spans: ``decode.step`` (one decode step's enqueue: the
-    forward, the token write and the done update), ``decode.sync``
+    forward, or its CUDA graph's replay, the token write and the done
+    update), ``decode.sync``
     (every host read that waits on decode work: the per-step done flag,
     the chunk's tokens at its end) and ``preprocess.deskew_angle``
     (deskew's angle search on the host). They never nest."""

@@ -337,6 +337,23 @@ def test_workspace_grows_and_is_reused():
     assert ws.take("cpu", torch.float32, 7).data_ptr() == f.data_ptr()
 
 
+def test_held_buffers_outlive_their_replacement():
+    """What a CUDA graph's capture keeps (``Workspace.held``): every
+    buffer of every workspace, the very tensors a replaced buffer's
+    launches wrote, so that a growth after the capture frees none of
+    them."""
+    ws, other = build.Workspace(), build.Workspace()
+    a = ws.take("cpu", torch.float32, 9)
+    c = other.take("cpu", torch.int32, 3)
+    held = build.Workspace.held()
+    assert any(buf is a for buf in held) and any(buf is c for buf in held)
+    b = ws.take("cpu", torch.float32, a.numel() + 1)
+    assert b.data_ptr() != a.data_ptr()
+    assert any(buf is a for buf in held)             # still the graph's
+    now = build.Workspace.held()
+    assert any(buf is b for buf in now) and not any(buf is a for buf in now)
+
+
 def test_entry_point_types_are_set_once(monkeypatch):
     """``build.function`` configures a C entry point on its first call and
     hands the same object to every later call, without loading again."""

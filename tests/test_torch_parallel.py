@@ -335,6 +335,19 @@ def test_sharded_engines_equal_unsharded_and_jax(runs, mesh, call):
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_sharded_programs_step_eagerly(runs, mesh):
+    """A TP or FSDP rank's batchers would not capture their step on a card
+    (its collectives and gathers stay eager); the unsharded engines'
+    would. On the CPU none replays a step."""
+    _, unsharded, groups = runs
+    assert unsharded["graphable"] == [True, True, True]
+    assert unsharded["graph_steps"] == 0
+    for result in groups[mesh]:
+        assert result["graphable"] == [False, False, False]
+        assert result["graph_steps"] == 0
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_vocab_parallel_topk_equals_full_vocab_topk(runs, mesh):
     logits = torch.from_numpy(planted_logits())
     want = topk_ids(logits, TOPK).numpy()

@@ -223,3 +223,194 @@ def test_dense_generate_matches_cpu_on_cuda(padded):
     assert got.tokens.tolist() == want.tokens.tolist()
     assert got.lengths.tolist() == want.lengths.tolist()
     assert int8_matmul.launches > before
+
+
+def test_the_cpu_batcher_steps_eagerly():
+    """On the CPU no step graph is made: every step runs eagerly, none is
+    counted as replayed or captured, and the tokens are the JAX
+    batcher's."""
+    import jax
+    import jax.numpy as jnp
+    from torch_port_tiny import configs, jax_tree, port_tree
+    from handwritten_ocr_tpu.engine.serving import (
+        ContinuousBatcher as JaxBatcher, GenRequest as JaxRequest,
+        PagedProgram as JaxProgram)
+    jax_cfg, port_cfg = configs(vocab_size=300, eos_token_id=EOS)
+    tree = jax_tree(jax_cfg, seed=12)
+    with jax.default_matmul_precision("highest"):
+        want = JaxBatcher(JaxProgram(tree["text"], jax_cfg.text,
+                                     eos_token_id=EOS),
+                          dtype=jnp.float32, **BATCHER).run(
+            requests(JaxRequest))
+    port = port_tree(jax.tree_util.tree_map(np.asarray, tree))
+    batcher = ContinuousBatcher(
+        PagedProgram(port["text"], port_cfg.text, eos_token_id=EOS),
+        dtype=torch.float32, device="cpu", **BATCHER)
+    assert batcher._graphs is None
+    assert batcher.run(requests(GenRequest)) == want
+    assert batcher.stats["decode_steps"] > 0
+    assert batcher.stats["decode_graph_steps"] == 0
+    assert batcher.stats["decode_graph_captures"] == 0
+
+
+@pytest.mark.parametrize("device, group, gather, graphed", [
+    ("cuda", None, None, True), ("cpu", None, None, False),
+    ("cuda", "group", None, False), ("cuda", None, "gather", False),
+    ("cuda", "group", "gather", False)],
+    ids=["card", "cpu", "tp", "fsdp", "tp_fsdp"])
+def test_only_a_whole_program_on_a_card_is_graphed(device, group, gather,
+                                                   graphed):
+    """The rule reads what the program and the batcher's device are: a
+    step is captured on a CUDA card, without a model group (TP) and
+    without a gather (FSDP)."""
+    from torch_port_tiny import configs
+    from handwritten_ocr_tpu_torch.engine.step_graph import graphable
+    from handwritten_ocr_tpu_torch.models.init import init_vl
+    _, port_cfg = configs(vocab_size=300, eos_token_id=EOS)
+    program = PagedProgram(init_vl(port_cfg, dtype=torch.float32,
+                                   device="cpu", seed=1)["text"],
+                           port_cfg.text, eos_token_id=EOS)
+    program.group, program.gather = group, gather
+    assert graphable(program, torch.device(device)) is graphed
+
+
+def _graph_case(name):
+    """(text params on the CPU, config, activation dtype, int8 KV) of the
+    graphed-against-eager cases: the read's VL text stack in bf16 over
+    int8 KV and in fp32 over fp32 KV, and Qwen3 with int8 weights in bf16
+    over int8 KV; head width 128, as the kernels take."""
+    from handwritten_ocr_tpu_torch.models.init import init_qwen3, init_vl
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import (
+        TextConfig, VLConfig, VisionConfig)
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    if name.startswith("vl"):
+        cfg = VLConfig(
+            vision=VisionConfig(depth=1, hidden_size=160, num_heads=2,
+                                out_hidden_size=256),
+            text=TextConfig(vocab_size=1000, hidden_size=256,
+                            intermediate_size=512, num_hidden_layers=2,
+                            num_attention_heads=2, num_key_value_heads=1),
+            eos_token_id=EOS)
+        dtype = torch.bfloat16 if name == "vl_bf16" else torch.float32
+        text = init_vl(cfg, dtype=dtype, device="cpu", seed=1)["text"]
+        return text, cfg.text, dtype, dtype == torch.bfloat16
+    cfg = Qwen3Config(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, head_dim=128, eos_token_id=EOS)
+    return (init_qwen3(cfg, dtype=torch.bfloat16, device="cpu", seed=2,
+                       quantize="int8"), cfg, torch.bfloat16, True)
+
+
+def _long_requests(speculate: bool = False):
+    """Prompts and budgets that walk the table-width ladder (8, 16 and all
+    32 pages of 32 tokens) with two slots, and a last short read whose
+    chunk ends early; with ``speculate``, drafts from a fixed stream
+    (rejected, so verify rounds alternate with plain chunks)."""
+    rng = np.random.default_rng(5)
+    out = []
+    for n, budget, delta in ((40, 61, 0), (200, 90, 3), (230, 47, 0),
+                             (380, 150, 7), (12, 3, 1)):
+        ids = rng.integers(10, 900, n).astype(np.int32)
+        positions = np.broadcast_to(np.arange(n), (3, n)).astype(np.int64)
+        out.append(GenRequest(
+            prompt_ids=ids, max_new=budget, positions=positions,
+            rope_delta=delta, speculate=speculate,
+            draft_oracle=(rng.integers(10, 900, budget).astype(np.int32)
+                          if speculate else None)))
+    return out
+
+
+def _serve_three_times(batcher):
+    """Plain reads; the kernels' workspaces grown past what the graphs
+    captured, with the freed sizes taken again at once (so that a graph
+    that lost its buffer writes into them); speculative reads (T = 17
+    verify rounds between replays); plain reads again. Returns (tokens of
+    each run, the refilled buffers)."""
+    from handwritten_ocr_tpu_torch.ops import int8_matmul as int8_mod
+    from handwritten_ocr_tpu_torch.ops import paged_decode_attention as paged
+    first = batcher.run(_long_requests())
+    refilled = []
+    for ws in (paged._WORKSPACE, int8_mod._WORKSPACE):
+        for (device, dtype), buf in list(ws._buffers.items()):
+            numel = buf.numel()
+            del buf
+            ws.take(device, dtype, numel + 1)
+            refilled.append(torch.zeros(numel, dtype=dtype, device=device))
+    second = batcher.run(_long_requests(speculate=True))
+    return (first, second, batcher.run(_long_requests())), refilled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["vl_bf16", "vl_fp32", "qwen3_int8"])
+def test_graphed_decode_equals_eager_on_cuda(case):
+    """The batcher's graphed greedy step against the same batcher stepping
+    eagerly on the card: the same tokens, cache lengths and KV pools bit
+    for bit, the same launch counts, across table-width changes, early
+    chunk ends and workspaces grown between replays; every step but one
+    per capture is a replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from handwritten_ocr_tpu_torch.ops import int8_matmul as int8_mod
+    from handwritten_ocr_tpu_torch.ops import launch_counters
+    from handwritten_ocr_tpu_torch.ops import paged_decode_attention as paged
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, cfg, dtype, kv_quant = _graph_case(case)
+    params = _to(params, "cuda")
+    kw = dict(n_slots=2, block_size=32, max_context=1024, chunk=8,
+              prefill_bucket=16, dtype=dtype, kv_quant=kv_quant)
+    runs = {}
+    for graphed in (False, True):
+        for ws in (paged._WORKSPACE, int8_mod._WORKSPACE):
+            ws._buffers.clear()     # each run sizes its own, from nothing
+        batcher = ContinuousBatcher(
+            PagedProgram(params, cfg, eos_token_id=EOS), device="cuda", **kw)
+        if not graphed:
+            batcher._graphs = None
+        before = [getattr(fn, attr) for _, fn, attr in launch_counters()]
+        tokens, refilled = _serve_three_times(batcher)
+        torch.cuda.synchronize()
+        launches = [getattr(fn, attr) - b for (_, fn, attr), b
+                    in zip(launch_counters(), before)]
+        cache = batcher.cache
+        pools = [getattr(cache, name).clone() for name in
+                 ("k", "v", "k_scale", "v_scale")
+                 if getattr(cache, name) is not None]
+        runs[graphed] = (tokens, cache.lengths.clone(), pools, launches,
+                         dict(batcher.stats), batcher.spec_stats)
+        assert all(bool((buf == 0).all()) for buf in refilled)
+        del batcher, cache
+    eager, graphed = runs[False], runs[True]
+    assert graphed[0] == eager[0]
+    assert torch.equal(graphed[1], eager[1])
+    assert all(torch.equal(g, e) for g, e in zip(graphed[2], eager[2]))
+    assert graphed[3] == eager[3] and sum(eager[3]) > 0
+    stats = graphed[4]
+    assert eager[4]["decode_graph_steps"] == eager[4]["decode_graph_captures"] == 0
+    assert stats["decode_steps"] == eager[4]["decode_steps"] > 0
+    assert stats["decode_graph_captures"] >= 3       # widths 8, 16, 32
+    assert stats["decode_graph_steps"] == (stats["decode_steps"]
+                                           - stats["decode_graph_captures"])
+    assert graphed[5]["rounds"] == eager[5]["rounds"] > 0
+
+
+@pytest.mark.cuda
+def test_a_workspace_does_not_grow_inside_a_capture():
+    """A call that needs a larger workspace than it holds cannot be
+    captured: the buffer's allocation and zero fill would become nodes of
+    the graph, so the capture raises instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from handwritten_ocr_tpu_torch.ops import build
+    ws = build.Workspace()
+    device = torch.device("cuda", torch.cuda.current_device())
+    ws.take(device, torch.int32, 4)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream(device)):
+        graph.capture_begin()
+        try:
+            ws.take(device, torch.int32, 4).add_(0)             # no growth
+            with pytest.raises(RuntimeError, match="cannot grow"):
+                ws.take(device, torch.int32, 1 << 12)
+        finally:
+            graph.capture_end()
+    assert ws.allocations == 1

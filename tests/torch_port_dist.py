@@ -124,13 +124,21 @@ def port_engines(trees: dict, mesh=None, fsdp: bool = False):
 
 def serve(engines, schema: dict) -> dict:
     """What the engine cases compare: reads, a chat batch and one guided
-    call."""
+    call; and, of each engine's batcher, whether its program's step would
+    be captured on a card (``step_graph.graphable``) and the steps it
+    replayed."""
+    from handwritten_ocr_tpu_torch.engine.step_graph import graphable
     ocr, llm, guided = engines
-    return {"reads": ocr.read_batch(pages(), "Read.", 6),
-            "chats": llm.chat_batch(TURNS, temperature=0.1, max_tokens=6),
-            "guided": guided.chat(TURNS[1].system, TURNS[1].user,
-                                  temperature=0.1, max_tokens=48,
-                                  json_schema=schema)}
+    out = {"reads": ocr.read_batch(pages(), "Read.", 6),
+           "chats": llm.chat_batch(TURNS, temperature=0.1, max_tokens=6),
+           "guided": guided.chat(TURNS[1].system, TURNS[1].user,
+                                 temperature=0.1, max_tokens=48,
+                                 json_schema=schema)}
+    batchers = [engine._batcher for engine in engines]
+    out["graphable"] = [graphable(b.program, torch.device("cuda"))
+                        for b in batchers]
+    out["graph_steps"] = sum(b.stats["decode_graph_steps"] for b in batchers)
+    return out
 
 
 def free_port() -> int:
