@@ -4,16 +4,19 @@ wrappers around the program's units of work, and the run's record.
 The window opens when the cell's first work starts and closes at a
 boundary of the program's own work: before the next prefill or decode
 chunk once ``--seconds`` have passed (``close_at: "unit"``), or at the
-end of the folder read during which they passed (``"folder"``). Either
-way it runs at most one such unit past ``--seconds``, and its rates
-count all the work completed over all of its time.
+end of the folder read (``"folder"``) or of the agent round
+(``"round"``) during which they passed. Either way its rates count all
+the work completed over all of its time.
 
 The wrappers replace the program's unit methods on the one
-``PagedProgram`` object the cell uses: each checks the window before
-the unit starts, times it as a range, and in a traced run counts its
-work (the live slots and their contexts, the prompts prefilled) from the
-batcher's host state and the unit's own arguments and results. The
-program's code is not changed.
+``PagedProgram`` object the cell uses: the read's ``prefill`` and
+``decode_chunk`` (``UNITS``), or guided decode's ``prefill_topk``,
+``step_topk`` and ``string_chunk`` (``GUIDED``, whose ranges end in a
+synchronise, as the caller reads their ids at once). Each checks the
+window before the unit starts, times it as a range, and in a traced run
+counts its work (the live slots and their contexts, the prompts
+prefilled) from the batcher's host state and the unit's own arguments
+and results. The program's code is not changed.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from benchmark.tracing import Ranges
 from benchmark.work import Work
 
 UNITS = ("prefill", "decode_chunk")
+GUIDED = ("prefill_topk", "step_topk", "string_chunk")
 
 
 class WindowClosed(Exception):
@@ -39,8 +43,9 @@ class Window:
     trace there, see ``drivers/ocr.py``)."""
 
     def __init__(self, seconds: float, close_at: str, on_due=None):
-        if close_at not in ("unit", "folder"):
-            raise ValueError(f"close_at is 'unit' or 'folder', not {close_at!r}")
+        if close_at not in ("unit", "folder", "round"):
+            raise ValueError("close_at is 'unit', 'folder' or 'round', not "
+                             f"{close_at!r}")
         self.seconds = seconds
         self.close_at = close_at
         self.t_open = self.t_close = None
@@ -94,11 +99,11 @@ def _cpu(t) -> np.ndarray:
 
 
 def instrument(batcher, window: Window, ranges: Ranges, work: Work | None,
-               faults=()) -> None:
-    """Wrap the unit methods of ``batcher.program`` (see the module
-    docstring); ``faults`` are callables ``(name, args, out, batcher) ->
-    out`` planted underneath the timed path by the tests of the
-    comparison, never by a measured run."""
+               faults=(), units=UNITS) -> None:
+    """Wrap the unit methods ``units`` of ``batcher.program`` (see the
+    module docstring); ``faults`` are callables ``(name, args, out,
+    batcher) -> out`` planted underneath the timed path by the tests of
+    the comparison, never by a measured run."""
     program = batcher.program
     eos = program.eos_token_id
 
@@ -106,7 +111,7 @@ def instrument(batcher, window: Window, ranges: Ranges, work: Work | None,
         def unit(*args, **kwargs):
             window.at_unit()
             before = _before(name, args) if work is not None else None
-            with ranges.range(name):
+            with ranges.range(name, sync=name in GUIDED):
                 out = original(*args, **kwargs)
             for fault in faults:
                 out = fault(name, args, out, batcher)
@@ -116,11 +121,28 @@ def instrument(batcher, window: Window, ranges: Ranges, work: Work | None,
         return unit
 
     def _before(name, args):
-        return batcher._host_len.copy() if name == "decode_chunk" else None
+        return batcher._host_len.copy() \
+            if name in ("decode_chunk", "string_chunk") else None
 
     def _count(name, args, out, start):
-        if name == "prefill":
+        if name in ("prefill", "prefill_topk"):
             work.prompts.extend(int(n) for n in _cpu(args[3]))
+        elif name == "step_topk":
+            # run_guided has advanced each session's length by the token
+            # this step writes
+            work.step(batcher._host_len[_cpu(args[2]).astype(bool)])
+        elif name == "string_chunk":
+            auto, remaining = _cpu(args[2]).astype(bool), _cpu(args[3])
+            stop, tokens, steps = _cpu(args[4]), _cpu(out[0]), out[3]
+            spans = {}
+            for slot in np.flatnonzero(auto):
+                row = tokens[slot, :steps]
+                stall = stop[row] | (row == eos) \
+                    | (np.arange(1, steps + 1) >= remaining[slot])
+                stops = np.flatnonzero(stall)
+                spans[slot] = int(stops[0]) + 1 if len(stops) else steps
+            for i in range(steps):
+                work.step([start[s] + i + 1 for s, n in spans.items() if i < n])
         elif name == "decode_chunk":
             done, remaining = _cpu(args[2]), _cpu(args[3])
             tokens = _cpu(out[0])
@@ -134,7 +156,7 @@ def instrument(batcher, window: Window, ranges: Ranges, work: Work | None,
             for i in range(max(spans.values(), default=0)):
                 work.step([start[s] + i + 1 for s, n in spans.items() if i < n])
 
-    for name in UNITS:
+    for name in units:
         setattr(program, name, wrap(name, getattr(program, name)))
 
 

@@ -3,8 +3,10 @@
 Everything that belongs to one configuration, one cell or one per-layer
 metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 
-- ``configs/<config>.json``: the model's published configuration (``hf``)
-  and how it is served; its plain reference is ``reference/models.py``;
+- ``configs/<config>.json``: the model's published configuration (``hf``),
+  its ``architecture`` (``ARCHITECTURES``) and how it is served; its plain
+  reference is ``reference/models.py`` (Qwen2.5-VL) or
+  ``reference/qwen3.py``;
 - ``workloads/<cell>.json``: the cell's traffic parameters, the driver
   that runs its path (``drivers/<driver>.py``) and its checks' limits;
 - ``metrics/<metric>.py``: a reader ``read(m)`` of one per-layer metric
@@ -152,11 +154,30 @@ class Measured:
         return self.run.window.length
 
 
+def _qwen2_5_vl(hf: dict):
+    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
+    cfg = VLConfig.from_hf(hf)
+    return cfg, cfg.text
+
+
+def _qwen3(hf: dict):
+    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
+    cfg = Qwen3Config.from_hf(hf)
+    return cfg, cfg
+
+
+# The configuration file's ``architecture`` -> the port's configuration of
+# the model and of its decoder, from the file's ``hf`` keys.
+ARCHITECTURES = {"qwen2_5_vl": _qwen2_5_vl, "qwen3": _qwen3}
+
+
 def program_config(model: dict):
     """The port's configuration of the model and of its decoder."""
-    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
-    cfg = VLConfig.from_hf(model["hf"])
-    return cfg, cfg.text
+    architecture = model.get("architecture")
+    if architecture not in ARCHITECTURES:
+        raise ValueError(f"no port configuration for architecture "
+                         f"{architecture!r}; known: {sorted(ARCHITECTURES)}")
+    return ARCHITECTURES[architecture](model["hf"])
 
 
 def power_limit() -> str | None:

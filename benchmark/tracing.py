@@ -13,7 +13,8 @@ operator would slow the host far more), read from its raw events:
 - idle gaps, each labelled by the innermost harness range the host was
   in at the gap's midpoint. Device timestamps are mapped onto the host
   clock through two anchor kernels (``torch.cuda._sleep``) launched at
-  known host times at the start and the end of the window.
+  known host times at the start and the end of the window, the first and
+  the last activity the trace holds.
 """
 
 from __future__ import annotations
@@ -96,10 +97,15 @@ class DeviceTrace:
                     e.is_user_annotation() or e.duration_ns() <= 0:
                 continue
             raw.append((e.name(), e.start_ns(), e.start_ns() + e.duration_ns()))
-        anchors = sorted((s, e) for name, s, e in raw if ANCHOR in name)
-        if len(anchors) >= 2 and len(self.anchors) == 2:
-            offset = ((anchors[0][0] - self.anchors[0])
-                      + (anchors[-1][0] - self.anchors[1])) / 2
+        # The anchors are the window's first and last device activity (the
+        # device's clock counts from the epoch, the host's does not). Where
+        # the profiler drops one, the kernel next to it stands in, some
+        # milliseconds off; matched by name, a lost anchor left the whole
+        # trace outside its window.
+        if raw and len(self.anchors) == 2:
+            first = min(s for _, s, _ in raw)
+            last = max(s for _, s, _ in raw)
+            offset = ((first - self.anchors[0]) + (last - self.anchors[1])) / 2
         else:
             offset = 0
         return [(name, int(s - offset), int(e - offset))
