@@ -9,11 +9,15 @@ folder's pages with words drawn anew (``traffic/transcriptions.py``),
 and the window closes at the end of the round during which ``--seconds``
 passed.
 
+The model comes from the configuration's architecture
+(``env.architecture``, ``architectures/<name>.py``): its configuration,
+weight units, program and plain reference; this driver names no model.
+
 After the window: the program's state is freed, and the plain reference
-(``reference/qwen3.py``, float32, on the served int8 weights drawn again
-from the seed) reads a sample of the completed turns teacher-forced over
-their prompt and committed tokens. Compared: the gaps of the string
-tokens (greedy picks) and the choices' gaps (``choices.py``).
+(float32, on the served weights drawn again from the seed) reads a
+sample of the completed turns teacher-forced over their prompt and
+committed tokens. Compared: the gaps of the string tokens (greedy picks)
+and the choices' gaps (``choices.py``).
 """
 
 from __future__ import annotations
@@ -25,30 +29,18 @@ import time
 
 import torch
 
-from benchmark import choices, qwen3_weights
+from benchmark import choices
 from benchmark.drivers.common import (GUIDED, Run, Window, instrument,
                                       reset_counters, sample)
 from benchmark.reference import compare, models as ref_models
-from benchmark.reference import qwen3 as ref_qwen3
 from benchmark.reference.chat import DenseTokenizer, chat_prompt
 from benchmark.tracing import Ranges
 from benchmark.traffic.transcriptions import round_texts
+from benchmark.weights import STD
 from benchmark.work import Work
 
-CONTROL_LEVELS = 7          # the control's weights: int4 levels
 TEMPERATURE = 0.1           # what the pipeline passes; greedy decode ignores it
 TOP_K = 64                  # run_guided's top-k, the reference's too
-
-
-def _program(cfg, unit_list, cell: dict, device, control: bool, std: float):
-    from handwritten_ocr_tpu_torch.engine.torch_engines import (
-        TorchReasoningBackend)
-    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Model
-    params = qwen3_weights.program_params(
-        unit_list, cell["weights_seed"], device,
-        CONTROL_LEVELS if control else None, std)
-    return TorchReasoningBackend(Qwen3Model(params, cfg), DenseTokenizer(),
-                                 device=device, kv_quant=True)
 
 
 def _agent(cell: dict):
@@ -93,13 +85,13 @@ class Recorder:
 
 
 def run(env) -> Run:
-    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
     from handwritten_ocr_tpu_torch.utils.schema_decode import compile_schema
     cell, device, seed = env.cell, env.device, env.seed
-    cfg = Qwen3Config.from_hf(env.config["hf"])
-    unit_list = qwen3_weights.units(cfg)
-    std = env.config.get("init_std", qwen3_weights.STD)
-    backend = _program(cfg, unit_list, cell, device, env.control, std)
+    model = env.architecture
+    cfg, _ = model.config(env.config["hf"])
+    unit_list = model.units(cfg)
+    std = env.config.get("init_std", STD)
+    backend = model.program(cfg, unit_list, cell, device, env.control, std)
     request_of, contract = _agent(cell)
     schema = contract.json_schema()
     budget = cell["max_tokens"]
@@ -132,7 +124,7 @@ def run(env) -> Run:
     frozen: dict = {}
 
     def stop_tracing() -> None:
-        """A traced run traces until the first unit boundary past
+        """A traced run traces until the first step that starts past
         ``--seconds``; the round goes on untraced, so that its turns
         finish (see ``drivers/ocr.py``)."""
         frozen["counters"] = dict(batcher.stats)
@@ -185,8 +177,9 @@ def run(env) -> Run:
     del rounds, done, chosen, recorder, batcher, backend, rows
     env.free()
 
-    numbers = reference_numbers(cfg, unit_list, cell["weights_seed"], std,
-                                device, checked, spec, tokenizer, eos, budget)
+    numbers = reference_numbers(model, cfg, unit_list, cell["weights_seed"],
+                                std, device, checked, spec, tokenizer, eos,
+                                budget)
     numbers["replay_mismatches"] = mismatched
     print("turns compared: " + ", ".join(f"{k} {v!r}"
                                          for k, v in numbers.items()),
@@ -228,19 +221,17 @@ def _shapes(window, counters, done, walks, budget: int,
           f"{max(per_turn)})", file=sys.stderr)
 
 
-def reference_numbers(cfg, unit_list, weights_seed: int, std: float, device,
-                      checked, spec, tokenizer, eos: int,
+def reference_numbers(model, cfg, unit_list, weights_seed: int, std: float,
+                      device, checked, spec, tokenizer, eos: int,
                       budget: int) -> dict:
     """The string tokens' gaps and the choices' gaps of ``checked``
     (prompt, committed tokens, their states, the program's top-k rows)
-    under the float32 reference."""
+    under the float32 reference of the architecture ``model``."""
     ref_models.full_fp32()
     seqs = [{"ids": p + t, "want": list(range(len(p) - 1, len(p) - 1 + len(t)))}
             for p, t, _, _ in checked]
-    logits = ref_qwen3.logits(
-        lambda name: qwen3_weights.reference_unit(unit_list, name,
-                                                  weights_seed, device, std),
-        cfg, seqs, device)
+    logits = model.reference_logits(cfg, unit_list, weights_seed, std, device,
+                                    seqs)
     strings, gaps, mismatches = [], [], 0
     for rows_logits, (_, tokens, states, rows) in zip(logits, checked):
         at = [i for i, s in enumerate(states) if s == "string"]

@@ -31,6 +31,9 @@ from benchmark.work import Work
 
 UNITS = ("prefill", "decode_chunk")
 GUIDED = ("prefill_topk", "step_topk", "string_chunk")
+# An admission's prefill calls run back to back and the batcher adds their
+# ``prefill_s`` after the last: a traced window stops at no prefill.
+PREFILLS = ("prefill", "prefill_topk")
 
 
 class WindowClosed(Exception):
@@ -38,9 +41,10 @@ class WindowClosed(Exception):
 
 
 class Window:
-    """``on_due``: called once, at the first unit boundary after
-    ``seconds``, by a window that closes later (a traced run stops its
-    trace there, see ``drivers/ocr.py``)."""
+    """``on_due``: called once, at the first boundary after ``seconds``
+    before a decode or step unit (never before a prefill, ``PREFILLS``),
+    by a window that closes later (a traced run stops its trace there,
+    see ``drivers/ocr.py``)."""
 
     def __init__(self, seconds: float, close_at: str, on_due=None):
         if close_at not in ("unit", "folder", "round"):
@@ -64,13 +68,13 @@ class Window:
             self.t_close = time.perf_counter()
             self.armed = False
 
-    def at_unit(self) -> None:
+    def at_unit(self, prefill: bool = False) -> None:
         if not self.armed or not self.due():
             return
         if self.close_at == "unit":
             self.close()
             raise WindowClosed
-        if self.on_due is not None:
+        if self.on_due is not None and not prefill:
             on_due, self.on_due = self.on_due, None
             on_due()
 
@@ -109,7 +113,7 @@ def instrument(batcher, window: Window, ranges: Ranges, work: Work | None,
 
     def wrap(name, original):
         def unit(*args, **kwargs):
-            window.at_unit()
+            window.at_unit(prefill=name in PREFILLS)
             before = _before(name, args) if work is not None else None
             with ranges.range(name, sync=name in GUIDED):
                 out = original(*args, **kwargs)

@@ -138,9 +138,9 @@ def run(env) -> Run:
 
     def stop_tracing() -> None:
         """A traced run that closes at a folder's end traces until the
-        first unit boundary past ``--seconds``, not to the end: reading
-        the trace of a whole notebook would take most of the 360 s a run
-        has. The per-layer numbers are taken over the traced part (the
+        first decode chunk that starts past ``--seconds``, not to the
+        end: reading the trace of a whole notebook would take most of the
+        360 s a run has. The per-layer numbers are taken over the traced part (the
         counters as they stood, the work and ranges counted until then);
         the folder goes on untraced, so that its reads finish."""
         frozen["counters"] = dict(batcher.stats)

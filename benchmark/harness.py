@@ -4,9 +4,11 @@ Everything that belongs to one configuration, one cell or one per-layer
 metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 
 - ``configs/<config>.json``: the model's published configuration (``hf``),
-  its ``architecture`` (``ARCHITECTURES``) and how it is served; its plain
-  reference is ``reference/models.py`` (Qwen2.5-VL) or
-  ``reference/qwen3.py``;
+  its ``architecture`` and how it is served;
+- ``architectures/<architecture>.py``: the port's configuration of that
+  architecture (``config(hf) -> (cfg, text)``) and whatever else a driver
+  needs that depends on the model (for ``qwen3``: its seeded weights, the
+  program over them and its plain reference, ``reference/qwen3.py``);
 - ``workloads/<cell>.json``: the cell's traffic parameters, the driver
   that runs its path (``drivers/<driver>.py``) and its checks' limits;
 - ``metrics/<metric>.py``: a reader ``read(m)`` of one per-layer metric
@@ -49,6 +51,7 @@ class Env:
     t_start: float
     control: bool = False
     faults: tuple = ()
+    architecture: object = None     # the module architectures/<name>.py
     setup_s: float | None = None
     summary: dict | None = None
     _trace: DeviceTrace | None = None
@@ -154,30 +157,19 @@ class Measured:
         return self.run.window.length
 
 
-def _qwen2_5_vl(hf: dict):
-    from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
-    cfg = VLConfig.from_hf(hf)
-    return cfg, cfg.text
-
-
-def _qwen3(hf: dict):
-    from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
-    cfg = Qwen3Config.from_hf(hf)
-    return cfg, cfg
-
-
-# The configuration file's ``architecture`` -> the port's configuration of
-# the model and of its decoder, from the file's ``hf`` keys.
-ARCHITECTURES = {"qwen2_5_vl": _qwen2_5_vl, "qwen3": _qwen3}
-
-
-def program_config(model: dict):
-    """The port's configuration of the model and of its decoder."""
-    architecture = model.get("architecture")
-    if architecture not in ARCHITECTURES:
+def architecture(root: Path, name):
+    """The module ``architectures/<name>.py`` under ``root``, loaded by
+    file as the metric readers are."""
+    found = sorted(p.stem for p in (root / "architectures").glob("*.py"))
+    if not isinstance(name, str) or name not in found:
         raise ValueError(f"no port configuration for architecture "
-                         f"{architecture!r}; known: {sorted(ARCHITECTURES)}")
-    return ARCHITECTURES[architecture](model["hf"])
+                         f"{name!r}; known: {found}")
+    spec = importlib.util.spec_from_file_location(
+        "benchmark_architecture_" + name,
+        root / "architectures" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def power_limit() -> str | None:
@@ -201,12 +193,13 @@ def run_cell(spec_path: Path, name: str, seed: int, seconds: float,
              control: bool = False, faults: tuple = ()) -> dict:
     """One run of cell ``name``; returns the result line's object."""
     spec, root, entry, cell, model = cell_files(spec_path, name)
+    model_module = architecture(root, model.get("architecture"))
     env = Env(cell=cell, config=model, seed=seed, seconds=seconds,
               trace=trace, device=device, t_start=t_start, control=control,
-              faults=faults)
+              faults=faults, architecture=model_module)
     driver = importlib.import_module(f"benchmark.drivers.{cell['driver']}")
     run = driver.run(env)
-    cfg, text = program_config(model)
+    cfg, text = model_module.config(model["hf"])
     metrics = {}
     if trace:
         measured = Measured(run=run, cfg=cfg, text=text, summary=env.summary)

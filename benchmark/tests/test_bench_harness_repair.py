@@ -16,17 +16,25 @@ from benchmark import harness
 from benchmark.drivers.common import GUIDED, UNITS, Window, instrument
 from benchmark.tracing import ANCHOR, DeviceTrace, Ranges, summarize
 
-CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+ROOT = Path(__file__).resolve().parents[1]
+CONFIGS = ROOT / "configs"
 
 
 def config(name: str) -> dict:
     return json.loads((CONFIGS / f"{name}.json").read_text())
 
 
+def port_config(model: dict):
+    """The port's configuration, as ``harness.run_cell`` builds it: from
+    the module of the file's ``architecture``."""
+    return harness.architecture(ROOT, model.get("architecture")).config(
+        model["hf"])
+
+
 def test_the_reader_s_configuration_is_vlconfig_from_hf_field_for_field():
     from handwritten_ocr_tpu_torch.models.qwen25vl.config import VLConfig
     model = config("olmocr2-7b")
-    cfg, text = harness.program_config(model)
+    cfg, text = port_config(model)
     before = VLConfig.from_hf(model["hf"])
     assert cfg == before and text == before.text
     assert dataclasses.asdict(cfg) == dataclasses.asdict(before)
@@ -35,7 +43,7 @@ def test_the_reader_s_configuration_is_vlconfig_from_hf_field_for_field():
 
 def test_the_reasoner_s_configuration_keeps_its_head_dim_and_has_no_mrope():
     from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config
-    cfg, text = harness.program_config(config("qwen3-32b-int8"))
+    cfg, text = port_config(config("qwen3-32b-int8"))
     assert isinstance(cfg, Qwen3Config) and text is cfg
     assert cfg.head_dim == 128 != cfg.hidden_size // cfg.num_attention_heads
     assert cfg.mrope_section is None
@@ -49,7 +57,7 @@ def test_the_reasoner_s_configuration_keeps_its_head_dim_and_has_no_mrope():
                                    {"hf": {}}])
 def test_an_unknown_architecture_raises(model):
     with pytest.raises(ValueError, match="architecture"):
-        harness.program_config(model)
+        port_config(model)
 
 
 def fake_batcher():

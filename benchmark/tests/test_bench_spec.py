@@ -75,7 +75,10 @@ def test_every_file_is_found_by_name():
             REPO / "BENCHMARK.json", cell["name"])
         assert found_root == root and entry is cell or entry == cell
         assert (root / "drivers" / f"{body['driver']}.py").exists()
-        assert model["architecture"] in harness.ARCHITECTURES
+        assert (root / "architectures"
+                / f"{model['architecture']}.py").exists()
+        assert callable(harness.architecture(
+            root, model["architecture"]).config)
         assert set(body["limits"])
     for metric in SPEC["per_layer"]:
         assert callable(harness.metric_reader(root, metric["name"]))

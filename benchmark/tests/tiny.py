@@ -1,6 +1,6 @@
 """A tiny copy of the benchmark for CPU tests: the same harness, drivers,
-reference and metric readers, over small models and small traffic in a
-temporary directory with its own BENCHMARK.json."""
+architectures, reference and metric readers, over small models and
+small traffic in a temporary directory with its own BENCHMARK.json."""
 
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ def make(tmp: Path, cells: dict | None = None) -> Path:
     for sub in ("configs", "workloads"):
         (root / sub).mkdir(parents=True, exist_ok=True)
     shutil.copytree(BENCH / "metrics", root / "metrics")
+    shutil.copytree(BENCH / "architectures", root / "architectures")
     configs = {
         "tiny-vl": {"architecture": "qwen2_5_vl",
                     "hf": {**TEXT, "vision_config": VISION},
