@@ -15,8 +15,8 @@ Greedy argmax and the top-k run on fp32 logits on the device, and so do
 the EOS, budget and quote stops; the host reads one flag per step to end
 a chunk early, and the chunk's tokens (or the step's top-k) at its end.
 On one CUDA card (no tensor parallelism, no FSDP) a plain chunk's greedy
-step is replayed from a CUDA graph (``engine/step_graph.py``); guided
-and verify steps run eagerly.
+step and guided decode's string and top-k steps are replayed from CUDA
+graphs (``engine/step_graph.py``); verify steps run eagerly.
 
 Under tensor parallelism (``PagedProgram(mesh=...)``) every rank of a
 model group runs the same program on its slices: its pools hold its kv
@@ -288,21 +288,36 @@ class PagedProgram:
 
     def step_topk(self, cache: PagedKVCache, last: torch.Tensor,
                   active: torch.Tensor, rope_delta: torch.Tensor, k: int,
-                  table_pages: int | None = None) -> torch.Tensor:
+                  table_pages: int | None = None,
+                  graphs: StepGraphs | None = None) -> torch.Tensor:
         """One decode step for every slot returning each slot's top-k ids
         [S, k] — guided decode's device primitive: the host commits one
         token per slot (a forced scaffold token or a constrained choice).
         Inactive slots advance their (junk) length but append nothing and
-        skip their attention; their top-k is never read."""
-        slot_ids = torch.arange(last.shape[0], device=last.device)
-        return topk_ids(self._step_logits(cache, slot_ids, last, active,
-                                          rope_delta, table_pages), k,
-                        self.group)
+        skip their attention; their top-k is never read.
+
+        ``graphs`` (the batcher's, over ``cache``): the step replays the
+        CUDA graph of this ``k``, table width and rope path; the ids are a
+        copy of the graph's output, which the next replay overwrites."""
+        if graphs is None:
+            slot_ids = torch.arange(last.shape[0], device=last.device)
+            return topk_ids(self._step_logits(cache, slot_ids, last, active,
+                                              rope_delta, table_pages), k,
+                            self.group)
+        _check_graphs(graphs, cache)
+        graphs.load(last, rope_delta, valid=active)
+        ids = graphs.step(
+            StepGraphs.key("topk", table_pages, k),
+            lambda: topk_ids(self._step_logits(
+                cache, graphs.slot_ids, graphs.last, graphs.valid,
+                graphs.rope_delta, table_pages), k, self.group))
+        return ids.clone()
 
     def string_chunk(self, cache: PagedKVCache, last: torch.Tensor,
                      auto: torch.Tensor, remaining: torch.Tensor,
                      stop_mask: torch.Tensor, rope_delta: torch.Tensor,
-                     chunk: int, table_pages: int | None = None):
+                     chunk: int, table_pages: int | None = None,
+                     graphs: StepGraphs | None = None):
         """Free greedy decode of string value spans inside guided decode.
 
         Slots with ``auto`` advance greedily until they emit a token whose
@@ -311,25 +326,42 @@ class PagedProgram:
         frozen: they append nothing and keep their length. The loop ends
         after ``chunk`` steps or when no slot is left to advance (one host
         read of a flag per step). Returns (tokens [S, chunk], EOS where a
-        slot did not advance; last [S]; auto [S]; steps run)."""
+        slot did not advance; last [S]; auto [S]; steps run).
+
+        ``graphs`` (the batcher's, over ``cache``): each step replays the
+        string step's CUDA graph of this table width and rope path, which
+        reads ``last`` and ``auto`` from the graphs' buffers; the stall
+        test updates those in place after the replay."""
         eos = self.eos_token_id
         n_slots = last.shape[0]
         slot_ids = torch.arange(n_slots, device=last.device)
         tokens = torch.full((n_slots, chunk), eos, dtype=torch.int32,
                             device=last.device)
+        if graphs is None:      # the loop updates them in place
+            last, auto = last.clone(), auto.clone()
+        else:
+            _check_graphs(graphs, cache)
+            graphs.load(last, rope_delta, valid=auto)
+            last, auto = graphs.last, graphs.valid
+            rope_delta, slot_ids = graphs.rope_delta, graphs.slot_ids
+            key = StepGraphs.key("string", table_pages)
+
+        def step():
+            logits = self._step_logits(cache, slot_ids, last, auto,
+                                       rope_delta, table_pages, freeze=True)
+            return argmax_ids(logits, self.group)
+
         steps = 0
         for i in range(chunk):
             if not bool(auto.any()):
                 break
-            logits = self._step_logits(cache, slot_ids, last, auto,
-                                       rope_delta, table_pages, freeze=True)
-            nxt = argmax_ids(logits, self.group)
-            last = torch.where(auto, nxt, last)
+            nxt = step() if graphs is None else graphs.step(key, step)
             tokens[:, i] = torch.where(auto, nxt, torch.full_like(nxt, eos))
             stall = stop_mask[nxt.long()] | (nxt == eos) | (i + 1 >= remaining)
-            auto = auto & ~stall
+            last.copy_(torch.where(auto, nxt, last))
+            auto &= ~stall
             steps += 1
-        return tokens, last, auto, steps
+        return tokens, last.clone(), auto.clone(), steps
 
     def verify_step(self, cache: PagedKVCache, last: torch.Tensor,
                     drafts: torch.Tensor, draft_len: torch.Tensor,
@@ -381,9 +413,10 @@ class PagedProgram:
         Returns (tokens [S, chunk], last [S], done [S]) on the device.
 
         ``graphs`` (the batcher's, over ``cache``): each step replays the
-        step's CUDA graph of this table width and rope path, captured at
-        the key's first step (``engine/step_graph.py``); the tokens, the
-        cache and the launch counts are those of the eager steps.
+        greedy step's CUDA graph of this table width and rope path,
+        captured at the key's first step (``engine/step_graph.py``); the
+        tokens, the cache and the launch counts are those of the eager
+        steps.
 
         Host spans (``trace.profile_span``): ``decode.sync`` around each
         flag read, ``decode.step`` around each step's enqueue (under a
@@ -394,13 +427,11 @@ class PagedProgram:
         tokens = torch.full((n_slots, chunk), eos, dtype=torch.int32,
                             device=last.device)
         if graphs is not None:
-            if graphs.cache is not cache:
-                raise ValueError("the step graphs belong to another cache")
-            graphs.load(last, done, rope_delta)
+            _check_graphs(graphs, cache)
+            graphs.load(last, rope_delta, done=done)
             last, done, rope_delta = graphs.last, graphs.done, graphs.rope_delta
             slot_ids = graphs.slot_ids
-            # read once a chunk, so that a graph holds one rope path
-            key = (table_pages, bool(os.environ.get("HOCR_TPU_ROPE_FP32")))
+            key = StepGraphs.key("greedy", table_pages)
         for i in range(chunk):
             with profile_span("decode.sync"):
                 finished = bool(done.all())
@@ -428,6 +459,11 @@ class PagedProgram:
         return self._embed(ids)
 
 
+def _check_graphs(graphs: StepGraphs, cache: PagedKVCache) -> None:
+    if graphs.cache is not cache:
+        raise ValueError("the step graphs belong to another cache")
+
+
 class ContinuousBatcher:
     """Slot/block scheduler driving a :class:`PagedProgram`.
 
@@ -448,10 +484,11 @@ class ContinuousBatcher:
     its EOS step), and of those the steps replayed from a CUDA graph
     (``decode_graph_steps``) and the graphs captured
     (``decode_graph_captures``: one eager step each); guided decode adds
-    its top-k steps, string-chunk
-    steps, committed tokens, the host seconds spent inside the schema
-    sessions, and its sessions (complete or not); verify rounds add their
-    seconds and the tokens they committed.
+    its top-k steps, string-chunk steps, the steps of both replayed from
+    a CUDA graph and their graphs (``guided_graph_steps``,
+    ``guided_graph_captures``), committed tokens, the host seconds spent
+    inside the schema sessions, and its sessions (complete or not);
+    verify rounds add their seconds and the tokens they committed.
     ``spec_stats`` counts the verify rounds and the tokens drafted and
     accepted, as the JAX batcher does.
     """
@@ -506,8 +543,9 @@ class ContinuousBatcher:
                       "sessions_complete": 0, "verify_s": 0.0,
                       "verify_tokens": 0, "decode_steps": 0,
                       "decode_slot_steps": 0, "decode_graph_steps": 0,
-                      "decode_graph_captures": 0}
-        # The greedy step as CUDA graphs over this batcher's cache, where
+                      "decode_graph_captures": 0, "guided_graph_steps": 0,
+                      "guided_graph_captures": 0}
+        # The decode steps as CUDA graphs over this batcher's cache, where
         # the program allows it; they go with the batcher.
         self._graphs = (StepGraphs(self.cache, n_slots, self.stats)
                         if graphable(program, self.device) else None)
@@ -798,7 +836,8 @@ class ContinuousBatcher:
                 self._tensor(remaining), stop_mask_dev,
                 self._tensor(self._rope_delta), self.chunk,
                 # Width covers frozen sessions too.
-                table_pages=self._table_pages(sessions, self.chunk + 1))
+                table_pages=self._table_pages(sessions, self.chunk + 1),
+                graphs=self._graphs)
             tokens = tokens.cpu().numpy()
             self._last = last.cpu().numpy().astype(np.int32)
             stats["decode_s"] += clock() - t0
@@ -852,7 +891,8 @@ class ContinuousBatcher:
             ids = self.program.step_topk(
                 self.cache, self._tensor(self._last), self._tensor(active),
                 self._tensor(self._rope_delta), top_k,
-                table_pages=self._table_pages(sessions, 2)).cpu().numpy()
+                table_pages=self._table_pages(sessions, 2),
+                graphs=self._graphs).cpu().numpy()
             stats["decode_s"] += clock() - t0
             stats["topk_steps"] += 1
             for slot in list(sessions):

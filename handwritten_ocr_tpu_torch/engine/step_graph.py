@@ -1,11 +1,14 @@
-"""The greedy decode step of one batcher, replayed as CUDA graphs.
+"""The decode steps of one batcher, replayed as CUDA graphs.
 
-A decode step of the port is over a thousand small launches (28 layers
-of norms, projections, rope, the paged kernel and the MLP, then the
-lm_head and the argmax), and enqueueing them one by one from Python takes
-longer than the card takes to run them. :class:`StepGraphs` captures the
-step once per key (the batcher's table width and the rope path) and
-replays it, so that a step costs one ``replay()`` on the host.
+A decode step of the port is over a thousand small launches (28 or 64
+layers of norms, projections, rope, the paged kernel and the MLP, then
+the lm_head and the argmax or top-k), and enqueueing them one by one from
+Python takes longer than the card takes to run them. :class:`StepGraphs`
+captures a step once per key and replays it, so that a step costs one
+``replay()`` on the host. A key (:meth:`StepGraphs.key`) names the step's
+body (the greedy step of a plain chunk, guided decode's string step or
+its top-k step), the batcher's table width and the rope path, and for the
+top-k step its ``k``.
 
 The first step of a key runs eagerly, on the graphs' own stream: it is a
 real step, and it also sizes the kernels' workspaces and sets up cuBLAS
@@ -13,7 +16,9 @@ on that stream. The step is then captured (capture runs nothing, so no
 state moves) and every later step of the key replays it. The graph reads
 the step's inputs from buffers of its own (:meth:`StepGraphs.load`) and
 points at the batcher's cache directly: the pools, ``lengths`` and
-``block_tables`` are updated in place and never reallocated.
+``block_tables`` are updated in place and never reallocated. A replay
+writes its output into the same tensor every time: a caller that keeps
+it past the next replay keeps a copy.
 
 What a replay must keep as an eager step has it:
 
@@ -32,6 +37,7 @@ with its batcher: dropping the batcher frees the graphs and their memory.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -39,7 +45,7 @@ from handwritten_ocr_tpu_torch.ops import build, launch_counters
 
 
 def graphable(program, device: torch.device) -> bool:
-    """Whether ``program``'s greedy step is captured on ``device``: on a
+    """Whether ``program``'s decode steps are captured on ``device``: on a
     CUDA card, without tensor parallelism (``group``: its collectives
     run over gloo where ranks share a card, which a graph cannot hold)
     and without FSDP (``gather``: a layer's gather per step)."""
@@ -50,15 +56,17 @@ def graphable(program, device: torch.device) -> bool:
 @dataclasses.dataclass
 class _Captured:
     graph: torch.cuda.CUDAGraph
-    out: torch.Tensor           # the step's next tokens, written by replay
+    out: torch.Tensor           # the step's output, written by every replay
     launches: list              # (wrapper, attribute, launches a replay)
     workspaces: list            # the workspace buffers the graph writes
 
 
 class StepGraphs:
-    """CUDA graphs of one batcher's greedy decode step over its ``cache``,
-    one per key; ``stats`` (the batcher's) counts the steps replayed
-    (``decode_graph_steps``) and the captures (``decode_graph_captures``).
+    """CUDA graphs of one batcher's decode steps over its ``cache``, one
+    per key; ``stats`` (the batcher's) counts the steps replayed and the
+    captures, of the greedy step (``decode_graph_steps``,
+    ``decode_graph_captures``) and of guided decode's string and top-k
+    steps (``guided_graph_steps``, ``guided_graph_captures``) apart.
     """
 
     def __init__(self, cache, n_slots: int, stats: dict):
@@ -66,7 +74,9 @@ class StepGraphs:
         self.cache = cache
         self.stats = stats
         self.last = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+        # the greedy step's finished slots; the guided steps' live ones
         self.done = torch.zeros((n_slots,), dtype=torch.bool, device=device)
+        self.valid = torch.zeros((n_slots,), dtype=torch.bool, device=device)
         self.rope_delta = torch.zeros((n_slots,), dtype=torch.int32,
                                       device=device)
         self.slot_ids = torch.arange(n_slots, device=device)
@@ -74,23 +84,39 @@ class StepGraphs:
         self._pool = torch.cuda.graph_pool_handle()
         self._graphs: dict = {}
 
-    def load(self, last: torch.Tensor, done: torch.Tensor,
-             rope_delta: torch.Tensor) -> None:
-        """Copy a chunk's inputs into the buffers every graph reads."""
+    @staticmethod
+    def key(body: str, table_pages: int | None, *extra) -> tuple:
+        """The key of a step: its ``body`` (``"greedy"``, ``"string"`` or
+        ``"topk"``), the table width, the rope path (``HOCR_TPU_ROPE_FP32``,
+        read here, once a chunk or step, so that a graph holds one path)
+        and what else shapes the body (the top-k's ``k``)."""
+        return (body, table_pages,
+                bool(os.environ.get("HOCR_TPU_ROPE_FP32")), *extra)
+
+    def load(self, last: torch.Tensor, rope_delta: torch.Tensor, *,
+             done: torch.Tensor | None = None,
+             valid: torch.Tensor | None = None) -> None:
+        """Copy a chunk's (or a step's) inputs into the buffers the graphs
+        read: ``done`` for the greedy step, ``valid`` for the guided ones."""
         self.last.copy_(last)
-        self.done.copy_(done)
         self.rope_delta.copy_(rope_delta)
+        if done is not None:
+            self.done.copy_(done)
+        if valid is not None:
+            self.valid.copy_(valid)
 
     def step(self, key, step) -> torch.Tensor:
-        """The next tokens [S] of ``step()``, one decode step over the
-        buffers of :meth:`load`: replayed from the graph of ``key``, or,
-        at a key's first step, run eagerly and then captured."""
+        """The output of ``step()``, one decode step over the buffers of
+        :meth:`load`: replayed from the graph of ``key`` (the same tensor
+        at every replay), or, at a key's first step, run eagerly and then
+        captured."""
+        counter = "decode" if key[0] == "greedy" else "guided"
         captured = self._graphs.get(key)
         if captured is not None:
             captured.graph.replay()
             for wrapper, attr, count in captured.launches:
                 setattr(wrapper, attr, getattr(wrapper, attr) + count)
-            self.stats["decode_graph_steps"] += 1
+            self.stats[f"{counter}_graph_steps"] += 1
             return captured.out
         current = torch.cuda.current_stream(self.last.device)
         self._stream.wait_stream(current)
@@ -99,7 +125,7 @@ class StepGraphs:
             self._graphs[key] = self._capture(step)
         current.wait_stream(self._stream)
         nxt.record_stream(current)
-        self.stats["decode_graph_captures"] += 1
+        self.stats[f"{counter}_graph_captures"] += 1
         return nxt
 
     def _capture(self, step) -> _Captured:

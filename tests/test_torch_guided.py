@@ -34,6 +34,7 @@ from handwritten_ocr_tpu_torch.agents.schemas import (ArbitratorResult,
                                                       CriticResult,
                                                       EditorResult)
 from handwritten_ocr_tpu_torch.engine import serving
+from handwritten_ocr_tpu_torch.engine.step_graph import StepGraphs
 from handwritten_ocr_tpu_torch.engine.torch_engines import TorchReasoningBackend
 from handwritten_ocr_tpu_torch.models.processor import ByteTokenizer
 from handwritten_ocr_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
@@ -154,6 +155,85 @@ def test_guided_paths_are_exercised(programs):
     assert any(obj["overall_confidence"] > 0 for obj in objects)
     assert any(obj["segments"] for obj in objects)
     assert batcher.stats["string_steps"] > 0 and batcher.stats["topk_steps"] > 0
+
+
+class ReplayedOutputs(StepGraphs):
+    """``StepGraphs`` without a card: a step runs its body eagerly, then
+    returns one tensor per key that every later step of the key
+    overwrites, as a graph's replay does; the first step of a key counts
+    as its capture."""
+
+    def __init__(self, cache, n_slots: int, stats: dict):
+        self.cache, self.stats = cache, stats
+        self.last = torch.zeros((n_slots,), dtype=torch.int32)
+        self.done = torch.zeros((n_slots,), dtype=torch.bool)
+        self.valid = torch.zeros((n_slots,), dtype=torch.bool)
+        self.rope_delta = torch.zeros((n_slots,), dtype=torch.int32)
+        self.slot_ids = torch.arange(n_slots)
+        self.outputs: dict = {}
+
+    def step(self, key, step):
+        out = step()
+        counter = "decode" if key[0] == "greedy" else "guided"
+        held = self.outputs.get(key)
+        if held is None:
+            self.outputs[key] = out
+            self.stats[f"{counter}_graph_captures"] += 1
+            return out
+        held.copy_(out)
+        self.stats[f"{counter}_graph_steps"] += 1
+        return held
+
+
+@pytest.mark.parametrize("chunk", [1, 16])
+@pytest.mark.parametrize("contract", CONTRACTS, ids=lambda c: c.__name__)
+def test_guided_steps_over_replayed_outputs_equal_eager(programs, contract,
+                                                        chunk, monkeypatch):
+    """Guided decode through graphs whose every replay writes the same
+    output tensor, against the batcher stepping eagerly (as it does on
+    the CPU): the same objects and committed tokens, and every top-k step's
+    and string chunk's outputs, kept as the benchmark's recorder keeps
+    them until the round ends, equal to the eager steps'. A step that
+    handed out a graph's own buffer would read the last replay's ids."""
+    program = programs[1]
+    schema = contract.json_schema()
+    runs = []
+    for replayed in (False, True):
+        kept = []
+        for name in ("step_topk", "string_chunk"):
+            def keep(*args, _original=getattr(type(program), name), **kw):
+                out = _original(program, *args, **kw)
+                kept.append(out)
+                return out
+            monkeypatch.setattr(program, name, keep)
+        batcher = serving.ContinuousBatcher(
+            program, dtype=torch.float32, device="cpu", chunk=chunk, **BATCHER)
+        assert batcher._graphs is None
+        if replayed:
+            batcher._graphs = ReplayedOutputs(batcher.cache, batcher.n_slots,
+                                              batcher.stats)
+        requests = [serving.GenRequest(ids, budget)
+                    for ids, budget in prompts()]
+        got = batcher.run_guided(requests, schema, TOKENIZER)
+        runs.append((got, [r.tokens for r in requests], kept,
+                     dict(batcher.stats)))
+    (want, want_tokens, eager, eager_stats), (got, tokens, kept, stats) = runs
+    assert got == want and tokens == want_tokens
+    assert len(kept) == len(eager)
+    for out, ref in zip(kept, eager):
+        if isinstance(out, tuple):          # string_chunk's four outputs
+            assert out[3] == ref[3]
+            assert all(torch.equal(a, b) for a, b in zip(out[:3], ref[:3]))
+        else:
+            assert torch.equal(out, ref)
+    assert eager_stats["guided_graph_steps"] == 0
+    assert eager_stats["guided_graph_captures"] == 0
+    steps = stats["topk_steps"] + stats["string_steps"]
+    assert steps == eager_stats["topk_steps"] + eager_stats["string_steps"]
+    assert stats["string_steps"] > 0 and stats["topk_steps"] > 0
+    assert stats["guided_graph_captures"] >= 2
+    assert stats["guided_graph_steps"] == steps - stats["guided_graph_captures"]
+    assert stats["decode_graph_steps"] == stats["decode_graph_captures"] == 0
 
 
 @pytest.fixture(scope="module")

@@ -393,6 +393,89 @@ def test_graphed_decode_equals_eager_on_cuda(case):
     assert graphed[5]["rounds"] == eager[5]["rounds"] > 0
 
 
+def _serve_guided_and_plain(batcher):
+    """Guided decode (critic schema), plain reads, guided decode again, on
+    one batcher: the guided steps' graphs are taken before any greedy
+    graph and replayed after the greedy ones. Returns (the guided results
+    and each request's tokens, the plain tokens, the stats after the first
+    guided run)."""
+    from handwritten_ocr_tpu_torch.agents.schemas import CriticResult
+    from torch_port_dist import SmallTokenizer
+    schema, tokenizer = CriticResult.json_schema(), SmallTokenizer()
+
+    def guided():
+        requests = _long_requests()
+        results = batcher.run_guided(requests, schema, tokenizer)
+        return results, [r.tokens for r in requests]
+
+    first = guided()
+    after_guided = dict(batcher.stats)
+    plain = batcher.run(_long_requests())
+    return (first, guided()), plain, after_guided
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["qwen3_int8", "vl_bf16"])
+def test_graphed_guided_decode_equals_eager_on_cuda(case):
+    """Guided decode's string and top-k steps replayed from the batcher's
+    graphs against the same batcher stepping eagerly on the card: the same
+    results and committed tokens, cache lengths and KV pools bit for bit,
+    the same launch counts, across table-width changes and with greedy
+    graphs taken in between; every guided step but one per capture is a
+    replay, counted apart from the greedy step's replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from handwritten_ocr_tpu_torch.ops import int8_matmul as int8_mod
+    from handwritten_ocr_tpu_torch.ops import launch_counters
+    from handwritten_ocr_tpu_torch.ops import paged_decode_attention as paged
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, cfg, dtype, kv_quant = _graph_case(case)
+    params = _to(params, "cuda")
+    kw = dict(n_slots=2, block_size=32, max_context=1024, chunk=8,
+              prefill_bucket=16, dtype=dtype, kv_quant=kv_quant)
+    runs = {}
+    for graphed in (False, True):
+        for ws in (paged._WORKSPACE, int8_mod._WORKSPACE):
+            ws._buffers.clear()     # each run sizes its own, from nothing
+        batcher = ContinuousBatcher(
+            PagedProgram(params, cfg, eos_token_id=EOS), device="cuda", **kw)
+        if not graphed:
+            batcher._graphs = None
+        before = [getattr(fn, attr) for _, fn, attr in launch_counters()]
+        guided, plain, after_guided = _serve_guided_and_plain(batcher)
+        torch.cuda.synchronize()
+        launches = [getattr(fn, attr) - b for (_, fn, attr), b
+                    in zip(launch_counters(), before)]
+        cache = batcher.cache
+        pools = [getattr(cache, name).clone() for name in
+                 ("k", "v", "k_scale", "v_scale")
+                 if getattr(cache, name) is not None]
+        keys = list(batcher._graphs._graphs) if graphed else []
+        runs[graphed] = (guided, plain, cache.lengths.clone(), pools,
+                         launches, dict(batcher.stats), after_guided, keys)
+        del batcher, cache
+    eager, graphed = runs[False], runs[True]
+    assert graphed[0] == eager[0] and graphed[1] == eager[1]
+    assert torch.equal(graphed[2], eager[2])
+    assert all(torch.equal(g, e) for g, e in zip(graphed[3], eager[3]))
+    assert graphed[4] == eager[4] and sum(eager[4]) > 0
+    stats, first = graphed[5], graphed[6]
+    for name in ("topk_steps", "string_steps", "decode_steps"):
+        assert stats[name] == eager[5][name] > 0
+    assert eager[5]["guided_graph_steps"] == eager[5]["guided_graph_captures"] == 0
+    steps = stats["topk_steps"] + stats["string_steps"]
+    assert stats["guided_graph_steps"] == steps - stats["guided_graph_captures"]
+    # the first guided run moved no greedy counter
+    assert first["decode_graph_steps"] == first["decode_graph_captures"] == 0
+    assert first["guided_graph_steps"] > 0
+    assert stats["decode_graph_steps"] == (stats["decode_steps"]
+                                           - stats["decode_graph_captures"])
+    keys = graphed[7]
+    for body in ("string", "topk"):
+        widths = {key[1] for key in keys if key[0] == body}
+        assert len(widths) >= 2, (body, keys)
+
+
 @pytest.mark.cuda
 def test_a_workspace_does_not_grow_inside_a_capture():
     """A call that needs a larger workspace than it holds cannot be
