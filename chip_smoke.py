@@ -3212,7 +3212,8 @@ def _check_stream(name: str, plain: list[list[int]], got: list[list[int]],
 
 def _verify_vs_step(batcher, encoded: list[list[int]], repeats: int = 3):
     """A verify round (16 random drafts for every live slot) against a
-    plain decode step, on the batcher's pools with the turns prefilled:
+    plain decode step (through the batcher's step graphs, so replayed
+    after the warm-up), on the batcher's pools with the turns prefilled:
     wall ms of each (host clock to the tokens on the host, the median of
     ``repeats`` alternating calls) and device ms (the kernels' sum under
     the profiler, one call each). Each call appends its rows as a real
@@ -3243,7 +3244,7 @@ def _verify_vs_step(batcher, encoded: list[list[int]], repeats: int = 3):
         tokens, _, _ = program.decode_chunk(
             cache, cache.lengths.new_tensor(batcher._last), ~active,
             torch.full((n,), 2, dtype=torch.int32, device="cuda"), rope, 1,
-            table_pages=pages)
+            table_pages=pages, graphs=batcher._graphs)
         return tokens.cpu()
 
     walls = {"verify": [], "step": []}

@@ -14,9 +14,11 @@ longest greedy-matching prefix accepted.
 Greedy argmax and the top-k run on fp32 logits on the device, and so do
 the EOS, budget and quote stops; the host reads one flag per step to end
 a chunk early, and the chunk's tokens (or the step's top-k) at its end.
-On one CUDA card (no tensor parallelism, no FSDP) a plain chunk's greedy
-step and guided decode's string and top-k steps are replayed from CUDA
-graphs (``engine/step_graph.py``); verify steps run eagerly.
+A plain chunk's greedy step and guided decode's string and top-k steps
+read their inputs from the batcher's ``StepGraphs`` and step through it
+(``engine/step_graph.py``): on one CUDA card (no tensor parallelism, no
+FSDP) they are replayed from CUDA graphs, elsewhere run eagerly. Verify
+steps run eagerly.
 
 Under tensor parallelism (``PagedProgram(mesh=...)``) every rank of a
 model group runs the same program on its slices: its pools hold its kv
@@ -42,7 +44,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from handwritten_ocr_tpu_torch.engine.step_graph import StepGraphs, graphable
+from handwritten_ocr_tpu_torch.engine.step_graph import StepGraphs
 from handwritten_ocr_tpu_torch.models.layers import (argmax_ids, embed,
                                                      group_size, topk_ids)
 from handwritten_ocr_tpu_torch.models.paged import PagedKVCache, paged_forward
@@ -50,6 +52,7 @@ from handwritten_ocr_tpu_torch.models.qwen25vl.language import lm_logits
 from handwritten_ocr_tpu_torch.parallel.mesh import model_group
 from handwritten_ocr_tpu_torch.parallel.sharding import gathered
 from handwritten_ocr_tpu_torch.trace import profile_span
+from handwritten_ocr_tpu_torch.utils import schema_decode
 
 
 _STOP_MASKS: "weakref.WeakKeyDictionary[object, dict[int, np.ndarray]]" = \
@@ -276,48 +279,45 @@ class PagedProgram:
                          gather=self.gather)[:, -1]
 
     def _step(self, cache: PagedKVCache, slot_ids: torch.Tensor,
-              last: torch.Tensor, done: torch.Tensor,
+              last: torch.Tensor, live: torch.Tensor,
               rope_delta: torch.Tensor,
               table_pages: int | None) -> torch.Tensor:
         """One greedy step for every slot: the next token [S] int32, EOS
-        for a done slot (which appends nothing and skips its attention)."""
-        logits = self._step_logits(cache, slot_ids, last, ~done, rope_delta,
+        for a slot that is not ``live`` (a done slot, which appends
+        nothing and skips its attention)."""
+        logits = self._step_logits(cache, slot_ids, last, live, rope_delta,
                                    table_pages)
         nxt = argmax_ids(logits, self.group)
-        return torch.where(done, torch.full_like(nxt, self.eos_token_id), nxt)
+        return torch.where(live, nxt, torch.full_like(nxt, self.eos_token_id))
 
     def step_topk(self, cache: PagedKVCache, last: torch.Tensor,
                   active: torch.Tensor, rope_delta: torch.Tensor, k: int,
-                  table_pages: int | None = None,
-                  graphs: StepGraphs | None = None) -> torch.Tensor:
+                  table_pages: int | None = None, *,
+                  graphs: StepGraphs) -> torch.Tensor:
         """One decode step for every slot returning each slot's top-k ids
         [S, k] — guided decode's device primitive: the host commits one
         token per slot (a forced scaffold token or a constrained choice).
         Inactive slots advance their (junk) length but append nothing and
         skip their attention; their top-k is never read.
 
-        ``graphs`` (the batcher's, over ``cache``): the step replays the
-        CUDA graph of this ``k``, table width and rope path; the ids are a
-        copy of the graph's output, which the next replay overwrites."""
-        if graphs is None:
-            slot_ids = torch.arange(last.shape[0], device=last.device)
-            return topk_ids(self._step_logits(cache, slot_ids, last, active,
-                                              rope_delta, table_pages), k,
-                            self.group)
+        ``graphs`` (the batcher's, over ``cache``): the step reads its
+        buffers and steps through it (a replay of the graph of this ``k``,
+        table width and rope path where it captures); the ids are a copy,
+        which no later step overwrites."""
         _check_graphs(graphs, cache)
-        graphs.load(last, rope_delta, valid=active)
+        graphs.load(last, rope_delta, active)
         ids = graphs.step(
             StepGraphs.key("topk", table_pages, k),
             lambda: topk_ids(self._step_logits(
-                cache, graphs.slot_ids, graphs.last, graphs.valid,
+                cache, graphs.slot_ids, graphs.last, graphs.live,
                 graphs.rope_delta, table_pages), k, self.group))
         return ids.clone()
 
     def string_chunk(self, cache: PagedKVCache, last: torch.Tensor,
                      auto: torch.Tensor, remaining: torch.Tensor,
                      stop_mask: torch.Tensor, rope_delta: torch.Tensor,
-                     chunk: int, table_pages: int | None = None,
-                     graphs: StepGraphs | None = None):
+                     chunk: int, table_pages: int | None = None, *,
+                     graphs: StepGraphs):
         """Free greedy decode of string value spans inside guided decode.
 
         Slots with ``auto`` advance greedily until they emit a token whose
@@ -328,34 +328,29 @@ class PagedProgram:
         read of a flag per step). Returns (tokens [S, chunk], EOS where a
         slot did not advance; last [S]; auto [S]; steps run).
 
-        ``graphs`` (the batcher's, over ``cache``): each step replays the
-        string step's CUDA graph of this table width and rope path, which
-        reads ``last`` and ``auto`` from the graphs' buffers; the stall
-        test updates those in place after the replay."""
+        ``graphs`` (the batcher's, over ``cache``): each step reads
+        ``last`` and ``auto`` from its buffers and steps through it (a
+        replay of the string step's graph of this table width and rope
+        path where it captures); the stall test updates them in place."""
         eos = self.eos_token_id
-        n_slots = last.shape[0]
-        slot_ids = torch.arange(n_slots, device=last.device)
-        tokens = torch.full((n_slots, chunk), eos, dtype=torch.int32,
+        _check_graphs(graphs, cache)
+        graphs.load(last, rope_delta, auto)
+        last, auto = graphs.last, graphs.live
+        key = StepGraphs.key("string", table_pages)
+        tokens = torch.full((last.shape[0], chunk), eos, dtype=torch.int32,
                             device=last.device)
-        if graphs is None:      # the loop updates them in place
-            last, auto = last.clone(), auto.clone()
-        else:
-            _check_graphs(graphs, cache)
-            graphs.load(last, rope_delta, valid=auto)
-            last, auto = graphs.last, graphs.valid
-            rope_delta, slot_ids = graphs.rope_delta, graphs.slot_ids
-            key = StepGraphs.key("string", table_pages)
 
         def step():
-            logits = self._step_logits(cache, slot_ids, last, auto,
-                                       rope_delta, table_pages, freeze=True)
+            logits = self._step_logits(cache, graphs.slot_ids, last, auto,
+                                       graphs.rope_delta, table_pages,
+                                       freeze=True)
             return argmax_ids(logits, self.group)
 
         steps = 0
         for i in range(chunk):
             if not bool(auto.any()):
                 break
-            nxt = step() if graphs is None else graphs.step(key, step)
+            nxt = graphs.step(key, step)
             tokens[:, i] = torch.where(auto, nxt, torch.full_like(nxt, eos))
             stall = stop_mask[nxt.long()] | (nxt == eos) | (i + 1 >= remaining)
             last.copy_(torch.where(auto, nxt, last))
@@ -406,53 +401,41 @@ class PagedProgram:
     def decode_chunk(self, cache: PagedKVCache, last: torch.Tensor,
                      done: torch.Tensor, remaining: torch.Tensor,
                      rope_delta: torch.Tensor, chunk: int,
-                     table_pages: int | None = None,
-                     graphs: StepGraphs | None = None):
+                     table_pages: int | None = None, *,
+                     graphs: StepGraphs):
         """Up to ``chunk`` greedy steps for every slot; a done slot emits
         EOS and skips its attention. Ends early once every slot is done.
         Returns (tokens [S, chunk], last [S], done [S]) on the device.
 
-        ``graphs`` (the batcher's, over ``cache``): each step replays the
-        greedy step's CUDA graph of this table width and rope path,
-        captured at the key's first step (``engine/step_graph.py``); the
-        tokens, the cache and the launch counts are those of the eager
-        steps.
+        ``graphs`` (the batcher's, over ``cache``): each step reads
+        ``last`` and the live slots (not ``done``) from its buffers, which
+        the loop updates in place, and steps through it (a replay of the
+        greedy step's graph of this table width and rope path where it
+        captures, ``engine/step_graph.py``).
 
         Host spans (``trace.profile_span``): ``decode.sync`` around each
-        flag read, ``decode.step`` around each step's enqueue (under a
-        graph: the replay, the token write and the done update)."""
+        flag read, ``decode.step`` around each step's enqueue (the step,
+        the token write and the live-slot update)."""
         eos = self.eos_token_id
-        n_slots = last.shape[0]
-        slot_ids = torch.arange(n_slots, device=last.device)
-        tokens = torch.full((n_slots, chunk), eos, dtype=torch.int32,
+        _check_graphs(graphs, cache)
+        graphs.load(last, rope_delta, ~done)
+        last, live = graphs.last, graphs.live
+        key = StepGraphs.key("greedy", table_pages)
+        tokens = torch.full((last.shape[0], chunk), eos, dtype=torch.int32,
                             device=last.device)
-        if graphs is not None:
-            _check_graphs(graphs, cache)
-            graphs.load(last, rope_delta, done=done)
-            last, done, rope_delta = graphs.last, graphs.done, graphs.rope_delta
-            slot_ids = graphs.slot_ids
-            key = StepGraphs.key("greedy", table_pages)
         for i in range(chunk):
             with profile_span("decode.sync"):
-                finished = bool(done.all())
+                finished = not bool(live.any())
             if finished:
                 break
             with profile_span("decode.step"):
-                if graphs is None:
-                    nxt = self._step(cache, slot_ids, last, done, rope_delta,
-                                     table_pages)
-                    tokens[:, i] = nxt
-                    done = done | (nxt == eos) | (i + 1 >= remaining)
-                    last = nxt
-                else:               # the graph's own buffers, in place
-                    nxt = graphs.step(key, lambda: self._step(
-                        cache, slot_ids, last, done, rope_delta, table_pages))
-                    tokens[:, i] = nxt
-                    done |= (nxt == eos) | (i + 1 >= remaining)
-                    last.copy_(nxt)
-        if graphs is not None:
-            return tokens, last.clone(), done.clone()
-        return tokens, last, done
+                nxt = graphs.step(key, lambda: self._step(
+                    cache, graphs.slot_ids, last, live, graphs.rope_delta,
+                    table_pages))
+                tokens[:, i] = nxt
+                live &= (nxt != eos) & (remaining > i + 1)
+                last.copy_(nxt)
+        return tokens, last.clone(), ~live
 
     def embed_prompt(self, ids: torch.Tensor) -> torch.Tensor:
         """Default prompt embedding (no vision splice): table lookup."""
@@ -462,6 +445,21 @@ class PagedProgram:
 def _check_graphs(graphs: StepGraphs, cache: PagedKVCache) -> None:
     if graphs.cache is not cache:
         raise ValueError("the step graphs belong to another cache")
+
+
+@dataclasses.dataclass
+class _Guided:
+    """One ``run_guided`` call: its compiled schema, tokenizer and top-k,
+    the string spans' stop mask (on the host and on the device), each live
+    slot's schema session, and each finished request's result by its id."""
+
+    spec: object
+    tokenizer: object
+    top_k: int
+    stop: np.ndarray
+    stop_dev: torch.Tensor
+    sessions: dict = dataclasses.field(default_factory=dict)
+    results: dict = dataclasses.field(default_factory=dict)
 
 
 class ContinuousBatcher:
@@ -545,10 +543,10 @@ class ContinuousBatcher:
                       "decode_slot_steps": 0, "decode_graph_steps": 0,
                       "decode_graph_captures": 0, "guided_graph_steps": 0,
                       "guided_graph_captures": 0}
-        # The decode steps as CUDA graphs over this batcher's cache, where
-        # the program allows it; they go with the batcher.
-        self._graphs = (StepGraphs(self.cache, n_slots, self.stats)
-                        if graphable(program, self.device) else None)
+        # The decode steps' buffers over this batcher's cache, and their
+        # CUDA graphs where the program allows them; they go with the
+        # batcher.
+        self._graphs = StepGraphs(program, self.cache, self.stats)
 
     def _tensor(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array), device=self.device)
@@ -621,26 +619,56 @@ class ContinuousBatcher:
             for lo in range(0, len(group), rows):
                 yield bucket, group[lo:lo + rows]
 
-    def _prefill_admitted(self, admitted: list[tuple[int, GenRequest]]) -> None:
+    def _prefill(self, admitted: list[tuple[int, GenRequest]], head,
+                 take) -> None:
+        """Upload the block tables and prefill ``admitted`` in its bucket
+        groups: ``head(embeds, positions, true_len, slot_ids)`` calls the
+        program's prefill unit, whose rows are read on the host, and
+        ``take(slot, request, row)`` takes in each row once the slot's
+        length is set. ``prefill_s`` counts all of it."""
         t0 = time.perf_counter()
         self.cache.block_tables.copy_(self._tensor(self._tables))
         for bucket, group in self._prefill_groups(admitted):
             slots = np.array([s for s, _ in group], np.int64)
             true_len = np.array([len(r.prompt_ids) for _, r in group], np.int32)
             embeds, positions = self._build_prompt_inputs(group, bucket)
-            first = self.program.prefill(self.cache, embeds, positions,
-                                         self._tensor(true_len),
-                                         self._tensor(slots)).tolist()
+            out = head(embeds, positions, self._tensor(true_len),
+                       self._tensor(slots)).cpu().numpy()
             for row, (slot, request) in enumerate(group):
-                token = int(first[row])
-                self._last[slot] = token
                 self._host_len[slot] = len(request.prompt_ids)
-                eos = token == self.program.eos_token_id
-                finished = eos or request.max_new <= 1
-                request._emit([] if eos else [token], finished)
-                if finished:
-                    self._retire(slot)
+                take(slot, request, out[row])
         self.stats["prefill_s"] += time.perf_counter() - t0
+
+    def _prefill_admitted(self, admitted: list[tuple[int, GenRequest]]) -> None:
+        """``run``'s prefill: each row's first token is committed and
+        emitted (its EOS, or a budget of one, retires the slot)."""
+        def first(slot, request, token):
+            self._last[slot] = int(token)
+            self._emit_row(slot, [token])
+        self._prefill(admitted, lambda *inputs: self.program.prefill(
+            self.cache, *inputs), first)
+
+    def _emit_row(self, slot: int, row) -> tuple[int, bool]:
+        """Emit ``row``'s tokens to the slot's request up to its EOS or the
+        end of its budget, retiring the slot when either comes; returns
+        (the tokens emitted, whether EOS came)."""
+        request = self._slot_req[slot]
+        budget = request.max_new - len(request.tokens)
+        fresh: list[int] = []
+        finished = by_eos = False
+        for token in row:
+            token = int(token)
+            if token == self.program.eos_token_id:
+                finished = by_eos = True
+                break
+            fresh.append(token)
+            if len(fresh) >= budget:
+                finished = True
+                break
+        request._emit(fresh, finished)
+        if finished:
+            self._retire(slot)
+        return len(fresh), by_eos
 
     def _build_prompt_inputs(self, group, bucket):
         batch = len(group)
@@ -688,217 +716,153 @@ class ContinuousBatcher:
         complete=False only when EOS or the budget came before a required
         field (callers fall back to the parse ladder). Each request's
         ``tokens`` receives every token committed to its context."""
-        from handwritten_ocr_tpu_torch.utils.schema_decode import (
-            SchemaSession, compile_schema)
         self._check_fits(requests)
-        spec = compile_schema(schema)
-        eos = self.program.eos_token_id
-        stats = self.stats
-        clock = time.perf_counter
+        stop = _string_stop_mask(tokenizer, self.program.cfg.vocab_size,
+                                 self.program.eos_token_id)
+        g = _Guided(schema_decode.compile_schema(schema), tokenizer, top_k,
+                    stop, self._tensor(stop))
         queue = deque(requests)
-        sessions: dict[int, SchemaSession] = {}
-        results: dict[int, tuple[dict | None, bool]] = {}
-        stop_mask_host = _string_stop_mask(tokenizer,
-                                           self.program.cfg.vocab_size, eos)
-        stop_mask_dev = self._tensor(stop_mask_host)
-
-        def in_session(fn, *args):
-            """Call into a schema session, adding its host time to stats."""
-            t0 = clock()
-            try:
-                return fn(*args)
-            finally:
-                stats["session_s"] += clock() - t0
-
-        def commit(slot: int, token: int | None) -> None:
-            if token is None:
-                retire_slot(slot)
-            else:
-                self._last[slot] = token
-                self._slot_req[slot].tokens.append(token)
-                stats["guided_tokens"] += 1
-
-        def admit() -> None:
-            admitted = self._try_admit(queue)
-            if not admitted:
-                return
-            t0 = clock()
-            self.cache.block_tables.copy_(self._tensor(self._tables))
-            for bucket, group in self._prefill_groups(admitted):
-                slots = np.array([s for s, _ in group], np.int64)
-                true_len = np.array([len(r.prompt_ids) for _, r in group],
-                                    np.int32)
-                embeds, positions = self._build_prompt_inputs(group, bucket)
-                ids = self.program.prefill_topk(
-                    self.cache, embeds, positions, self._tensor(true_len),
-                    top_k, self._tensor(slots)).cpu().numpy()
-                for row, (slot, request) in enumerate(group):
-                    sessions[slot] = in_session(SchemaSession, spec, tokenizer,
-                                                eos, request.max_new)
-                    stats["sessions"] += 1
-                    self._host_len[slot] = len(request.prompt_ids)
-                    # Commit the first token now, establishing the loop
-                    # invariant: _last committed but not yet embedded. A
-                    # degenerate plan (a propertyless schema) finishes
-                    # without generating anything.
-                    commit(slot, in_session(sessions[slot].next_token,
-                                            ids[row]))
-            stats["prefill_s"] += clock() - t0
-
-        def retire_slot(slot: int) -> None:
-            request = self._slot_req[slot]
-            results[id(request)] = result = sessions.pop(slot).result()
-            stats["sessions_complete"] += int(result[1])
-            self._retire(slot)
-            self._last[slot] = eos
-
-        def string_verify_round() -> bool:
-            """Speculative advance of the in-span sessions: draft from
-            (prompt + committed) with the drafts cut at the first stop
-            token (the chunked loop would have stalled there), verify in
-            one forward, take in the accepted tokens and the bonus token
-            as a chunk row. False when the drafts do not justify a verify
-            round; the caller then runs the chunked loop. An editor's
-            ``corrected_text`` copies its prompt almost verbatim."""
-            if self._spec_cooldown > 0:
-                self._spec_cooldown -= 1
-                return False
-            drafters = [slot for slot, session in sessions.items()
-                        if session.in_string_span()
-                        and self._slot_req[slot].speculate]
-            if not drafters:
-                return False
-            drafts = np.zeros((self.n_slots, self.draft_k), np.int32)
-            draft_len = np.zeros((self.n_slots,), np.int32)
-            auto = np.zeros((self.n_slots,), bool)
-            for slot in drafters:
-                cap = min(self.draft_k, sessions[slot].budget - 1)
-                if cap <= 0:
-                    continue
-                request = self._slot_req[slot]
-                draft = _ngram_draft(np.concatenate([
-                    np.asarray(request.prompt_ids, np.int32),
-                    np.asarray(request.tokens, np.int32)]), cap)
-                stop_at = next((i for i, t in enumerate(draft)
-                                if stop_mask_host[t]), len(draft))
-                draft = draft[:stop_at]
-                if len(draft) >= 2:
-                    auto[slot] = True
-                    drafts[slot, :len(draft)] = draft
-                    draft_len[slot] = len(draft)
-            # Gate on every in-span session, speculating or not: the
-            # others make no progress in a verify round.
-            good = int(auto.sum())
-            n_in_span = sum(1 for s in sessions.values()
-                            if s.in_string_span())
-            if good * 2 < n_in_span or good == 0:
-                return False
-            t0 = clock()
-            tokens, accepted = self.program.verify_step(
-                self.cache, self._tensor(self._last), self._tensor(drafts),
-                self._tensor(draft_len), self._tensor(auto),
-                self._tensor(self._rope_delta),
-                table_pages=self._table_pages(sessions, self.draft_k + 2))
-            tokens = tokens.cpu().numpy()
-            accepted = accepted.cpu().numpy()
-            stats["verify_s"] += clock() - t0
-            total = 0
-            for slot in list(sessions):
-                if not auto[slot]:
-                    continue
-                n_acc = int(accepted[slot])
-                total += n_acc
-                emitted = [int(t) for t in tokens[slot, :n_acc + 1]]
-                self._host_len[slot] += 1 + n_acc
-                self._last[slot] = emitted[-1]
-                self._slot_req[slot].tokens.extend(emitted)
-                stats["guided_tokens"] += len(emitted)
-                stats["verify_tokens"] += len(emitted)
-                in_session(sessions[slot].absorb_string_tokens, emitted)
-                if sessions[slot].done:
-                    retire_slot(slot)
-            self._count_round(draft_len, total, good)
-            return True
-
-        def string_chunk_round() -> None:
-            """Advance every session inside a string value span with the
-            chunked device loop (up to ``chunk`` string tokens per in-span
-            slot; other slots freeze) instead of per-token host guidance."""
-            t0 = clock()
-            auto = np.zeros((self.n_slots,), bool)
-            remaining = np.zeros((self.n_slots,), np.int32)
-            for slot, session in sessions.items():
-                if session.in_string_span():
-                    auto[slot] = True
-                    remaining[slot] = max(session.budget, 0)
-            tokens, last, _, steps = self.program.string_chunk(
-                self.cache, self._tensor(self._last), self._tensor(auto),
-                self._tensor(remaining), stop_mask_dev,
-                self._tensor(self._rope_delta), self.chunk,
-                # Width covers frozen sessions too.
-                table_pages=self._table_pages(sessions, self.chunk + 1),
-                graphs=self._graphs)
-            tokens = tokens.cpu().numpy()
-            self._last = last.cpu().numpy().astype(np.int32)
-            stats["decode_s"] += clock() - t0
-            stats["string_steps"] += steps
-            for slot in list(sessions):
-                if not auto[slot]:
-                    continue
-                row: list[int] = []
-                for token in tokens[slot]:
-                    token = int(token)
-                    row.append(token)
-                    if stop_mask_host[token] or token == eos:
-                        break
-                # The device advanced len(row), except when the budget
-                # stalled it on a plain token and the trailing filler EOS
-                # was also taken in: a +1 that only widens the table
-                # bound, for a session that dies (budget spent) now.
-                self._host_len[slot] += len(row)
-                self._slot_req[slot].tokens.extend(row)
-                stats["guided_tokens"] += len(row)
-                in_session(sessions[slot].absorb_string_tokens, row)
-                if sessions[slot].done:
-                    retire_slot(slot)
-
         # Loop invariant at every round boundary: each active slot's
         # ``_last`` token is committed but NOT yet embedded or written;
         # both stepping disciplines (the top-k step and the string chunk)
         # start by embedding ``_last``, so they compose freely.
-        while queue or sessions:
-            admit()
-            if not sessions:
+        while queue or g.sessions:
+            self._open_sessions(g, queue)
+            if not g.sessions:
                 # Every admitted session finished at once; with every
                 # block free again, the queue's head fits next round.
                 continue
             # Drain string value spans: verify rounds while the drafts
-            # justify them, else the chunked loop. Afterwards no session
-            # is mid-span (a resolved span refills the scaffold queue).
-            while sessions and any(s.in_string_span()
-                                   for s in sessions.values()):
-                if not string_verify_round():
-                    string_chunk_round()
-            if queue and self._free_slots:
-                admit()
-            if not sessions:
+            # justify them (an editor's ``corrected_text`` copies its
+            # prompt almost verbatim), else the chunked loop. Afterwards no
+            # session is mid-span (a resolved span refills the scaffold
+            # queue).
+            while any(s.in_string_span() for s in g.sessions.values()):
+                spec = self._spec_drafts(
+                    {slot: session.budget for slot, session
+                     in g.sessions.items() if session.in_string_span()},
+                    g.stop)
+                if spec is None:
+                    self._string_chunk_round(g)
+                else:
+                    self._verify_round(*spec, lambda slot, row:
+                                       self._absorb(g, slot, row))
+            self._open_sessions(g, queue)
+            if g.sessions:
+                self._topk_round(g)
+        return [g.results[id(request)] for request in requests]
+
+    def _open_sessions(self, g: _Guided, queue: deque) -> None:
+        """Admit what fits from ``queue`` and prefill it: each row opens a
+        schema session and commits its first token, which establishes
+        ``run_guided``'s loop invariant. A degenerate plan (a propertyless
+        schema) finishes without generating anything."""
+        admitted = self._try_admit(queue)
+        if not admitted:
+            return
+
+        def open_session(slot, request, ids):
+            session = g.sessions[slot] = self._in_session(
+                schema_decode.SchemaSession, g.spec, g.tokenizer,
+                self.program.eos_token_id, request.max_new)
+            self.stats["sessions"] += 1
+            self._commit(g, slot, self._in_session(session.next_token, ids))
+        self._prefill(admitted, lambda embeds, positions, true_len, slots:
+                      self.program.prefill_topk(self.cache, embeds, positions,
+                                                true_len, g.top_k, slots),
+                      open_session)
+
+    def _in_session(self, fn, *args):
+        """Call into a schema session, adding its host time to stats."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.stats["session_s"] += time.perf_counter() - t0
+
+    def _commit(self, g: _Guided, slot: int, token: int | None) -> None:
+        """Commit a session's next token (None: the session finished)."""
+        if token is None:
+            self._end_session(g, slot)
+        else:
+            self._last[slot] = token
+            self._slot_req[slot].tokens.append(token)
+            self.stats["guided_tokens"] += 1
+
+    def _end_session(self, g: _Guided, slot: int) -> None:
+        request = self._slot_req[slot]
+        g.results[id(request)] = result = g.sessions.pop(slot).result()
+        self.stats["sessions_complete"] += int(result[1])
+        self._retire(slot)
+        self._last[slot] = self.program.eos_token_id
+
+    def _absorb(self, g: _Guided, slot: int, row: list[int]) -> int:
+        """Take a string span's tokens into the slot's request and session,
+        ending the session when it is done; returns how many."""
+        self._slot_req[slot].tokens.extend(row)
+        self.stats["guided_tokens"] += len(row)
+        self._in_session(g.sessions[slot].absorb_string_tokens, row)
+        if g.sessions[slot].done:
+            self._end_session(g, slot)
+        return len(row)
+
+    def _string_chunk_round(self, g: _Guided) -> None:
+        """Advance every session inside a string value span with the
+        chunked device loop (up to ``chunk`` string tokens per in-span
+        slot; other slots freeze) instead of per-token host guidance."""
+        t0 = time.perf_counter()
+        auto = np.zeros((self.n_slots,), bool)
+        remaining = np.zeros((self.n_slots,), np.int32)
+        for slot, session in g.sessions.items():
+            if session.in_string_span():
+                auto[slot] = True
+                remaining[slot] = max(session.budget, 0)
+        tokens, last, _, steps = self.program.string_chunk(
+            self.cache, self._tensor(self._last), self._tensor(auto),
+            self._tensor(remaining), g.stop_dev,
+            self._tensor(self._rope_delta), self.chunk,
+            # Width covers frozen sessions too.
+            table_pages=self._table_pages(g.sessions, self.chunk + 1),
+            graphs=self._graphs)
+        tokens = tokens.cpu().numpy()
+        self._last = last.cpu().numpy().astype(np.int32)
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["string_steps"] += steps
+        for slot in list(g.sessions):
+            if not auto[slot]:
                 continue
-            t0 = clock()
-            active = np.zeros((self.n_slots,), bool)
-            for slot in sessions:
-                active[slot] = True
-                self._host_len[slot] += 1
-            ids = self.program.step_topk(
-                self.cache, self._tensor(self._last), self._tensor(active),
-                self._tensor(self._rope_delta), top_k,
-                table_pages=self._table_pages(sessions, 2),
-                graphs=self._graphs).cpu().numpy()
-            stats["decode_s"] += clock() - t0
-            stats["topk_steps"] += 1
-            for slot in list(sessions):
-                # None: the session finished (or exhausted and drained).
-                commit(slot, in_session(sessions[slot].next_token, ids[slot]))
-        return [results[id(request)] for request in requests]
+            row: list[int] = []
+            for token in tokens[slot]:
+                token = int(token)
+                row.append(token)
+                if g.stop[token] or token == self.program.eos_token_id:
+                    break
+            # The device advanced len(row), except when the budget
+            # stalled it on a plain token and the trailing filler EOS
+            # was also taken in: a +1 that only widens the table
+            # bound, for a session that dies (budget spent) now.
+            self._host_len[slot] += len(row)
+            self._absorb(g, slot, row)
+
+    def _topk_round(self, g: _Guided) -> None:
+        """One batched top-k step: every session commits one token from
+        its slot's top-k."""
+        t0 = time.perf_counter()
+        active = np.zeros((self.n_slots,), bool)
+        for slot in g.sessions:
+            active[slot] = True
+            self._host_len[slot] += 1
+        ids = self.program.step_topk(
+            self.cache, self._tensor(self._last), self._tensor(active),
+            self._tensor(self._rope_delta), g.top_k,
+            table_pages=self._table_pages(g.sessions, 2),
+            graphs=self._graphs).cpu().numpy()
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["topk_steps"] += 1
+        for slot in list(g.sessions):
+            # None: the session finished (or exhausted and drained).
+            self._commit(g, slot, self._in_session(g.sessions[slot].next_token,
+                                                   ids[slot]))
 
     # ── speculative decoding (prompt-lookup drafting) ─────────────
     def _count_round(self, draft_len: np.ndarray, accepted: int,
@@ -911,23 +875,32 @@ class ContinuousBatcher:
         if live and accepted / live < 2.0:
             self._spec_cooldown = 1
 
-    def _spec_drafts(self) -> tuple[np.ndarray, np.ndarray] | None:
-        """Per-slot drafts for a verify round, or None when a plain decode
-        chunk is the better dispatch: nobody speculates, the drafts came
-        up short, or a cooldown is on."""
+    def _spec_drafts(self, budgets: dict[int, int],
+                     stop: np.ndarray | None = None):
+        """Drafts for a verify round over the slots of ``budgets`` (slot ->
+        the tokens it may still commit, in the order the round takes them
+        in): (drafts [S, draft_k], draft_len [S], the slots that take
+        part), or None when a plain dispatch is the better one: a cooldown
+        is on, none of the slots speculates, or fewer than half of them
+        drafted two tokens or more (a verify round advances a slot without
+        a draft by one token, where a plain dispatch advances it by a
+        chunk).
+
+        Without ``stop`` (plain decode) every slot takes part. With it
+        (guided decode's string spans) each draft is cut at its first stop
+        token, and only the slots left with two tokens or more take part."""
         if self._spec_cooldown > 0:
             self._spec_cooldown -= 1
             return None
-        speculating = [slot for slot, request in self._slot_req.items()
-                       if request.speculate]
+        speculating = [slot for slot in budgets
+                       if self._slot_req[slot].speculate]
         if not speculating:
             return None
         drafts = np.zeros((self.n_slots, self.draft_k), np.int32)
         draft_len = np.zeros((self.n_slots,), np.int32)
-        good = 0
         for slot in speculating:
             request = self._slot_req[slot]
-            cap = min(self.draft_k, request.max_new - len(request.tokens) - 1)
+            cap = min(self.draft_k, budgets[slot] - 1)
             if cap <= 0:
                 continue
             if request.draft_oracle is not None:
@@ -938,23 +911,30 @@ class ContinuousBatcher:
                 draft = _ngram_draft(np.concatenate([
                     np.asarray(request.prompt_ids, np.int32),
                     np.asarray(request.tokens, np.int32)]), cap)
-            good += len(draft) >= 2
+            if stop is not None:
+                stop_at = next((i for i, t in enumerate(draft) if stop[t]),
+                               len(draft))
+                draft = draft[:stop_at]
+                if len(draft) < 2:
+                    continue
             drafts[slot, :len(draft)] = draft
             draft_len[slot] = len(draft)
-        # Verify only when at least half of ALL live slots drafted two
-        # tokens or more: a verify round advances a slot without a draft
-        # by one token, where a plain chunk advances it by a chunk.
-        if good * 2 < len(self._slot_req) or good == 0:
+        good = int((draft_len >= 2).sum())
+        if good * 2 < len(budgets) or good == 0:
             return None
-        return drafts, draft_len
+        if stop is None:
+            return drafts, draft_len, list(budgets)
+        return drafts, draft_len, [slot for slot in budgets if draft_len[slot]]
 
-    def _verify_round(self, drafts: np.ndarray, draft_len: np.ndarray) -> None:
-        """One verify forward: every live slot takes its longest
-        greedy-matching draft prefix and the bonus token."""
+    def _verify_round(self, drafts: np.ndarray, draft_len: np.ndarray,
+                      slots: list[int], take) -> None:
+        """One verify forward (``_spec_drafts``' round): each of ``slots``
+        takes its longest greedy-matching draft prefix and the bonus token.
+        ``take(slot, emitted)`` takes them in, once the slot's length and
+        last token are set, and returns how many it committed."""
         t0 = time.perf_counter()
-        eos = self.program.eos_token_id
         active = np.zeros((self.n_slots,), bool)
-        active[list(self._slot_req)] = True
+        active[slots] = True
         tokens, accepted = self.program.verify_step(
             self.cache, self._tensor(self._last), self._tensor(drafts),
             self._tensor(draft_len), self._tensor(active),
@@ -964,29 +944,14 @@ class ContinuousBatcher:
         accepted = accepted.cpu().numpy()
         self.stats["verify_s"] += time.perf_counter() - t0
         total = 0
-        for slot in list(self._slot_req):
-            request = self._slot_req[slot]
+        for slot in slots:
             n_acc = int(accepted[slot])
             total += n_acc
             emitted = [int(t) for t in tokens[slot, :n_acc + 1]]
             self._host_len[slot] += 1 + n_acc       # the rows written
             self._last[slot] = emitted[-1]          # committed, not embedded
-            budget = request.max_new - len(request.tokens)
-            fresh: list[int] = []
-            finished = False
-            for token in emitted:
-                if token == eos:
-                    finished = True
-                    break
-                fresh.append(token)
-                if len(fresh) >= budget:
-                    finished = True
-                    break
-            request._emit(fresh, finished)
-            self.stats["verify_tokens"] += len(fresh)
-            if finished:
-                self._retire(slot)
-        self._count_round(draft_len, total, int(active.sum()))
+            self.stats["verify_tokens"] += take(slot, emitted)
+        self._count_round(draft_len, total, len(slots))
 
     # ── the serving loop ──────────────────────────────────────────
     def run(self, requests: Sequence[GenRequest]) -> list[list[int]]:
@@ -995,7 +960,6 @@ class ContinuousBatcher:
         chunks complete. Requests that ``speculate`` interleave verify
         rounds with the plain decode chunks."""
         self._check_fits(requests)
-        eos = self.program.eos_token_id
         queue = deque(requests)
         while queue or self._slot_req:
             admitted = self._try_admit(queue)
@@ -1005,9 +969,11 @@ class ContinuousBatcher:
                 # Every admitted request finished in its prefill; with
                 # every block free again, the queue's head fits next round.
                 continue
-            spec = self._spec_drafts()
+            spec = self._spec_drafts({slot: r.max_new - len(r.tokens)
+                                      for slot, r in self._slot_req.items()})
             if spec is not None:
-                self._verify_round(*spec)
+                self._verify_round(*spec, lambda slot, row:
+                                   self._emit_row(slot, row)[0])
                 continue
             t0 = time.perf_counter()
             done0 = np.ones((self.n_slots,), bool)
@@ -1031,28 +997,13 @@ class ContinuousBatcher:
             self.stats["decode_s"] += time.perf_counter() - t0
             longest = 0
             for slot in list(self._slot_req):
-                request = self._slot_req[slot]
-                fresh: list[int] = []
-                finished = by_eos = False
-                budget = request.max_new - len(request.tokens)
-                for token in tokens[slot]:
-                    token = int(token)
-                    if token == eos:
-                        finished = by_eos = True
-                        break
-                    fresh.append(token)
-                    if len(fresh) >= budget:
-                        finished = True
-                        break
-                request._emit(fresh, finished)
-                self.stats["decode_tokens"] += len(fresh)
+                fresh, by_eos = self._emit_row(slot, tokens[slot])
+                self.stats["decode_tokens"] += fresh
                 # The steps the slot ran live: its tokens and the step
                 # that emitted its EOS.
-                ran = len(fresh) + by_eos
+                ran = fresh + by_eos
                 self.stats["decode_slot_steps"] += ran
                 longest = max(longest, ran)
-                if finished:
-                    self._retire(slot)
             self.stats["decode_steps"] += longest
             for slot in self._slot_req:
                 # Survivors ran the full chunk (a chunk ends early only

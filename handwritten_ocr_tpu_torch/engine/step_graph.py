@@ -10,15 +10,21 @@ body (the greedy step of a plain chunk, guided decode's string step or
 its top-k step), the batcher's table width and the rope path, and for the
 top-k step its ``k``.
 
-The first step of a key runs eagerly, on the graphs' own stream: it is a
-real step, and it also sizes the kernels' workspaces and sets up cuBLAS
-on that stream. The step is then captured (capture runs nothing, so no
-state moves) and every later step of the key replays it. The graph reads
-the step's inputs from buffers of its own (:meth:`StepGraphs.load`) and
-points at the batcher's cache directly: the pools, ``lengths`` and
-``block_tables`` are updated in place and never reallocated. A replay
-writes its output into the same tensor every time: a caller that keeps
-it past the next replay keeps a copy.
+Every batcher holds one :class:`StepGraphs`, and every step reads its
+inputs from the buffers :meth:`StepGraphs.load` fills, so the units of
+``engine/serving.py`` have one body whether their steps are captured or
+not. Whether they are is decided once, at construction, by
+:func:`graphable`; where they are not (the CPU, tensor parallelism,
+FSDP), :meth:`StepGraphs.step` runs the step eagerly and counts nothing.
+
+Where they are, the first step of a key runs eagerly, on the graphs' own
+stream: it is a real step, and it also sizes the kernels' workspaces and
+sets up cuBLAS on that stream. The step is then captured (capture runs
+nothing, so no state moves) and every later step of the key replays it.
+The graph reads the buffers and points at the batcher's cache directly:
+the pools, ``lengths`` and ``block_tables`` are updated in place and
+never reallocated. A replay writes its output into the same tensor every
+time: a caller that keeps it past the next replay keeps a copy.
 
 What a replay must keep as an eager step has it:
 
@@ -37,10 +43,10 @@ with its batcher: dropping the batcher frees the graphs and their memory.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
+from handwritten_ocr_tpu_torch.models.layers import rope_fp32
 from handwritten_ocr_tpu_torch.ops import build, launch_counters
 
 
@@ -62,54 +68,56 @@ class _Captured:
 
 
 class StepGraphs:
-    """CUDA graphs of one batcher's decode steps over its ``cache``, one
-    per key; ``stats`` (the batcher's) counts the steps replayed and the
-    captures, of the greedy step (``decode_graph_steps``,
-    ``decode_graph_captures``) and of guided decode's string and top-k
-    steps (``guided_graph_steps``, ``guided_graph_captures``) apart.
+    """The step buffers of one batcher over its ``cache`` and, where
+    :func:`graphable` holds for ``program`` on the cache's device
+    (``captures``), the CUDA graphs of its decode steps, one per key;
+    ``stats`` (the batcher's) counts the steps replayed and the captures,
+    of the greedy step (``decode_graph_steps``, ``decode_graph_captures``)
+    and of guided decode's string and top-k steps (``guided_graph_steps``,
+    ``guided_graph_captures``) apart.
     """
 
-    def __init__(self, cache, n_slots: int, stats: dict):
+    def __init__(self, program, cache, stats: dict):
         device = cache.lengths.device
+        n_slots = cache.lengths.shape[0]
         self.cache = cache
         self.stats = stats
+        self.captures = graphable(program, device)
         self.last = torch.zeros((n_slots,), dtype=torch.int32, device=device)
-        # the greedy step's finished slots; the guided steps' live ones
-        self.done = torch.zeros((n_slots,), dtype=torch.bool, device=device)
-        self.valid = torch.zeros((n_slots,), dtype=torch.bool, device=device)
+        self.live = torch.zeros((n_slots,), dtype=torch.bool, device=device)
         self.rope_delta = torch.zeros((n_slots,), dtype=torch.int32,
                                       device=device)
         self.slot_ids = torch.arange(n_slots, device=device)
-        self._stream = torch.cuda.Stream(device)
-        self._pool = torch.cuda.graph_pool_handle()
         self._graphs: dict = {}
+        if self.captures:
+            self._stream = torch.cuda.Stream(device)
+            self._pool = torch.cuda.graph_pool_handle()
 
     @staticmethod
     def key(body: str, table_pages: int | None, *extra) -> tuple:
         """The key of a step: its ``body`` (``"greedy"``, ``"string"`` or
-        ``"topk"``), the table width, the rope path (``HOCR_TPU_ROPE_FP32``,
+        ``"topk"``), the table width, the rope path (:func:`rope_fp32`,
         read here, once a chunk or step, so that a graph holds one path)
         and what else shapes the body (the top-k's ``k``)."""
-        return (body, table_pages,
-                bool(os.environ.get("HOCR_TPU_ROPE_FP32")), *extra)
+        return (body, table_pages, rope_fp32(), *extra)
 
-    def load(self, last: torch.Tensor, rope_delta: torch.Tensor, *,
-             done: torch.Tensor | None = None,
-             valid: torch.Tensor | None = None) -> None:
-        """Copy a chunk's (or a step's) inputs into the buffers the graphs
-        read: ``done`` for the greedy step, ``valid`` for the guided ones."""
+    def load(self, last: torch.Tensor, rope_delta: torch.Tensor,
+             live: torch.Tensor) -> None:
+        """Copy a chunk's (or a step's) inputs into the buffers the steps
+        read: each slot's last token, its rope delta and whether it is
+        live (steps; a slot that is not appends nothing)."""
         self.last.copy_(last)
         self.rope_delta.copy_(rope_delta)
-        if done is not None:
-            self.done.copy_(done)
-        if valid is not None:
-            self.valid.copy_(valid)
+        self.live.copy_(live)
 
     def step(self, key, step) -> torch.Tensor:
         """The output of ``step()``, one decode step over the buffers of
-        :meth:`load`: replayed from the graph of ``key`` (the same tensor
-        at every replay), or, at a key's first step, run eagerly and then
+        :meth:`load`: run eagerly where the steps are not captured;
+        otherwise replayed from the graph of ``key`` (the same tensor at
+        every replay), or, at a key's first step, run eagerly and then
         captured."""
+        if not self.captures:
+            return step()
         counter = "decode" if key[0] == "greedy" else "guided"
         captured = self._graphs.get(key)
         if captured is not None:

@@ -166,6 +166,12 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def rope_fp32() -> bool:
+    """Whether bf16 rope computes in fp32: ``HOCR_TPU_ROPE_FP32`` set and
+    non-empty, read at each call, as the JAX package does."""
+    return bool(os.environ.get("HOCR_TPU_ROPE_FP32"))
+
+
 def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Rotary application (HF apply_rotary_pos_emb semantics).
@@ -178,8 +184,7 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     in their own way whatever the variable says, as JAX's window kernel
     does.
     """
-    fast = (q.dtype == torch.bfloat16
-            and not os.environ.get("HOCR_TPU_ROPE_FP32"))
+    fast = q.dtype == torch.bfloat16 and not rope_fp32()
     compute = q.dtype if fast else torch.float32
     qf, kf = q.to(compute), k.to(compute)
     cosf, sinf = cos.to(compute), sin.to(compute)

@@ -15,6 +15,7 @@ tokens must be equal per request.
 """
 
 import json
+from collections import deque
 
 import jax
 import jax.numpy as jnp
@@ -163,21 +164,12 @@ class ReplayedOutputs(StepGraphs):
     overwrites, as a graph's replay does; the first step of a key counts
     as its capture."""
 
-    def __init__(self, cache, n_slots: int, stats: dict):
-        self.cache, self.stats = cache, stats
-        self.last = torch.zeros((n_slots,), dtype=torch.int32)
-        self.done = torch.zeros((n_slots,), dtype=torch.bool)
-        self.valid = torch.zeros((n_slots,), dtype=torch.bool)
-        self.rope_delta = torch.zeros((n_slots,), dtype=torch.int32)
-        self.slot_ids = torch.arange(n_slots)
-        self.outputs: dict = {}
-
     def step(self, key, step):
         out = step()
         counter = "decode" if key[0] == "greedy" else "guided"
-        held = self.outputs.get(key)
+        held = self._graphs.get(key)      # the output in place of a graph
         if held is None:
-            self.outputs[key] = out
+            self._graphs[key] = out
             self.stats[f"{counter}_graph_captures"] += 1
             return out
         held.copy_(out)
@@ -208,9 +200,9 @@ def test_guided_steps_over_replayed_outputs_equal_eager(programs, contract,
             monkeypatch.setattr(program, name, keep)
         batcher = serving.ContinuousBatcher(
             program, dtype=torch.float32, device="cpu", chunk=chunk, **BATCHER)
-        assert batcher._graphs is None
+        assert not batcher._graphs.captures
         if replayed:
-            batcher._graphs = ReplayedOutputs(batcher.cache, batcher.n_slots,
+            batcher._graphs = ReplayedOutputs(program, batcher.cache,
                                               batcher.stats)
         requests = [serving.GenRequest(ids, budget)
                     for ids, budget in prompts()]
@@ -234,6 +226,50 @@ def test_guided_steps_over_replayed_outputs_equal_eager(programs, contract,
     assert stats["guided_graph_captures"] >= 2
     assert stats["guided_graph_steps"] == steps - stats["guided_graph_captures"]
     assert stats["decode_graph_steps"] == stats["decode_graph_captures"] == 0
+
+
+@pytest.mark.parametrize("unit", ["decode_chunk", "string_chunk",
+                                  "step_topk"])
+def test_a_step_unit_keeps_its_inputs_and_hands_out_copies(programs, unit):
+    """A unit's caller keeps its inputs and outputs past the next step (the
+    benchmark's ``instrument`` reads them after the call, its recorder
+    keeps every top-k until the round ends): each step unit leaves its
+    input tensors as they were and returns tensors that share no memory
+    with the batcher's step buffers, and a later step, whose replay
+    writes the same output tensor, changes none of them."""
+    program = programs[1]
+    batcher = serving.ContinuousBatcher(program, dtype=torch.float32,
+                                        device="cpu", **BATCHER)
+    batcher._graphs = graphs = ReplayedOutputs(program, batcher.cache,
+                                               batcher.stats)
+    batcher._prefill_admitted(batcher._try_admit(deque(
+        serving.GenRequest(ids, budget) for ids, budget in prompts()[:2])))
+    live = torch.ones((batcher.n_slots,), dtype=torch.bool)
+    remaining = torch.full((batcher.n_slots,), 3, dtype=torch.int32)
+    rope = torch.zeros((batcher.n_slots,), dtype=torch.int32)
+    stop = torch.zeros((TINY["vocab_size"],), dtype=torch.bool)
+
+    def call(last):
+        args = {"decode_chunk": (last, ~live, remaining, rope, 4),
+                "string_chunk": (last, live, remaining, stop, rope, 4),
+                "step_topk": (last, live, rope, 5)}[unit]
+        inputs = [a for a in args if isinstance(a, torch.Tensor)]
+        before = [t.clone() for t in inputs]
+        out = getattr(program, unit)(batcher.cache, *args, graphs=graphs)
+        assert all(torch.equal(t, b) for t, b in zip(inputs, before))
+        return [t for t in (out if isinstance(out, tuple) else (out,))
+                if isinstance(t, torch.Tensor)]
+
+    outputs = call(torch.as_tensor(batcher._last))
+    kept = [t.clone() for t in outputs]
+    buffers = [graphs.last, graphs.live, graphs.rope_delta, graphs.slot_ids,
+               *graphs._graphs.values()]
+    assert len(graphs._graphs) == 1
+    for out in outputs:
+        assert all(out.untyped_storage().data_ptr()
+                   != buf.untyped_storage().data_ptr() for buf in buffers)
+    call(torch.as_tensor(batcher._last) + 1)
+    assert all(torch.equal(t, k) for t, k in zip(outputs, kept))
 
 
 @pytest.fixture(scope="module")

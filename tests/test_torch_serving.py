@@ -246,7 +246,7 @@ def test_the_cpu_batcher_steps_eagerly():
     batcher = ContinuousBatcher(
         PagedProgram(port["text"], port_cfg.text, eos_token_id=EOS),
         dtype=torch.float32, device="cpu", **BATCHER)
-    assert batcher._graphs is None
+    assert not batcher._graphs.captures
     assert batcher.run(requests(GenRequest)) == want
     assert batcher.stats["decode_steps"] > 0
     assert batcher.stats["decode_graph_steps"] == 0
@@ -299,6 +299,22 @@ def _graph_case(name):
                       num_key_value_heads=1, head_dim=128, eos_token_id=EOS)
     return (init_qwen3(cfg, dtype=torch.bfloat16, device="cpu", seed=2,
                        quantize="int8"), cfg, torch.bfloat16, True)
+
+
+def _batcher_on_cuda(params, cfg, graphed: bool, **kw):
+    """A batcher on the card whose ``StepGraphs`` captures its steps, or,
+    for the eager side of a comparison, one that :func:`graphable` is
+    made to refuse, so that every step runs eagerly through the same
+    bodies and buffers."""
+    from handwritten_ocr_tpu_torch.engine import step_graph
+    with pytest.MonkeyPatch.context() as patch:
+        if not graphed:
+            patch.setattr(step_graph, "graphable",
+                          lambda program, device: False)
+        batcher = ContinuousBatcher(
+            PagedProgram(params, cfg, eos_token_id=EOS), device="cuda", **kw)
+    assert batcher._graphs.captures is graphed
+    return batcher
 
 
 def _long_requests(speculate: bool = False):
@@ -362,10 +378,7 @@ def test_graphed_decode_equals_eager_on_cuda(case):
     for graphed in (False, True):
         for ws in (paged._WORKSPACE, int8_mod._WORKSPACE):
             ws._buffers.clear()     # each run sizes its own, from nothing
-        batcher = ContinuousBatcher(
-            PagedProgram(params, cfg, eos_token_id=EOS), device="cuda", **kw)
-        if not graphed:
-            batcher._graphs = None
+        batcher = _batcher_on_cuda(params, cfg, graphed, **kw)
         before = [getattr(fn, attr) for _, fn, attr in launch_counters()]
         tokens, refilled = _serve_three_times(batcher)
         torch.cuda.synchronize()
@@ -437,10 +450,7 @@ def test_graphed_guided_decode_equals_eager_on_cuda(case):
     for graphed in (False, True):
         for ws in (paged._WORKSPACE, int8_mod._WORKSPACE):
             ws._buffers.clear()     # each run sizes its own, from nothing
-        batcher = ContinuousBatcher(
-            PagedProgram(params, cfg, eos_token_id=EOS), device="cuda", **kw)
-        if not graphed:
-            batcher._graphs = None
+        batcher = _batcher_on_cuda(params, cfg, graphed, **kw)
         before = [getattr(fn, attr) for _, fn, attr in launch_counters()]
         guided, plain, after_guided = _serve_guided_and_plain(batcher)
         torch.cuda.synchronize()
@@ -450,7 +460,7 @@ def test_graphed_guided_decode_equals_eager_on_cuda(case):
         pools = [getattr(cache, name).clone() for name in
                  ("k", "v", "k_scale", "v_scale")
                  if getattr(cache, name) is not None]
-        keys = list(batcher._graphs._graphs) if graphed else []
+        keys = list(batcher._graphs._graphs)
         runs[graphed] = (guided, plain, cache.lengths.clone(), pools,
                          launches, dict(batcher.stats), after_guided, keys)
         del batcher, cache
